@@ -1,0 +1,36 @@
+"""dsjax_torch — the PyTorch/CUDA port of dsjax for one NVIDIA Hopper card.
+
+The JAX package ``dsjax`` is the reference; each module here mirrors the
+dsjax module of the same name and is held against it by a CPU test
+(``tests/test_torch_*.py``). Plain tensor code is PyTorch. The Pallas TPU
+kernels become kernels written by hand for sm_90a under ``csrc/``, built
+with nvcc at first use (``dsjax_torch.ops._build``).
+
+This slice covers the serving path: host STFT features, the DeepSpeech2
+forward with bidirectional LSTM layers (the recurrence runs in
+``csrc/lstm_fwd.cu``), greedy CTC decoding and the HTTP server
+(``python -m dsjax_torch.server model.model_path=...``).
+
+The package never imports jax. Importing it builds and loads nothing.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy public API: submodules load on first use."""
+    api = {
+        "DeepSpeech2": ("dsjax_torch.model.ds2", "DeepSpeech2"),
+        "GreedyDecoder": ("dsjax_torch.decode.greedy", "GreedyDecoder"),
+        "ModelBundle": ("dsjax_torch.inference", "ModelBundle"),
+        "load_model": ("dsjax_torch.inference", "load_model"),
+        "lstm_scan": ("dsjax_torch.ops.lstm", "lstm_scan"),
+        "ServerConfig": ("dsjax_torch.config", "ServerConfig"),
+        "compose": ("dsjax_torch.config", "compose"),
+    }
+    if name in api:
+        import importlib
+
+        module, attr = api[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'dsjax_torch' has no attribute {name!r}")

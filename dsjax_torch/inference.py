@@ -1,0 +1,140 @@
+"""Inference: model loading, the batched and carried forward, transcription.
+
+Counterpart of dsjax/inference.py on one torch device. ``load_model`` reads a
+``.pt``/``.ckpt`` file holding a reference-layout state_dict and the
+hyper-parameters beside it, as ``dsjax_torch.model.convert.save_checkpoint``
+writes them. The device defaults to ``cuda``; without a CUDA card the caller
+must ask for ``device="cpu"``.
+
+Not ported yet (ROADMAP.md, Queue 1): the raw-audio forward with the device
+STFT, beam decoders, dsjax checkpoint directories, multi-device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dsjax_torch.audio.features import FeatureExtractor
+from dsjax_torch.audio.io import load_audio
+from dsjax_torch.config import DecoderType, LMConfig, SpectConfig, SpectrogramWindow
+from dsjax_torch.decode.greedy import GreedyDecoder
+from dsjax_torch.labels import DEFAULT_LABELS
+from dsjax_torch.model.convert import from_reference_state_dict, infer_architecture
+from dsjax_torch.model.ds2 import DeepSpeech2
+
+
+def resolve_device(device: Any) -> torch.device:
+    """torch.device for ``device``; refuses CUDA where there is none rather
+    than running on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' to run the "
+                           "model on the CPU")
+    return device
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    model: DeepSpeech2
+    labels: List[str]
+    spect_cfg: SpectConfig
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.model.to(self.device).eval()
+
+    def forward(self, spect, lengths, carry=None):
+        """(B, F, T) features -> (probs (B, T', C) float32, out_lens (B,),
+        carry), all on the bundle's device. ``carry`` is the value returned
+        by the previous call of a chunked stream."""
+        if np.ndim(spect) != 3:
+            raise NotImplementedError("only (B, F, T) features: the raw-audio "
+                                      "forward waits for the device STFT")
+        with torch.inference_mode():
+            x = torch.as_tensor(spect, dtype=torch.float32, device=self.device)
+            lens = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
+            return self.model(x, lens, carry)
+
+
+def load_model(model_path: str, precision: int = 32, device: Any = "cuda") -> ModelBundle:
+    """Load a checkpoint written by ``save_checkpoint``: a reference-layout
+    state_dict with labels and spect_cfg among its hyper-parameters."""
+    device = resolve_device(device)
+    ckpt = torch.load(model_path, map_location="cpu", weights_only=True)
+    state = ckpt.get("state_dict", ckpt)
+    hparams = ckpt.get("hyper_parameters", {}) or {}
+    model_cfg, num_classes = infer_architecture(state)
+    labels = list(hparams.get("labels") or DEFAULT_LABELS)
+    spect = SpectConfig()
+    sp = hparams.get("spect_cfg")
+    if isinstance(sp, dict):
+        spect = SpectConfig(
+            sample_rate=int(sp.get("sample_rate", spect.sample_rate)),
+            window_size=float(sp.get("window_size", spect.window_size)),
+            window_stride=float(sp.get("window_stride", spect.window_stride)),
+            window=SpectrogramWindow(sp.get("window", spect.window.value)))
+    dtype = torch.bfloat16 if precision == 16 else torch.float32
+    model = DeepSpeech2(num_classes, spect, model_cfg, dtype=dtype)
+    model.load_state_dict(from_reference_state_dict(state))
+    return ModelBundle(model, labels, spect, device)
+
+
+def load_decoder(labels: Sequence[str], cfg: LMConfig) -> GreedyDecoder:
+    """The decoder LMConfig asks for; only greedy is ported."""
+    if cfg.decoder_type == DecoderType.beam:
+        raise NotImplementedError("beam decoding is not ported yet (ROADMAP.md, "
+                                  "Queue 1: device beam search and the LM)")
+    return GreedyDecoder(labels)
+
+
+def run_transcribe(audio_path: str, bundle: ModelBundle, decoder,
+                   chunk_size_seconds: float = -1.0, normalize: bool = True,
+                   n_best: Optional[int] = None
+                   ) -> Tuple[List[List[str]], List[List[np.ndarray]]]:
+    """Chunked transcription carrying the RNN state from chunk to chunk;
+    chunk_size_seconds <= 0 transcribes in one shot."""
+    extractor = FeatureExtractor(bundle.spect_cfg, normalize=normalize)
+    y = load_audio(audio_path, bundle.spect_cfg.sample_rate)
+    carry = None
+    outs = []
+    for y_chunk in extractor.chunks(y, chunk_size_seconds):
+        if len(y_chunk) == 0:
+            continue
+        spect = extractor(y_chunk)[None]  # (1, F, T)
+        probs, _, carry = bundle.forward(spect, [spect.shape[2]], carry)
+        outs.append(probs)
+    if not outs:
+        return [[""]], [[np.zeros((0,), np.int32)]]
+    return decoder.decode(torch.cat(outs, dim=1), n_best=n_best)
+
+
+def decode_results(decoded_output: List[List[str]],
+                   decoded_offsets: List[List[np.ndarray]],
+                   model_path: str = "", lm_cfg: Optional[LMConfig] = None,
+                   offsets: bool = False, top_paths: int = 1) -> Dict[str, Any]:
+    """The reference's result JSON."""
+    lm_cfg = lm_cfg or LMConfig()
+    results: Dict[str, Any] = {
+        "output": [],
+        "_meta": {
+            "acoustic_model": {"path": model_path},
+            "language_model": {"path": lm_cfg.lm_path},
+            "decoder": {
+                "alpha": lm_cfg.alpha,
+                "beta": lm_cfg.beta,
+                "type": lm_cfg.decoder_type.value,
+            },
+        },
+    }
+    for b in range(len(decoded_output)):
+        for pi in range(min(top_paths, len(decoded_output[b]))):
+            result = {"transcription": decoded_output[b][pi]}
+            if offsets:
+                result["offsets"] = np.asarray(decoded_offsets[b][pi]).tolist()
+            results["output"].append(result)
+    return results

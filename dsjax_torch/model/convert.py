@@ -1,0 +1,162 @@
+"""Weights across layouts: the reference state_dict, dsjax variables, the port.
+
+The reference layout is deepspeech.pytorch's module tree (the layout of its
+``.ckpt`` files, of ``tests/golden_flagship.py:flagship_state`` and of
+``tests/torch_twin.py:export_reference_state_dict``). dsjax keeps the same
+weights as flax trees (``dsjax/model/torch_import.py:convert_state_dict``:
+HWIO convs, (in, 4H) recurrent matrices). The port keeps torch's layouts and
+stacks the two directions of a layer:
+
+  conv.conv{1,2}.weight (O, I, kF, kT), .bias    conv.bn{1,2}.*
+  rnns.{i}.weight_ih (D, 4H, in)  .weight_hh (D, 4H, H)  .bias_ih/.bias_hh (D, 4H)
+  rnn_bns.{i-1}.*  (the BatchNorm before layer i)  fc_bn.*  fc.weight (C, H)
+
+BatchNorm entries are weight, bias, running_mean and running_var.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dsjax_torch.config import (BiDirectionalConfig, RNNType, SpectConfig,
+                                UniDirectionalConfig)
+
+Tensor = torch.Tensor
+
+_BN = ("weight", "bias", "running_mean", "running_var")
+_CONVS = (("conv1", "conv.seq_module.0", "bn1", "conv.seq_module.1"),
+          ("conv2", "conv.seq_module.3", "bn2", "conv.seq_module.4"))
+_RNN = (("weight_ih", "weight_ih_l0"), ("weight_hh", "weight_hh_l0"),
+        ("bias_ih", "bias_ih_l0"), ("bias_hh", "bias_hh_l0"))
+_SUFFIXES = ("", "_reverse")
+
+
+def _t(a: Any) -> Tensor:
+    return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+
+def infer_architecture(state: Mapping[str, Any]) -> Tuple[BiDirectionalConfig, int]:
+    """(model_cfg, num_classes) from the shapes of a reference state_dict."""
+    n_layers = 1 + max(
+        (int(k.split(".")[1]) for k in state if k.startswith("rnns.")), default=0)
+    bidirectional = any("_reverse" in k for k in state)
+    hidden = state["rnns.0.rnn.weight_hh_l0"].shape[1]
+    gates = state["rnns.0.rnn.weight_hh_l0"].shape[0] // hidden
+    rnn_type = {4: RNNType.lstm, 3: RNNType.gru, 1: RNNType.rnn}[gates]
+    fc_key = next(k for k in state if k.startswith("fc.") and k.endswith(".weight")
+                  and len(state[k].shape) == 2)
+    num_classes = state[fc_key].shape[0]
+    if bidirectional:
+        cfg = BiDirectionalConfig(rnn_type=rnn_type, hidden_size=hidden,
+                                  hidden_layers=n_layers)
+    else:
+        ctx = (state["lookahead.0.conv.weight"].shape[2]
+               if "lookahead.0.conv.weight" in state else 20)
+        cfg = UniDirectionalConfig(rnn_type=rnn_type, hidden_size=hidden,
+                                   hidden_layers=n_layers, lookahead_context=ctx)
+    return cfg, num_classes
+
+
+def from_reference_state_dict(state: Mapping[str, Any]) -> Dict[str, Tensor]:
+    """Reference state_dict (numpy arrays or tensors) -> the port's state_dict."""
+    model_cfg, _ = infer_architecture(state)
+    if isinstance(model_cfg, UniDirectionalConfig):
+        raise NotImplementedError("the unidirectional model is not ported yet "
+                                  "(ROADMAP.md, Queue 1)")
+    out: Dict[str, Tensor] = {}
+    for conv, ref_conv, bn, ref_bn in _CONVS:
+        out[f"conv.{conv}.weight"] = _t(state[f"{ref_conv}.weight"])
+        out[f"conv.{conv}.bias"] = _t(state[f"{ref_conv}.bias"])
+        for k in _BN:
+            out[f"conv.{bn}.{k}"] = _t(state[f"{ref_bn}.{k}"])
+    for i in range(model_cfg.hidden_layers):
+        for name, ref in _RNN:
+            out[f"rnns.{i}.{name}"] = torch.stack(
+                [_t(state[f"rnns.{i}.rnn.{ref}{sfx}"]) for sfx in _SUFFIXES])
+        if i > 0:
+            for k in _BN:
+                out[f"rnn_bns.{i - 1}.{k}"] = _t(state[f"rnns.{i}.batch_norm.module.{k}"])
+    for k in _BN:
+        out[f"fc_bn.{k}"] = _t(state[f"fc.0.module.0.{k}"])
+    out["fc.weight"] = _t(state["fc.0.module.1.weight"])
+    return out
+
+
+def to_reference_state_dict(state: Mapping[str, Tensor]) -> Dict[str, Tensor]:
+    """The port's state_dict -> the reference layout (inverse of the above)."""
+    out: Dict[str, Tensor] = {}
+    for conv, ref_conv, bn, ref_bn in _CONVS:
+        out[f"{ref_conv}.weight"] = state[f"conv.{conv}.weight"]
+        out[f"{ref_conv}.bias"] = state[f"conv.{conv}.bias"]
+        for k in _BN:
+            out[f"{ref_bn}.{k}"] = state[f"conv.{bn}.{k}"]
+    n_layers = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("rnns."))
+    for i in range(n_layers):
+        for name, ref in _RNN:
+            for d, sfx in enumerate(_SUFFIXES):
+                out[f"rnns.{i}.rnn.{ref}{sfx}"] = state[f"rnns.{i}.{name}"][d]
+        if i > 0:
+            for k in _BN:
+                out[f"rnns.{i}.batch_norm.module.{k}"] = state[f"rnn_bns.{i - 1}.{k}"]
+    for k in _BN:
+        out[f"fc.0.module.0.{k}"] = state[f"fc_bn.{k}"]
+    out["fc.0.module.1.weight"] = state["fc.weight"]
+    return {k: v.detach().cpu().contiguous() for k, v in out.items()}
+
+
+def from_dsjax_variables(variables: Mapping[str, Any]) -> Dict[str, Tensor]:
+    """dsjax ``{"params": ..., "batch_stats": ...}`` trees (numpy or array
+    leaves) of a bidirectional LSTM DeepSpeech2 -> the port's state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+
+    def bn(p: Mapping[str, Any], s: Mapping[str, Any]) -> List[Tensor]:
+        return [_t(p["scale"]), _t(p["bias"]), _t(s["mean"]), _t(s["var"])]
+
+    out: Dict[str, Tensor] = {}
+    for conv, _, bn_name, _ in _CONVS:
+        # HWIO (kF, kT, I, O) -> OIHW
+        out[f"conv.{conv}.weight"] = _t(np.asarray(params["conv"][conv]["kernel"])
+                                        .transpose(3, 2, 0, 1))
+        out[f"conv.{conv}.bias"] = _t(params["conv"][conv]["bias"])
+        for k, v in zip(_BN, bn(params["conv"][bn_name], stats["conv"][bn_name])):
+            out[f"conv.{bn_name}.{k}"] = v
+    n_layers = sum(1 for k in params if k.startswith("rnn") and not k.endswith("_bn"))
+    for i in range(n_layers):
+        layer = params[f"rnn{i}"]
+        dirs = ("fwd", "bwd") if "bwd_w_hh" in layer else ("fwd",)
+        for name, key, transpose in (("weight_ih", "w_ih", True), ("weight_hh", "w_hh", True),
+                                     ("bias_ih", "b_ih", False), ("bias_hh", "b_hh", False)):
+            out[f"rnns.{i}.{name}"] = torch.stack(
+                [_t(np.asarray(layer[f"{d}_{key}"]).T if transpose else layer[f"{d}_{key}"])
+                 for d in dirs])
+        if i > 0:
+            for k, v in zip(_BN, bn(params[f"rnn{i}_bn"], stats[f"rnn{i}_bn"])):
+                out[f"rnn_bns.{i - 1}.{k}"] = v
+    for k, v in zip(_BN, bn(params["fc_bn"], stats["fc_bn"])):
+        out[f"fc_bn.{k}"] = v
+    out["fc.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
+    return out
+
+
+def save_checkpoint(path: str, state_dict: Mapping[str, Tensor],
+                    model_cfg: BiDirectionalConfig, spect_cfg: SpectConfig,
+                    labels: Sequence[str]) -> None:
+    """Write a checkpoint that ``dsjax_torch.inference.load_model`` reads:
+    the reference-layout state_dict plus the hyper-parameters the reference
+    keeps beside it (labels, spect_cfg, model_cfg), all plain data."""
+    torch.save({
+        "state_dict": to_reference_state_dict(state_dict),
+        "hyper_parameters": {
+            "labels": list(labels),
+            "spect_cfg": {"sample_rate": spect_cfg.sample_rate,
+                          "window_size": spect_cfg.window_size,
+                          "window_stride": spect_cfg.window_stride,
+                          "window": spect_cfg.window.value},
+            "model_cfg": {"rnn_type": model_cfg.rnn_type.value,
+                          "hidden_size": model_cfg.hidden_size,
+                          "hidden_layers": model_cfg.hidden_layers},
+        },
+    }, path)

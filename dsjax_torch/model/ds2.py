@@ -1,0 +1,275 @@
+"""DeepSpeech2 acoustic model in PyTorch: the counterpart of dsjax/model/ds2.py.
+
+Conv frontend with per-module length masking, N bidirectional LSTM layers
+with sequence-wise BatchNorm and summed directions, a BatchNorm + bias-free
+Linear head, and softmax in eval mode. The RNN carry goes in and out per
+layer, so chunked streaming continues the state across calls.
+
+Layouts at the public functions are dsjax's: spectrograms (B, F, T), time
+major (T, B, .) inside the recurrent layers, posteriors (B, T', C). The
+convolutions run NCHW (``F.conv2d``); the flattened conv feature index is
+c * F' + f, as in dsjax and the reference.
+
+Parameters live in float32; ``dtype`` is the compute dtype (bfloat16 for
+``precision=16``), cast at use as dsjax does. Each recurrent layer projects
+the inputs of all time steps in one matrix product and runs only the
+recurrence in ``dsjax_torch.ops.lstm.lstm_scan``, the CUDA kernel on CUDA
+tensors.
+
+Not ported yet (ROADMAP.md, Queue 1): GRU and vanilla RNN layers, and the
+unidirectional model with Lookahead.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dsjax_torch.config import BiDirectionalConfig, RNNType, SpectConfig, UniDirectionalConfig
+from dsjax_torch.ops.lstm import lstm_scan
+
+Tensor = torch.Tensor
+Carry = Tuple[Tensor, Tensor]      # (h, c), each (D, B, H)
+
+_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1: GRU, RNN and Lookahead)"
+
+
+def get_seq_lens(lengths: Tensor) -> Tensor:
+    """Time lengths after the conv stack: time kernels 11, pad 5, strides 2
+    then 1, so L -> (L - 1) // 2 + 1."""
+    lengths = lengths.to(torch.int32)
+    l1 = torch.div(lengths + 2 * 5 - 1 * (11 - 1) - 1, 2, rounding_mode="floor") + 1
+    l2 = torch.div(l1 + 2 * 5 - 1 * (11 - 1) - 1, 1, rounding_mode="floor") + 1
+    return l2
+
+
+def rnn_input_size(spect_cfg: SpectConfig) -> int:
+    """Flattened conv-output feature size."""
+    size = int(np.floor(spect_cfg.sample_rate * spect_cfg.window_size / 2) + 1)
+    size = int(np.floor(size + 2 * 20 - 41) / 2 + 1)
+    size = int(np.floor(size + 2 * 10 - 21) / 2 + 1)
+    return size * 32
+
+
+def hardtanh_0_20(x: Tensor) -> Tensor:
+    return torch.clamp(x, 0.0, 20.0)
+
+
+class TorchBatchNorm(nn.Module):
+    """BatchNorm over the given reduction axes with torch's semantics.
+
+    Training normalizes with the biased batch variance and moves the running
+    stats by momentum 0.1, the variance with its unbiased estimate; the
+    statistics include padded (zeroed) positions. Eval uses the running
+    stats, with mean and rsqrt cast to the compute dtype before use.
+    """
+
+    def __init__(self, num_features: int, axes: Tuple[int, ...], eps: float = 1e-5,
+                 momentum: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.axes = tuple(axes)
+        self.eps = eps
+        self.momentum = momentum
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: Tensor) -> Tensor:
+        shape = [1] * x.dim()
+        (feat_axis,) = [a for a in range(x.dim()) if a not in self.axes]
+        shape[feat_axis] = -1
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=self.axes)
+            var = (xf * xf).mean(dim=self.axes) - mean * mean
+            n = math.prod(x.shape[a] for a in self.axes)
+            with torch.no_grad():
+                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        dt = self.dtype
+        inv = torch.rsqrt(var + self.eps).reshape(shape).to(dt)
+        return ((x.to(dt) - mean.reshape(shape).to(dt)) * inv
+                * self.weight.reshape(shape).to(dt) + self.bias.reshape(shape).to(dt))
+
+
+class Conv2d(nn.Module):
+    """A Conv2d whose weights are cast to the compute dtype at use, with the
+    bias added after the convolution as dsjax does."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: Tuple[int, int],
+                 stride: Tuple[int, int], padding: Tuple[int, int],
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None,
+                     self.stride, self.padding)
+        return y + self.bias.to(y.dtype)[:, None, None]
+
+
+class ConvFrontend(nn.Module):
+    """Two Conv2d + BN + Hardtanh blocks with a length mask after each
+    submodule, so results do not depend on the padding. Input (B, 1, F, T)."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = Conv2d(1, 32, (41, 11), (2, 2), (20, 5), dtype)
+        self.bn1 = TorchBatchNorm(32, axes=(0, 2, 3), dtype=dtype)
+        self.conv2 = Conv2d(32, 32, (21, 11), (2, 1), (10, 5), dtype)
+        self.bn2 = TorchBatchNorm(32, axes=(0, 2, 3), dtype=dtype)
+
+    def forward(self, x: Tensor, lengths: Tensor) -> Tuple[Tensor, Tensor]:
+        out_lengths = get_seq_lens(lengths)
+
+        def time_mask(z: Tensor) -> Tensor:
+            t = torch.arange(z.shape[3], device=z.device)
+            return (t[None, :] < out_lengths[:, None])[:, None, None, :].to(z.dtype)
+
+        x = self.conv1(x)
+        m = time_mask(x)
+        x = self.bn1(x * m)
+        x = hardtanh_0_20(x) * m
+        x = self.conv2(x)
+        m = time_mask(x)
+        x = self.bn2(x * m)
+        x = hardtanh_0_20(x) * m
+        return x, out_lengths
+
+
+class RecurrentLayer(nn.Module):
+    """One bidirectional LSTM layer with a masked scan.
+
+    Weights are stacked by direction (0 forward, 1 backward) in torch's
+    layout: weight_ih (2, 4H, in), weight_hh (2, 4H, H), gate order
+    i, f, g, o. The directions' outputs are summed. The returned carry holds
+    each direction's (h, c) at each utterance's true end.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 rnn_type: RNNType = RNNType.lstm, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if rnn_type != RNNType.lstm:
+            raise NotImplementedError(f"rnn_type={rnn_type.value} {_NOT_PORTED}")
+        self.input_size, self.hidden_size, self.dtype = input_size, hidden_size, dtype
+        self.reverse = (False, True)
+        d, g = len(self.reverse), 4 * hidden_size
+        self.weight_ih = nn.Parameter(torch.empty(d, g, input_size))
+        self.weight_hh = nn.Parameter(torch.empty(d, g, hidden_size))
+        self.bias_ih = nn.Parameter(torch.empty(d, g))
+        self.bias_hh = nn.Parameter(torch.empty(d, g))
+
+    def forward(self, x: Tensor, lengths: Tensor, carry: Optional[Carry] = None
+                ) -> Tuple[Tensor, Carry]:
+        # x: (T, B, in) time-major; lengths: (B,)
+        n_t, n_b = x.shape[0], x.shape[1]
+        n_dir, dt = len(self.reverse), self.dtype
+        # the input projection of every step as one matrix product per direction
+        xp = torch.matmul(x.to(dt).reshape(n_t * n_b, self.input_size),
+                          self.weight_ih.to(dt).transpose(1, 2))
+        xp = (xp + self.bias_ih.to(dt)[:, None, :]).reshape(n_dir, n_t, n_b, -1)
+        mask = (torch.arange(n_t, device=x.device)[:, None] < lengths[None, :]).float()
+        if carry is None:
+            h0 = torch.zeros((n_dir, n_b, self.hidden_size), dtype=dt, device=x.device)
+            c0 = torch.zeros_like(h0)
+        else:
+            h0, c0 = (s.to(dt).contiguous() for s in carry)
+        y, h_t, c_t = lstm_scan(xp, mask, self.weight_hh.to(dt).contiguous(),
+                                self.bias_hh.to(dt).contiguous(), h0, c0, self.reverse)
+        return y[0] + y[1], (h_t, c_t)
+
+
+class Linear(nn.Module):
+    """Bias-free Linear computed in the compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class DeepSpeech2(nn.Module):
+    """Full DS2 network: conv frontend -> recurrent stack -> FC head.
+
+    ``forward(x, lengths, carry=None)`` takes (B, F, T) spectrograms (or the
+    reference's (B, 1, F, T)) and frame lengths and returns
+    (out (B, T', C), out_lengths (B,), carry): raw logits in training mode,
+    float32 softmax probabilities in eval mode. ``carry`` is one (h, c) pair
+    per layer, as returned by the previous call.
+
+    ``rnn_bns[i - 1]`` is the sequence-wise BatchNorm before layer i >= 1.
+    ``generator`` seeds the initial weights; loading a state dict replaces
+    them.
+    """
+
+    def __init__(self, num_classes: int, spect_cfg: SpectConfig,
+                 model_cfg: BiDirectionalConfig, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if isinstance(model_cfg, UniDirectionalConfig):
+            raise NotImplementedError(f"the unidirectional model with Lookahead {_NOT_PORTED}")
+        self.num_classes, self.spect_cfg, self.model_cfg = num_classes, spect_cfg, model_cfg
+        self.dtype = dtype
+        h, n_layers = model_cfg.hidden_size, model_cfg.hidden_layers
+        self.conv = ConvFrontend(dtype)
+        self.rnns = nn.ModuleList(
+            RecurrentLayer(rnn_input_size(spect_cfg) if i == 0 else h, h,
+                           model_cfg.rnn_type, dtype)
+            for i in range(n_layers))
+        self.rnn_bns = nn.ModuleList(
+            TorchBatchNorm(h, axes=(0, 1), dtype=dtype) for _ in range(n_layers - 1))
+        self.fc_bn = TorchBatchNorm(h, axes=(0, 1), dtype=dtype)
+        self.fc = Linear(h, num_classes, dtype)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """dsjax's initializers: LeCun normal for convs and the head, zero
+        conv bias, U(-1/sqrt(H), 1/sqrt(H)) for the recurrent layers, unit
+        BatchNorm."""
+        for conv in (self.conv.conv1, self.conv.conv2):
+            fan_in = conv.weight[0].numel()
+            conv.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+            conv.bias.zero_()
+        bound = self.model_cfg.hidden_size ** -0.5
+        for rnn in self.rnns:
+            for p in (rnn.weight_ih, rnn.weight_hh, rnn.bias_ih, rnn.bias_hh):
+                p.uniform_(-bound, bound, generator=generator)
+        self.fc.weight.normal_(0.0, self.model_cfg.hidden_size ** -0.5, generator=generator)
+
+    def forward(self, x: Tensor, lengths: Tensor,
+                carry: Optional[Sequence[Carry]] = None
+                ) -> Tuple[Tensor, Tensor, List[Carry]]:
+        if x.dim() == 4:  # (B, 1, F, T) reference layout
+            x = x[:, 0]
+        lengths = torch.as_tensor(lengths, device=x.device)
+        b_dim = x.shape[0]
+        x, out_lengths = self.conv(x[:, None].to(self.dtype), lengths)
+        # (B, C, F', T') -> (T', B, C * F'): feature index c * F' + f
+        x = x.permute(3, 0, 1, 2).reshape(x.shape[3], b_dim, -1)
+        new_carry: List[Carry] = []
+        for i, rnn in enumerate(self.rnns):
+            if i > 0:
+                x = self.rnn_bns[i - 1](x)
+            x, c = rnn(x, out_lengths, carry[i] if carry is not None else None)
+            new_carry.append(c)
+        x = self.fc(self.fc_bn(x)).transpose(0, 1)               # (B, T', C)
+        if not self.training:
+            x = torch.softmax(x.float(), dim=-1)
+        return x, out_lengths, new_carry

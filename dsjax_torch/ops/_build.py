@@ -1,0 +1,107 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``dsjax_torch/csrc/*.cu`` file compiles into one shared library with a
+plain C interface, ``build/dsjax_torch/libdsjax_torch.so`` under the
+checkout's root. Nothing here includes PyTorch's headers, so a build takes
+seconds rather than minutes. The library is built at first use and rebuilt
+only when the sources or the flags change (a SHA-256 of both is kept beside
+it). Importing this module builds and loads nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import List, Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PACKAGE_DIR / "csrc"
+# build/ beside the package assumes a checkout: an installed package would
+# put it in site-packages
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "dsjax_torch"
+LIB_PATH = BUILD_DIR / "libdsjax_torch.so"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to "
+                       "build dsjax_torch's CUDA kernels")
+
+
+def build(force: bool = False) -> Path:
+    """Compile the sources into LIB_PATH unless an up-to-date build exists."""
+    digest = source_hash()
+    stamp = LIB_PATH.with_name(LIB_PATH.name + ".sha256")
+    if (not force and LIB_PATH.is_file() and stamp.is_file()
+            and stamp.read_text().strip() == digest):
+        return LIB_PATH
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu_files = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
+    # build beside the target, then rename: a concurrent process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu_files]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
+    stamp.write_text(digest + "\n")
+    return LIB_PATH
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dsjax_torch_lstm_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsjax_torch_lstm_fwd.restype = i
+    lib.dsjax_torch_error_string.argtypes = [i]
+    lib.dsjax_torch_error_string.restype = ctypes.c_char_p
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed and load the kernel library (once per process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib.dsjax_torch_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

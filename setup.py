@@ -5,7 +5,8 @@ setup(
     version="0.1.0",
     description="TPU-native DeepSpeech2 speech recognition framework (JAX/XLA/Pallas)",
     packages=find_packages(exclude=("tests",)),
-    package_data={"dsjax": ["configs/*.yaml", "cpp/src/*.cpp", "cpp/src/*.h"]},
+    package_data={"dsjax": ["configs/*.yaml", "cpp/src/*.cpp", "cpp/src/*.h"],
+                  "dsjax_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,93 @@
+"""dsjax_torch never imports jax, and never runs on the CPU unasked."""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+IMPORTS = ("dsjax_torch", "dsjax_torch.server", "dsjax_torch.inference",
+           "dsjax_torch.model.ds2", "dsjax_torch.model.convert", "dsjax_torch.ops.lstm",
+           "dsjax_torch.decode.greedy", "dsjax_torch.audio.features",
+           "dsjax_torch.audio.io", "dsjax_torch.config", "dsjax_torch.labels")
+
+
+def _imports(path):
+    """(module name, inside a function?) for every import statement of a file."""
+    tree = ast.parse(open(path).read())
+    found = []
+
+    def visit(node, in_def):
+        for child in ast.iter_child_nodes(node):
+            inner = in_def or isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef))
+            if isinstance(child, ast.Import):
+                found.extend((a.name, inner) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                found.append((child.module, inner))
+            visit(child, inner)
+
+    visit(tree, False)
+    return found
+
+
+@pytest.mark.parametrize("path", sorted(
+    [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_profile_serving.py")]
+    + glob.glob(os.path.join(ROOT, "dsjax_torch", "**", "*.py"), recursive=True)),
+    ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_import_of_the_jax_package(path):
+    """The port and its card-side scripts import nothing of jax or dsjax;
+    the one exception is dsjax's native audio decoders (dsjax.cpp), imported
+    inside the function that decodes FLAC or compressed audio."""
+    for name, in_def in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "optax", "orbax"), name
+        if top == "dsjax":
+            assert name.startswith("dsjax.cpp.") and in_def, name
+
+
+def test_port_imports_no_jax():
+    """With jax and the JAX package made unimportable, every port module
+    imports, and none of jax's companions or triton got loaded either."""
+    code = "\n".join([
+        "import importlib, sys",
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dsjax'):",
+        "    sys.modules[name] = None",
+        f"for mod in {IMPORTS!r}:",
+        "    importlib.import_module(mod)",
+        "import dsjax_torch",
+        "dsjax_torch.DeepSpeech2, dsjax_torch.load_model, dsjax_torch.lstm_scan",
+        "loaded = [m for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax')",
+        "          if sys.modules.get(m) is not None]",
+        "assert not loaded, loaded",
+        "assert 'triton' not in sys.modules",
+        "assert not any(m.startswith(('jax.', 'flax.')) for m in sys.modules)",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_no_cuda_means_no_silent_cpu(monkeypatch, tmp_path):
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.config import BiDirectionalConfig, SpectConfig
+    from dsjax_torch.inference import ModelBundle, load_model
+    from dsjax_torch.model.convert import save_checkpoint
+    from dsjax_torch.model.ds2 import DeepSpeech2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = BiDirectionalConfig(hidden_size=16, hidden_layers=1)
+    model = DeepSpeech2(len(DEFAULT_LABELS), SpectConfig(), cfg,
+                        generator=torch.Generator().manual_seed(0))
+    path = str(tmp_path / "m.pt")
+    save_checkpoint(path, model.state_dict(), cfg, SpectConfig(), DEFAULT_LABELS)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelBundle(model, list(DEFAULT_LABELS), SpectConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(path)
+    assert load_model(path, device="cpu").device == torch.device("cpu")

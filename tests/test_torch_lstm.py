@@ -1,0 +1,147 @@
+"""dsjax_torch.ops.lstm against dsjax's Pallas LSTM scan (CPU).
+
+The port's plain version, and its wrapper on CPU tensors, are held against
+dsjax's ``lstm_scan`` run in Pallas interpret mode and against dsjax's
+``lstm_scan_reference``. Tolerances: f32 atol 1e-5 (sum order only);
+bf16 atol 2e-2 (the carry is rounded to bf16 every step, and a different
+f32 sum order can flip a rounding). The kernel itself runs only on a CUDA
+card: tests/test_torch_cuda.py and chip_smoke.py hold it against the plain
+version there.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dsjax.ops.lstm_pallas import lstm_scan as jax_lstm_scan
+from dsjax.ops.lstm_pallas import lstm_scan_reference as jax_lstm_scan_reference
+from dsjax_torch.ops import lstm
+
+ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def problem(seed, T=12, B=8, H=128, D=1):
+    """f32 numpy inputs in dsjax's layout: ragged lengths including 1 and T,
+    nonzero initial carry."""
+    rng = np.random.default_rng(seed)
+    xp = (rng.standard_normal((D, T, B, 4 * H)) * 0.3).astype(np.float32)
+    w = (rng.standard_normal((D, H, 4 * H)) * 0.1).astype(np.float32)   # (H, 4H) as dsjax
+    b = (rng.standard_normal((D, 4 * H)) * 0.1).astype(np.float32)
+    h0 = (rng.standard_normal((D, B, H)) * 0.1).astype(np.float32)
+    c0 = (rng.standard_normal((D, B, H)) * 0.1).astype(np.float32)
+    lengths = np.full((B,), T)
+    lengths[1::2] = T // 2
+    lengths[min(2, B - 1)] = 1
+    mask = (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32)
+    return xp, mask, w, b, h0, c0
+
+
+def to_port(dtype, xp, mask, w, b, h0, c0):
+    """The port's layout: W_hh as (D, 4H, H), inputs in the working dtype."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    return (t(xp), torch.from_numpy(mask), t(np.swapaxes(w, 1, 2)), t(b), t(h0), t(c0))
+
+
+def dsjax_scan(fn, d, dtype, xp, mask, w, b, h0, c0, flip=False):
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    x, m = (xp[d][::-1], mask[::-1]) if flip else (xp[d], mask)
+    args = [jnp.asarray(np.ascontiguousarray(a), jd) for a in (x, m, w[d], b[d], h0[d], c0[d])]
+    args[1] = args[1].astype(jnp.float32 if fn is jax_lstm_scan else jd)
+    out = fn(*args, True) if fn is jax_lstm_scan else fn(*args)
+    y, h, c = (np.asarray(o.astype(jnp.float32)) for o in out)
+    return (y[::-1] if flip else y), h, c
+
+
+def assert_close(port_out, jax_out, atol):
+    for p, j in zip(port_out, jax_out):
+        np.testing.assert_allclose(p.float().numpy(), j, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("jax_fn", [jax_lstm_scan, jax_lstm_scan_reference],
+                         ids=["pallas_interpret", "lax_scan"])
+@pytest.mark.parametrize("suffix_mask", [False, True], ids=["prefix_mask", "suffix_mask"])
+def test_forward_direction_matches_dsjax(dtype, jax_fn, suffix_mask):
+    xp, mask, w, b, h0, c0 = problem(0)
+    if suffix_mask:  # the time-flipped padded stream of a reverse direction
+        mask = np.ascontiguousarray(mask[::-1])
+    want = dsjax_scan(jax_fn, 0, dtype, xp, mask, w, b, h0, c0)
+    args = to_port(dtype, xp, mask, w, b, h0, c0)
+    atol = ATOL[str(dtype).split(".")[1]]
+    for fn in (lstm.lstm_scan_reference, lstm.lstm_scan):
+        y, h, c = fn(*args, reverse=(False,))
+        assert y.dtype == dtype and y.shape == (1, 12, 8, 128)
+        assert_close((y[0], h[0], c[0]), want, atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_both_directions_in_one_call_match_dsjax_flip(dtype):
+    """reverse=(False, True) equals dsjax's backward direction: flip the
+    whole padded array and the mask, scan, flip y back."""
+    xp, mask, w, b, h0, c0 = problem(1, D=2)
+    y, h, c = lstm.lstm_scan(*to_port(dtype, xp, mask, w, b, h0, c0), reverse=(False, True))
+    atol = ATOL[str(dtype).split(".")[1]]
+    for d in range(2):
+        want = dsjax_scan(jax_lstm_scan, d, dtype, xp, mask, w, b, h0, c0, flip=d == 1)
+        assert_close((y[d], h[d], c[d]), want, atol)
+
+
+def test_carry_freezes_and_outputs_zero_past_length():
+    xp, mask, w, b, h0, c0 = problem(2)
+    args = to_port(torch.float32, xp, mask, w, b, h0, c0)
+    y, h, c = lstm.lstm_scan(*args, reverse=(False,))
+    one = [a[:, :1] if a.dim() == 4 else a for a in args]
+    one[1] = args[1][:1]
+    _, h1, c1 = lstm.lstm_scan(*one, reverse=(False,))
+    torch.testing.assert_close(h[0, 2], h1[0, 2], rtol=0, atol=1e-6)
+    torch.testing.assert_close(c[0, 2], c1[0, 2], rtol=0, atol=1e-6)
+    assert torch.all(y[0, 1:, 2] == 0)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    xp, mask, w, b, h0, c0 = problem(3, T=4, B=2, H=16)
+    args = list(to_port(torch.float32, xp, mask, w, b, h0, c0))
+    lstm.lstm_scan(*args, reverse=(False,))
+    bad = {
+        "dtype": (0, args[0].double(), TypeError),
+        "mask dtype": (1, args[1].bool(), TypeError),
+        "shape": (2, args[2][:, :, :8], ValueError),
+        "contiguity": (4, args[4].transpose(1, 2).contiguous().transpose(1, 2), ValueError),
+        # a contiguous view one element into its storage
+        "alignment": (2, torch.empty(args[2].numel() + 1).narrow(0, 1, args[2].numel())
+                      .view_as(args[2]).copy_(args[2]), ValueError),
+    }
+    for name, (i, value, exc) in bad.items():
+        a = list(args)
+        a[i] = value
+        with pytest.raises(exc):
+            lstm.lstm_scan(*a, reverse=(False,))
+    with pytest.raises(ValueError, match="directions"):
+        lstm.lstm_scan(*args, reverse=(False, True))
+    odd = problem(4, T=3, B=2, H=12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lstm.lstm_scan(*to_port(torch.float32, *odd), reverse=(False,))
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        lstm.lstm_scan(*meta, reverse=(False,))
+
+
+def test_cpu_path_counts_no_launch_and_import_loads_nothing():
+    xp, mask, w, b, h0, c0 = problem(5, T=3, B=2, H=16)
+    before = lstm.LAUNCHES
+    lstm.lstm_scan(*to_port(torch.float32, xp, mask, w, b, h0, c0), reverse=(False,))
+    assert lstm.LAUNCHES == before
+    code = ("import sys\n"
+            "import dsjax_torch.ops.lstm\n"
+            "from dsjax_torch.ops import _build\n"
+            "assert _build._lib is None\n"
+            "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
+            "assert not any(m.startswith('torch.utils.cpp_extension') for m in sys.modules)\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
