@@ -1,22 +1,39 @@
 #!/usr/bin/env python3
-"""Drive dsjax_torch's serving path once on one CUDA card and check it.
+"""Drive dsjax_torch's serving and training paths once on one CUDA card and
+check them.
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
 Phases, each printing what it measured; any failure exits non-zero:
   1. device   nvidia-smi's name and power limit, torch and CUDA versions;
-  2. build    every kernel of the path compiled from dsjax_torch/csrc;
-  3. kernel   each kernel against its plain PyTorch version on the card at
-              the serving shapes (T=501, B=8, H=1024), f32 and bf16, with
-              max errors and CUDA-event median times of both;
+  2. build    every kernel compiled from dsjax_torch/csrc;
+  3. kernel   K1 (the LSTM forward) against its plain PyTorch version on the
+              card at the serving shapes (T=501, B=8, H=1024), f32 and bf16,
+              with max errors and CUDA-event median times of both;
   4. parity   the full-width 5x BiLSTM-1024 DeepSpeech2 (seeded weights of
               tests/golden_flagship.py) against tests/fixtures/golden_flagship.npz;
   5. serving  the port's HTTP server on 127.0.0.1 answering 8 concurrent
               /transcribe requests, one chunked long upload and a /stream
-              session, checked against the direct forward + greedy decode.
-The parity phases turn TF32 off (cuDNN convolutions and matmuls in full
-float32); the serving phase runs PyTorch's defaults. The last two lines are
-a JSON object of kernel results and {"ok": true, "device": {...}}.
+              session, checked against the direct forward + greedy decode;
+  6. train kernels  K2 (the residual-saving forward) and K3 (the reverse
+              scan) against their plain versions at the training shapes
+              (T=512, B=64, H=1024, both directions, ragged lengths, a
+              suffix mask, nonzero carry), f32 and bf16, with max errors
+              and CUDA-event median times of both;
+  7. gradients  the differentiated lstm_scan (K2 + K3) against autograd
+              through the plain loop, both on the card;
+  8. training  ``dsjax_torch.workflows.train`` on a synthetic corpus of
+              10.23 s utterances (1024 STFT frames, 512 scan steps): the
+              flagship in bf16 at B=64 for 2 epochs of 3 steps, with
+              validation and checkpoints; exact K2/K3/K1 launch counts,
+              finite losses, and the last checkpoint loaded as the server
+              loads it giving the trainer's eval posteriors;
+  9. step parity  one training step of a small model (H=256, 2 layers, f32)
+              on the card against the same step on the CPU.
+The parity phases (3, 4, 6, 7, 9) turn TF32 off (cuDNN convolutions and
+matmuls in full float32); serving and training run PyTorch's defaults.
+The last two lines are a JSON object of kernel results and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -35,7 +52,19 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T, B, H = 501, 8, 1024                      # 10 s utterances, max_batch 8, flagship width
+TRAIN_T, TRAIN_B = 512, 64                   # 1024 frames after the conv stack, bench batch
 TOLERANCE = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 0.0)}   # (atol, rtol)
+# the reverse scan carries dh through every step: f32 sum order only; in
+# bf16 each step's dgates round to bf16 before the product with W_hh
+BWD_TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}
+GRAD_TOL = (1e-4, 1e-4)
+# the trainer's step on the card against the CPU's, per parameter, times
+# the parameter's largest gradient: cuDNN may take FFT or Winograd
+# algorithms for the 41x11 and 21x11 convolutions, whose f32 error exceeds
+# direct summation's, and BatchNorm's one-pass f32 variance magnifies the
+# two devices' different sum orders (tests/test_torch_train.py); measured
+# up to 1.4e-4 on an H100
+STEP_TOL = 1e-3
 GOLDEN_TOL = (5e-6, 1e-4)
 SR = 16000
 
@@ -289,6 +318,233 @@ def phase_serving(torch, np, state, model_cfg, gpu_name):
     return launches, step_launches
 
 
+def within(got, want, atol, rtol):
+    """(max abs error, whether every element is within atol + rtol |want|)."""
+    e = (got.float() - want.float()).abs()
+    return e.max().item(), bool((e <= atol + rtol * want.float().abs()).all())
+
+
+def phase_train_kernels(torch, np):
+    """K2: lstm_pallas.py:_fwd_kernel (save_residuals) -> csrc/lstm_fwd.cu;
+    K3: lstm_pallas.py:_bwd_kernel -> csrc/lstm_bwd.cu."""
+    from dsjax_torch.ops import lstm
+
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(1, TRAIN_T + 1, TRAIN_B)
+    lengths[:3] = (TRAIN_T, 1, TRAIN_T - 1)
+    prefix = (np.arange(TRAIN_T)[:, None] < lengths[None, :]).astype(np.float32)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+
+        def dev(a, dt=dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda", dt)
+
+        xp = dev(rng.standard_normal((2, TRAIN_T, TRAIN_B, 4 * H)) * 0.3)
+        w = dev(rng.standard_normal((2, 4 * H, H)) * 0.03)
+        b = dev(rng.standard_normal((2, 4 * H)) * 0.1)
+        h0 = dev(rng.standard_normal((2, TRAIN_B, H)) * 0.1)
+        c0 = dev(rng.standard_normal((2, TRAIN_B, H)) * 0.1)
+        cot = [dev(rng.standard_normal(shape)) for shape in
+               ((2, TRAIN_T, TRAIN_B, H), (2, TRAIN_B, H), (2, TRAIN_B, H))]
+        cases = {"bidirectional, prefix mask": (dev(prefix, torch.float32), (False, True)),
+                 "forward, suffix mask": (dev(prefix[::-1], torch.float32), (False, False))}
+        err = {"fwd": 0.0, "bwd": 0.0}
+        for case, (mask, reverse) in cases.items():
+            out = lstm.lstm_scan_fwd(xp, mask, w, b, h0, c0, reverse, save_residuals=True)
+            ref = lstm.lstm_scan_reference(xp, mask, w, b, h0, c0, reverse, save_residuals=True)
+            torch.cuda.synchronize()
+            atol, rtol = TOLERANCE[name]
+            for o, r, what in zip(out, ref, ("y", "h_T", "c_T", "gates", "c_seq")):
+                check(bool(torch.isfinite(o.float()).all()), f"K2 {name} {case}: {what} not finite")
+                e, ok = within(o, r, atol, rtol)
+                check(ok, f"K2 {name} {case}: {what} max err {e} over atol {atol} rtol {rtol}")
+                err["fwd"] = max(err["fwd"], e)
+            g_seq, c_seq = ref[3], ref[4]
+            dout = lstm.lstm_scan_bwd(g_seq, mask, w, c0, c_seq, *cot, reverse)
+            dref = lstm.lstm_scan_backward_reference(g_seq, mask, w, c0, c_seq, *cot, reverse)
+            torch.cuda.synchronize()
+            atol, rtol = BWD_TOLERANCE[name]
+            for o, r, what in zip(dout, dref, ("dgates", "dh0", "dc0")):
+                check(bool(torch.isfinite(o.float()).all()), f"K3 {name} {case}: {what} not finite")
+                e, ok = within(o, r, atol, rtol)
+                check(ok, f"K3 {name} {case}: {what} max err {e} over atol {atol} rtol {rtol}")
+                err["bwd"] = max(err["bwd"], e)
+        mask, reverse = cases["bidirectional, prefix mask"]
+        _, _, _, g_seq, c_seq = lstm.lstm_scan_reference(xp, mask, w, b, h0, c0, reverse,
+                                                         save_residuals=True)
+        times = {
+            "fwd": (cuda_time(lambda: lstm.lstm_scan_fwd(xp, mask, w, b, h0, c0, reverse,
+                                                         save_residuals=True), 10),
+                    cuda_time(lambda: lstm.lstm_scan_reference(
+                        xp, mask, w, b, h0, c0, reverse, save_residuals=True), 3)),
+            "bwd": (cuda_time(lambda: lstm.lstm_scan_bwd(g_seq, mask, w, c0, c_seq, *cot,
+                                                         reverse), 10),
+                    cuda_time(lambda: lstm.lstm_scan_backward_reference(
+                        g_seq, mask, w, c0, c_seq, *cot, reverse), 3))}
+        for key, label in (("fwd", "lstm_fwd_residuals (K2)"), ("bwd", "lstm_bwd (K3)")):
+            tol = TOLERANCE[name] if key == "fwd" else BWD_TOLERANCE[name]
+            print(f"kernel {label} {name} T={TRAIN_T} B={TRAIN_B} H={H} 2 directions: "
+                  f"max_abs_err {err[key]!r} (atol {tol[0]}, rtol {tol[1]}); kernel "
+                  f"{times[key][0]!r} ms, plain {times[key][1]!r} ms (median, CUDA events)")
+            result[(key, name)] = {"max_abs_err": err[key], "ms": times[key][0],
+                                   "plain_ms": times[key][1]}
+    return result
+
+
+def phase_gradients(torch, np):
+    """The differentiated lstm_scan (K2 then K3, dW and db reduced by
+    matmul) against autograd through lstm_scan_reference, on the card."""
+    from dsjax_torch.ops import lstm
+
+    t_dim, b_dim, h_dim = 64, 16, 256
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(1, t_dim + 1, b_dim)
+    lengths[:2] = (t_dim, 1)
+    mask = torch.from_numpy((np.arange(t_dim)[:, None] < lengths[None, :])
+                            .astype(np.float32)).cuda()
+    shapes = ((2, t_dim, b_dim, 4 * h_dim), (2, 4 * h_dim, h_dim), (2, 4 * h_dim),
+              (2, b_dim, h_dim), (2, b_dim, h_dim))
+    scales = (0.3, 0.1, 0.1, 0.1, 0.1)
+    inputs = [torch.from_numpy((rng.standard_normal(s) * k).astype(np.float32)).cuda()
+              .requires_grad_(True) for s, k in zip(shapes, scales)]
+    weights = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+               for s in ((2, t_dim, b_dim, h_dim), (2, b_dim, h_dim), (2, b_dim, h_dim))]
+    counts = (lstm.RESIDUAL_LAUNCHES, lstm.BWD_LAUNCHES)
+    out = lstm.lstm_scan(inputs[0], mask, *inputs[1:], (False, True))
+    got = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(out, weights)), inputs)
+    ref = lstm.lstm_scan_reference(inputs[0], mask, *inputs[1:], (False, True))
+    want = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(ref, weights)), inputs)
+    torch.cuda.synchronize()
+    check((lstm.RESIDUAL_LAUNCHES - counts[0], lstm.BWD_LAUNCHES - counts[1]) == (1, 1),
+          "the differentiated scan did not run K2 and K3 once each")
+    errs = {}
+    for name, g, w in zip(("dxp", "dW_hh", "db_hh", "dh0", "dc0"), got, want):
+        e, ok = within(g, w, *GRAD_TOL)
+        check(ok and w.abs().max().item() > 0,
+              f"gradient {name}: max err {e} over atol {GRAD_TOL[0]} rtol {GRAD_TOL[1]}")
+        errs[name] = e
+    print(f"gradients of lstm_scan (K2 + K3) vs autograd through the plain loop, f32, "
+          f"T={t_dim} B={b_dim} H={h_dim} 2 directions: max_abs_err {errs} "
+          f"(atol {GRAD_TOL[0]}, rtol {GRAD_TOL[1]})")
+
+
+TRAIN_SECONDS = 1023 * 160 / SR               # 1024 STFT frames, 512 scan steps
+TRAIN_UTTS, VAL_UTTS, EPOCHS = 192, 16, 2
+
+
+def phase_training(torch, np, gpu_name, card):
+    from dsjax_torch.config import TrainConfig, compose
+    from dsjax_torch.inference import load_model
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.ops import lstm
+    from dsjax_torch.train.checkpoint import CheckpointHandler
+    from dsjax_torch.train.loop import Trainer
+    from dsjax_torch.workflows import _pipelines, train
+    from tests.synthetic_manifest import write_manifest
+
+    rng = np.random.default_rng(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_path = write_manifest(tmp, "train", [TRAIN_SECONDS] * TRAIN_UTTS, seed=4)
+        val_path = write_manifest(tmp, "val", list(rng.uniform(3.0, TRAIN_SECONDS, VAL_UTTS)),
+                                  seed=5)
+        data_s = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "ckpt")
+        cfg = compose(TrainConfig, [
+            f"data.train_path={train_path}", f"data.val_path={val_path}",
+            "data.device_features=false", f"data.batch_size={TRAIN_B}", "data.num_workers=4",
+            "trainer.precision=16", "trainer.device=cuda", "trainer.devices=1",
+            f"trainer.max_epochs={EPOCHS}", "trainer.log_every_n_steps=1",
+            f"trainer.log_dir={os.path.join(tmp, 'logs')}", f"checkpoint.dirpath={ckpt}"])
+        lstm.LAUNCHES = lstm.STEP_LAUNCHES = lstm.RESIDUAL_LAUNCHES = lstm.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        state = train(cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {"lstm_fwd": lstm.LAUNCHES, "lstm_fwd_residuals": lstm.RESIDUAL_LAUNCHES,
+                    "lstm_bwd": lstm.BWD_LAUNCHES}
+
+        layers = cfg.model.hidden_layers
+        steps = EPOCHS * -(-TRAIN_UTTS // TRAIN_B)
+        val_forwards = EPOCHS * -(-VAL_UTTS // TRAIN_B)
+        check(state.step == steps, f"{state.step} optimizer steps, expected {steps}")
+        check(launches == {"lstm_fwd": layers * val_forwards,
+                           "lstm_fwd_residuals": layers * steps, "lstm_bwd": layers * steps},
+              f"launches {launches} for {steps} steps and {val_forwards} validation "
+              f"forwards of {layers} layers")
+        records = [json.loads(line) for line in open(os.path.join(tmp, "logs", "metrics.jsonl"))]
+        losses = [r["loss"] for r in records if "loss" in r]
+        check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
+        # a step's time: between the loss syncs of consecutive steps of an epoch
+        step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(records, records[1:])
+                   if "loss" in a and "loss" in b and a["epoch"] == b["epoch"]]
+        val = [r for r in records if "wer" in r and "mean_loss" in r]
+        check(len(val) == EPOCHS and all(np.isfinite(r["mean_loss"]) for r in val),
+              f"validation records {val}")
+
+        handler = CheckpointHandler(ckpt)
+        last = handler.path()
+        size_gb = os.path.getsize(last) / 1e9
+        trainer = Trainer(cfg, list(DEFAULT_LABELS))
+        batch = next(iter(_pipelines(cfg, list(DEFAULT_LABELS))[1]))
+        want, want_lens = trainer.eval_step(state, batch)
+        bundle = load_model(last, precision=16, device="cuda")
+        got, got_lens, _ = bundle.forward(batch.inputs, batch.input_lengths)
+        torch.cuda.synchronize()
+        check(torch.equal(got_lens, want_lens), "out_lens of the loaded checkpoint differ")
+        load_err = (got - want).abs().max().item()
+        check(load_err <= 1e-6, f"loaded checkpoint's posteriors differ by {load_err}")
+    med = statistics.median(step_ms)
+    print(f"training on {gpu_name} ({card}): flagship 5x BiLSTM-1024 bf16, B={TRAIN_B} x "
+          f"{TRAIN_SECONDS} s (T=1024 frames, {TRAIN_T} scan steps), {steps} steps over "
+          f"{EPOCHS} epochs: step median {med!r} ms of {sorted(step_ms)}, "
+          f"{TRAIN_B / (med / 1e3)!r} utt/s; losses {losses}; validation wer/cer "
+          f"{[(r['wer'], r['cer']) for r in val]}; launches {launches}; run {train_s!r} s "
+          f"(corpus written in {data_s!r} s); last checkpoint {size_gb!r} GB, loaded with "
+          f"load_model: posteriors max_abs_err {load_err!r} against the trainer's (<= 1e-6)")
+    return launches
+
+
+def phase_step_parity(torch, np):
+    """One training step of a small model on the card and on the CPU, from
+    the same weights and batch: every parameter's gradient and the loss."""
+    from dsjax_torch.config import TrainConfig, compose
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.train.loop import Trainer
+    from dsjax_torch.workflows import _pipelines
+    from tests.synthetic_manifest import write_manifest
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_manifest(tmp, "small", [2.0, 3.1, 2.6, 1.4, 3.5, 2.2, 0.8, 2.9], seed=6)
+        argv = [f"data.train_path={path}", f"data.val_path={path}", "data.batch_size=8",
+                "data.device_features=false", "model.hidden_size=256", "model.hidden_layers=2",
+                "trainer.precision=32", "trainer.devices=1"]
+        cfgs = {dev: compose(TrainConfig, argv + [f"trainer.device={dev}"])
+                for dev in ("cuda", "cpu")}
+        batch = next(iter(_pipelines(cfgs["cpu"], list(DEFAULT_LABELS))[0]))
+    results = {}
+    for dev, cfg in cfgs.items():
+        trainer = Trainer(cfg, list(DEFAULT_LABELS))
+        state = trainer.init_state(seed=0)
+        grads, loss = trainer.grad_step(state, batch)
+        results[dev] = ({k: v.cpu() for k, v in grads.items()}, float(loss))
+    rel = {}
+    for name, want in results["cpu"][0].items():
+        got = results["cuda"][0][name]
+        scale = want.abs().max().item()
+        e = (got - want).abs().max().item()
+        check(e <= STEP_TOL * scale, f"step parity {name}: max err {e} over {STEP_TOL} x {scale}")
+        rel[name] = e / max(scale, 1e-30)
+    worst = max(rel.values())
+    loss_err = abs(results["cuda"][1] - results["cpu"][1]) / abs(results["cpu"][1])
+    check(loss_err <= 1e-5, f"step parity loss {results['cuda'][1]} vs {results['cpu'][1]}")
+    print(f"step parity H=256 x 2 layers f32, B=8: cuda vs cpu gradients max err "
+          f"{worst!r} x each parameter's largest gradient (<= {STEP_TOL}; by parameter "
+          f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }); loss "
+          f"{results['cuda'][1]!r} vs {results['cpu'][1]!r} (relative {loss_err!r})")
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -308,23 +564,48 @@ def run(torch, np):
 
     defaults = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
                 torch.get_float32_matmul_precision())
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+
+    def full_fp32():
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+
+    def defaults_back():
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults[:2]
+        torch.set_float32_matmul_precision(defaults[2])
+
+    full_fp32()
     print("parity phases: cudnn TF32 off, matmul TF32 off, float32 matmul precision 'highest'")
     kernel = phase_kernel(torch, np)
     state, model_cfg = phase_parity(torch, np)
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults[:2]
-    torch.set_float32_matmul_precision(defaults[2])
+    defaults_back()
     print(f"serving phase: PyTorch defaults (cudnn TF32 {defaults[0]}, matmul TF32 "
           f"{defaults[1]}, precision {defaults[2]!r})")
     launches, step_launches = phase_serving(torch, np, state, model_cfg, gpu_name)
+    full_fp32()
+    train_kernels = phase_train_kernels(torch, np)
+    phase_gradients(torch, np)
+    phase_step_parity(torch, np)
+    defaults_back()
+    print("training phase: PyTorch defaults")
+    train_launches = phase_training(torch, np, gpu_name, card)
 
     f32 = kernel["float32"]
-    print(json.dumps({"kernels": [{
-        "name": "lstm_fwd", "route": "cuda", "source": "dsjax_torch/csrc/lstm_fwd.cu",
-        "replaces": "dsjax/ops/lstm_pallas.py:62", "launches": launches,
-        "step_launches": step_launches,
-        "max_abs_err": f32["max_abs_err"], "ms": f32["ms"], "plain_ms": f32["plain_ms"]}]}))
+    rows = [{"name": "lstm_fwd", "route": "cuda", "source": "dsjax_torch/csrc/lstm_fwd.cu",
+             "replaces": "dsjax/ops/lstm_pallas.py:62", "launches": launches,
+             "step_launches": step_launches, "launches_in_training": train_launches["lstm_fwd"],
+             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"], "plain_ms": f32["plain_ms"]}]
+    for key, name, source, replaces in (
+            ("fwd", "lstm_fwd_residuals", "dsjax_torch/csrc/lstm_fwd.cu",
+             "dsjax/ops/lstm_pallas.py:381"),
+            ("bwd", "lstm_bwd", "dsjax_torch/csrc/lstm_bwd.cu",
+             "dsjax/ops/lstm_pallas.py:225")):
+        r32, r16 = train_kernels[(key, "float32")], train_kernels[(key, "bfloat16")]
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": train_launches[name], "max_abs_err": r32["max_abs_err"],
+                     "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+                     "bf16_max_abs_err": r16["max_abs_err"], "bf16_ms": r16["ms"],
+                     "bf16_plain_ms": r16["plain_ms"]})
+    print(json.dumps({"kernels": rows}))
     return gpu_name
 
 

@@ -6,10 +6,15 @@ dsjax module of the same name and is held against it by a CPU test
 kernels become kernels written by hand for sm_90a under ``csrc/``, built
 with nvcc at first use (``dsjax_torch.ops._build``).
 
-This slice covers the serving path: host STFT features, the DeepSpeech2
-forward with bidirectional LSTM layers (the recurrence runs in
-``csrc/lstm_fwd.cu``), greedy CTC decoding and the HTTP server
-(``python -m dsjax_torch.server model.model_path=...``).
+Two paths are ported:
+  * serving: host STFT features, the DeepSpeech2 forward with bidirectional
+    LSTM layers (the recurrence runs in ``csrc/lstm_fwd.cu``), greedy CTC
+    decoding and the HTTP server
+    (``python -m dsjax_torch.server model.model_path=...``);
+  * training on host features: CTC, the backward through the LSTM layers
+    (``csrc/lstm_fwd.cu`` saving residuals, ``csrc/lstm_bwd.cu``), AdamW or
+    SGD, validation and checkpoints the server loads
+    (``python -m dsjax_torch.train data.device_features=false ...``).
 
 The package never imports jax. Importing it builds and loads nothing.
 """
@@ -26,6 +31,8 @@ def __getattr__(name):
         "load_model": ("dsjax_torch.inference", "load_model"),
         "lstm_scan": ("dsjax_torch.ops.lstm", "lstm_scan"),
         "ServerConfig": ("dsjax_torch.config", "ServerConfig"),
+        "TrainConfig": ("dsjax_torch.config", "TrainConfig"),
+        "Trainer": ("dsjax_torch.train.loop", "Trainer"),
         "compose": ("dsjax_torch.config", "compose"),
     }
     if name in api:

@@ -1,6 +1,6 @@
 """Audio I/O: WAV read/write, mono downmix, resampling.
 
-Copy of the serving half of dsjax/audio/io.py (numpy/scipy; held against it
+Copy of the host half of dsjax/audio/io.py (numpy/scipy; held against it
 by tests/test_torch_frontend.py). FLAC and compressed formats decode through
 dsjax's native library (``dsjax.cpp``), imported only when such a file is
 read; it needs no JAX.
@@ -126,3 +126,9 @@ def resample(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     g = math.gcd(int(orig_sr), int(target_sr))
     up, down = target_sr // g, orig_sr // g
     return sps.resample_poly(y, up, down).astype(np.float32)
+
+
+def duration(path: str) -> float:
+    """Duration in seconds of a wav file (sox file_info.duration equivalent)."""
+    x, sr = read_wav(path)
+    return x.shape[1] / float(sr)

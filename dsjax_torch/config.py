@@ -1,13 +1,16 @@
-"""Serving configuration: the dataclasses of dsjax/config.py that the serving
-path reads, and ``compose`` for dotted overrides.
+"""Configuration: the dataclasses of dsjax/config.py that the serving and
+training paths read, and ``compose`` for dotted overrides.
 
 A copy, so the port runs without the JAX package beside it;
-tests/test_torch_frontend.py holds every field name and default equal to
-dsjax.config's, and ``compose`` equal to dsjax's on the same command lines.
-The one addition is ``ServerConfig.device``, the torch device the server
-runs the model on. ``platform`` and ``num_cpu_devices`` select a JAX
-platform in dsjax; they are kept so the same command lines parse, and the
-port reads neither.
+tests/test_torch_frontend.py and tests/test_torch_data.py hold every field
+name and default equal to dsjax.config's, and ``compose`` equal to dsjax's
+on the same command lines (including the group swaps ``optim=sgd`` and
+``model=unidirectional``). The additions are ``ServerConfig.device`` and
+``TrainerConfig.device``, the torch device the server or the trainer runs
+the model on. Fields that select or tune JAX itself (``platform``,
+``num_cpu_devices``, the trainer's ``mesh_*``, ``matmul_precision``,
+``donate_state``) are kept so the same command lines parse; the server
+reads none of them, and the trainer refuses a value other than the default.
 
 Override values follow YAML's scalar rules (``8`` is an int, ``true`` a
 bool, ``null`` None), implemented here: PyYAML is imported only to read an
@@ -21,7 +24,7 @@ import os
 import re
 import typing
 from dataclasses import dataclass, field, fields, is_dataclass
-from typing import Any, Dict, List, Optional, Type
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 
 class DecoderType(str, enum.Enum):
@@ -51,6 +54,38 @@ class SpectConfig:
 
 
 @dataclass
+class AugmentationConfig:
+    speed_volume_perturb: bool = False  # random tempo/gain perturbation
+    spec_augment: bool = False          # SpecAugment on spectrograms
+    spec_augment_device: bool = False   # dsjax: SpecAugment masks inside the step
+    noise_dir: str = ""                 # dir of noise wavs ('' disables)
+    noise_prob: float = 0.4             # per-sample probability of noise mix
+    noise_min: float = 0.0
+    noise_max: float = 0.5
+
+
+@dataclass
+class DataConfig:
+    train_path: str = "data/train_manifest.json"
+    val_path: str = "data/val_manifest.json"
+    batch_size: int = 64
+    num_workers: int = 4                # host-side loader threads
+    labels_path: str = "labels.json"
+    spect: SpectConfig = field(default_factory=SpectConfig)
+    augmentation: AugmentationConfig = field(default_factory=AugmentationConfig)
+    # dsjax's default computes the STFT on the device; the port's training
+    # slice takes host features only (data.device_features=false)
+    device_features: bool = True
+    bucket_frames: int = 64             # pad the time axis to a multiple of this
+    # split each training batch into this many length-quantile sub-batches
+    # whose gradients sum into one optimizer step; 1 = off
+    ragged_split: int = 1
+    bucket_labels: int = 256            # pad targets to a multiple of this
+    prefetch_batches: int = 2           # collated batches loaded ahead
+    device_prefetch: int = 2            # batches copied to the device ahead; 0 = off
+
+
+@dataclass
 class BiDirectionalConfig:
     rnn_type: RNNType = RNNType.lstm
     hidden_size: int = 1024
@@ -60,6 +95,79 @@ class BiDirectionalConfig:
 @dataclass
 class UniDirectionalConfig(BiDirectionalConfig):
     lookahead_context: int = 20
+
+
+@dataclass
+class OptimConfig:
+    learning_rate: float = 1.5e-4
+    learning_anneal: float = 0.99       # per-epoch exponential LR decay
+    weight_decay: float = 1e-5
+
+
+@dataclass
+class SGDConfig(OptimConfig):
+    momentum: float = 0.9
+
+
+@dataclass
+class AdamConfig(OptimConfig):
+    eps: float = 1e-8
+    betas: Tuple[float, float] = (0.9, 0.999)
+
+
+@dataclass
+class CheckpointConfig:
+    dirpath: Optional[str] = None       # where checkpoints are written
+    filename: Optional[str] = None
+    monitor: str = "wer"                # metric minimized for best-k
+    save_top_k: int = 1
+    save_last: bool = True
+    verbose: bool = False
+    every_n_steps: int = 0              # 0 = only at validation epochs
+
+
+@dataclass
+class TrainerConfig:
+    max_epochs: int = 70
+    precision: int = 16                 # 16: bfloat16 compute, float32 parameters
+    gradient_clip_val: float = 400.0
+    devices: int = -1                   # -1 = all local devices
+    limit_train_batches: float = 1.0    # fraction (<=1.0) or count (>1)
+    limit_val_batches: float = 1.0
+    log_every_n_steps: int = 50
+    log_dir: str = "logs"               # metrics.jsonl + TensorBoard events; '' disables
+    val_check_interval: float = 1.0     # fraction of an epoch between validations
+    accumulate_grad_batches: int = 1
+    enable_checkpointing: bool = True
+    # a checkpoint to resume from: the port's checkpoint directory (or its
+    # last/best subdirectory) or file, or a reference-layout .ckpt
+    # state_dict, which warm-starts the weights with a fresh optimizer
+    resume_from_checkpoint: str = ""
+    deterministic: bool = False
+    detect_anomaly: bool = False        # raise at the first NaN/Inf in backward
+    mesh_data: int = -1                 # dsjax's TPU mesh; the port refuses others
+    mesh_model: int = 1
+    mesh_dcn: int = 1
+    platform: str = ""                  # dsjax's JAX platform
+    num_cpu_devices: int = 0            # dsjax's fake CPU devices
+    matmul_precision: str = ""          # dsjax's XLA matmul precision
+    donate_state: bool = True           # dsjax's buffer donation
+    profile: bool = False               # dsjax: an XProf trace of a few steps
+    profile_dir: str = "profiles"
+    profile_start_step: int = 10
+    profile_num_steps: int = 4
+    device: str = "cuda"                # "cpu" only when asked for
+
+
+@dataclass
+class TrainConfig:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: BiDirectionalConfig = field(default_factory=BiDirectionalConfig)
+    optim: OptimConfig = field(default_factory=AdamConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
+    seed: int = 123456
+    load_auto_checkpoint: bool = False
 
 
 @dataclass
@@ -105,6 +213,14 @@ class ServerConfig(InferenceConfig):
     device: str = "cuda"              # "cpu" only when asked for
 
 
+# polymorphic groups: "optim=sgd" swaps the group's dataclass
+GROUPS: Dict[str, Dict[str, Type]] = {
+    "optim": {"adam": AdamConfig, "sgd": SGDConfig},
+    "model": {"bidirectional": BiDirectionalConfig, "unidirectional": UniDirectionalConfig},
+}
+_SCHEMAS: Dict[str, Type] = {cls.__name__: cls for group in GROUPS.values()
+                             for cls in group.values()}
+
 # YAML 1.1's implicit scalar types, as PyYAML's safe loader resolves them
 _NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
 _BOOL = {v: b for b, vs in ((True, "yes Yes YES true True TRUE on On ON"),
@@ -149,6 +265,8 @@ def _coerce(value: Any, typ: Any) -> Any:
         typ = next(a for a in typ.__args__ if a is not type(None))
     if isinstance(typ, type) and issubclass(typ, enum.Enum):
         return value if isinstance(value, typ) else typ(value)
+    if getattr(typ, "__origin__", None) is tuple:
+        return tuple(_coerce(v, t) for v, t in zip(value, typ.__args__))
     if typ is float and isinstance(value, (int, str)):
         return float(value)
     if typ is int and isinstance(value, (float, str)):
@@ -175,6 +293,9 @@ def _set_dotted(cfg: Any, dotted: str, value: Any) -> None:
         obj = getattr(obj, p)
     if not is_dataclass(obj) or not hasattr(obj, name):
         raise KeyError(f"config has no field {dotted!r}")
+    if name in GROUPS and isinstance(value, str) and value in GROUPS[name]:
+        setattr(obj, name, GROUPS[name][value]())
+        return
     typ = _field_type(obj, name)
     if is_dataclass(typ):
         raise ValueError(f"{dotted} is a group: set its fields ({dotted}.NAME=...)")
@@ -186,8 +307,16 @@ def _merge_overlay(cfg: Any, overlay: Dict[str, Any], path: str = "") -> None:
         full = f"{path}.{k}" if path else k
         if not hasattr(cfg, k):
             raise KeyError(f"overlay key {full!r} not in config schema")
+        if k == "_type_":
+            continue
         cur = getattr(cfg, k)
-        if is_dataclass(cur) and isinstance(v, dict):
+        if k in GROUPS and isinstance(v, str) and v in GROUPS[k]:
+            setattr(cfg, k, GROUPS[k][v]())
+        elif is_dataclass(cur) and isinstance(v, dict):
+            tag = v.get("_type_")
+            if tag in _SCHEMAS and type(cur).__name__ != tag:
+                cur = _SCHEMAS[tag]()
+                setattr(cfg, k, cur)
             _merge_overlay(cur, v, full)
         else:
             setattr(cfg, k, _coerce(v, _field_type(cfg, k)))

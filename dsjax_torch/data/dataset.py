@@ -1,0 +1,138 @@
+"""Dataset + collate: manifest -> (spectrogram, transcript ids) -> padded batch.
+
+The host-feature half of dsjax/data/dataset.py (reference
+loader/data_loader.py:189-279): per-sample wav load -> STFT/log1p/normalize
+on the host; collate sorts by length desc, zero-pads the time axis to a
+multiple of ``bucket_frames`` and the targets to a multiple of
+``bucket_labels``, and marks batch-pad rows invalid. Held against dsjax's
+pipeline by tests/test_torch_data.py.
+
+Not ported yet (ROADMAP.md, Queue 1): the device STFT (raw-audio batches,
+``data.device_features=true``) and augmentation (tempo/gain, noise,
+SpecAugment). Asking for either raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from dsjax_torch.audio.features import FeatureExtractor
+from dsjax_torch.audio.io import load_audio
+from dsjax_torch.config import AugmentationConfig, SpectConfig
+from dsjax_torch.data.manifest import parse_input
+from dsjax_torch.labels import LabelMap
+
+DEVICE_FEATURES_NOT_PORTED = ("data.device_features=true (the device STFT) is not ported "
+                              "yet (ROADMAP.md, Queue 1 item 1): set "
+                              "data.device_features=false")
+
+
+def check_augmentation(aug: Optional[AugmentationConfig]) -> None:
+    """Raise for any augmentation the port does not carry yet."""
+    if aug is None:
+        return
+    asked = [name for name, on in (("speed_volume_perturb", aug.speed_volume_perturb),
+                                   ("spec_augment", aug.spec_augment),
+                                   ("spec_augment_device", aug.spec_augment_device),
+                                   ("noise_dir", bool(aug.noise_dir))) if on]
+    if asked:
+        raise NotImplementedError(
+            f"data.augmentation.{', '.join(asked)}: augmentation is not ported yet "
+            f"(ROADMAP.md, Queue 1 item 5)")
+
+
+@dataclasses.dataclass
+class Batch:
+    """One padded batch: ``inputs`` (B, F, T) float32 spectrograms,
+    ``input_lengths`` the valid frame counts, ``targets`` (B, L) padded with
+    0 and masked by ``target_lengths``; ``valid`` is False on batch-pad rows."""
+
+    inputs: np.ndarray
+    input_lengths: np.ndarray      # (B,) valid frame counts
+    targets: np.ndarray            # (B, L) padded with 0 (masked by lengths)
+    target_lengths: np.ndarray     # (B,)
+    input_percentages: np.ndarray  # (B,) reference-parity: len / padded T
+    valid: Optional[np.ndarray] = None  # (B,) bool; False = batch-pad row
+
+    @property
+    def valid_mask(self) -> np.ndarray:
+        """(B,) float32 row-validity mask; pad rows (pad_to_batch) are 0 so
+        they contribute zero loss/gradient (a pad row with input_length=1
+        otherwise yields nll = -log p_blank with real gradients)."""
+        if self.valid is None:
+            return np.ones((self.size,), np.float32)
+        return self.valid.astype(np.float32)
+
+    @property
+    def size(self) -> int:
+        return self.inputs.shape[0]
+
+
+def round_up(n: int, mult: int) -> int:
+    if mult <= 1:
+        return n
+    return ((n + mult - 1) // mult) * mult
+
+
+def collate(samples: Sequence[Tuple[np.ndarray, List[int]]],
+            bucket_frames: int = 1, bucket_labels: int = 1,
+            pad_to_batch: Optional[int] = None) -> Batch:
+    """Sort by length desc (reference: data_loader.py:251), pad to bucketed
+    max, emit padded targets. ``pad_to_batch`` repeats zero rows so the batch
+    dimension is fixed too; pad rows are marked invalid (Batch.valid) and
+    the train loop zeroes their loss."""
+    samples = sorted(samples, key=lambda s: s[0].shape[1], reverse=True)
+    b = len(samples)
+    freq = samples[0][0].shape[0]
+    max_t = round_up(max(s[0].shape[1] for s in samples), bucket_frames)
+    max_l = round_up(max((len(s[1]) for s in samples), default=1) or 1, bucket_labels)
+    b_pad = pad_to_batch if pad_to_batch is not None else b
+    inputs = np.zeros((b_pad, freq, max_t), np.float32)
+    input_lengths = np.ones((b_pad,), np.int32)
+    targets = np.zeros((b_pad, max_l), np.int32)
+    target_lengths = np.zeros((b_pad,), np.int32)
+    percentages = np.zeros((b_pad,), np.float32)
+    valid = np.zeros((b_pad,), bool)
+    valid[:b] = True
+    for i, (spect, transcript) in enumerate(samples):
+        t = spect.shape[1]
+        inputs[i, :, :t] = spect
+        input_lengths[i] = t
+        targets[i, : len(transcript)] = transcript
+        target_lengths[i] = len(transcript)
+        percentages[i] = t / float(max_t)
+    return Batch(inputs, input_lengths, targets, target_lengths, percentages, valid=valid)
+
+
+class SpectrogramDataset:
+    """Manifest- or directory-backed dataset (reference:
+    data_loader.py:189-244): ``__getitem__`` -> (spect (F, T), ids), the
+    STFT on the host."""
+
+    def __init__(self, spect_cfg: SpectConfig, input_path: str,
+                 labels: Sequence[str], normalize: bool = True,
+                 aug_cfg: Optional[AugmentationConfig] = None,
+                 device_features: bool = False):
+        if device_features:
+            raise NotImplementedError(DEVICE_FEATURES_NOT_PORTED)
+        check_augmentation(aug_cfg)
+        self.ids = parse_input(input_path)
+        self.label_map = LabelMap(labels)
+        self.spect_cfg = spect_cfg
+        self.extractor = FeatureExtractor(spect_cfg, normalize=normalize)
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, List[int]]:
+        wav_path, transcript_path = self.ids[index]
+        y = load_audio(str(wav_path), self.spect_cfg.sample_rate)
+        return self.extractor(y), self.parse_transcript(str(transcript_path))
+
+    def parse_transcript(self, transcript_path: str) -> List[int]:
+        with open(transcript_path, "r", encoding="utf8") as f:
+            transcript = f.read().replace("\n", "")
+        return self.label_map.encode(transcript)

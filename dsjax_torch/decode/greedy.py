@@ -36,8 +36,10 @@ class GreedyDecoder:
     the frame index of each character."""
 
     def __init__(self, labels: Sequence[str], blank_index: int = 0):
+        label_map = LabelMap(labels, blank_index)
         self.blank_index = blank_index
-        self.int_to_char = LabelMap(labels, blank_index).int_to_char
+        self.space_index = label_map.space_index
+        self.int_to_char = label_map.int_to_char
 
     def decode(self, probs, sizes=None, n_best: Optional[int] = None
                ) -> Tuple[List[List[str]], List[List[np.ndarray]]]:
@@ -57,3 +59,10 @@ class GreedyDecoder:
             strings.append(["".join(self.int_to_char[int(c)] for c in ids_np[i, pos])])
             offsets.append([pos.astype(np.int32)])
         return strings, offsets
+
+    def convert_to_strings(self, sequences: Sequence[Sequence[int]]) -> List[List[str]]:
+        """Label id sequences -> one-element lists of strings, blanks dropped
+        (reference: decoder.py:125-162); used for the targets' strings."""
+        return [["".join(" " if int(c) == self.space_index else self.int_to_char[int(c)]
+                         for c in seq if int(c) != self.blank_index)]
+                for seq in sequences]

@@ -8,11 +8,23 @@ apostrophe, A-Z, space at index 28.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import json
+from typing import List, Optional, Sequence
 
 DEFAULT_LABELS: List[str] = ["_", "'"] + [chr(c) for c in range(ord("A"), ord("Z") + 1)] + [" "]
 
 BLANK_INDEX = 0
+
+
+def load_labels(path: Optional[str] = None) -> List[str]:
+    """The label list from a JSON file; the default alphabet if path is None."""
+    if path is None:
+        return list(DEFAULT_LABELS)
+    with open(path, "r", encoding="utf8") as f:
+        labels = json.load(f)
+    if not isinstance(labels, list) or not all(isinstance(c, str) for c in labels):
+        raise ValueError(f"labels file {path} must contain a JSON list of strings")
+    return labels
 
 
 class LabelMap:

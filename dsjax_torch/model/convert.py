@@ -16,7 +16,7 @@ BatchNorm entries are weight, bias, running_mean and running_var.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -143,11 +143,14 @@ def from_dsjax_variables(variables: Mapping[str, Any]) -> Dict[str, Tensor]:
 
 def save_checkpoint(path: str, state_dict: Mapping[str, Tensor],
                     model_cfg: BiDirectionalConfig, spect_cfg: SpectConfig,
-                    labels: Sequence[str]) -> None:
+                    labels: Sequence[str], extra: Optional[Mapping[str, Any]] = None) -> None:
     """Write a checkpoint that ``dsjax_torch.inference.load_model`` reads:
     the reference-layout state_dict plus the hyper-parameters the reference
-    keeps beside it (labels, spect_cfg, model_cfg), all plain data."""
+    keeps beside it (labels, spect_cfg, model_cfg), all plain data.
+    ``extra`` adds top-level entries (the trainer's optimizer state and
+    counters), which loading a model ignores."""
     torch.save({
+        **(extra or {}),
         "state_dict": to_reference_state_dict(state_dict),
         "hyper_parameters": {
             "labels": list(labels),

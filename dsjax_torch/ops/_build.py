@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``dsjax_torch/csrc/*.cu`` file compiles into one shared library with a
+Every ``dsjax_torch/csrc/*.cu`` file compiles, one nvcc process per file and
+all at once, into an object; the objects link into one shared library with a
 plain C interface, ``build/dsjax_torch/libdsjax_torch.so`` under the
 checkout's root. Nothing here includes PyTorch's headers, so a build takes
 seconds rather than minutes. The library is built at first use and rebuilt
-only when the sources or the flags change (a SHA-256 of both is kept beside
-it). Importing this module builds and loads nothing.
+only when the sources (``*.cu`` and the ``*.cuh`` they include) or the flags
+change (a SHA-256 of both is kept beside it). Importing this module builds
+and loads nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "dsjax_torch"
 LIB_PATH = BUILD_DIR / "libdsjax_torch.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -65,26 +67,40 @@ def build(force: bool = False) -> Path:
             and stamp.read_text().strip() == digest):
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu_files = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    # build beside the target, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu_files]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        cu_files = sorted(SRC_DIR.glob("*.cu"))
+        objects = [os.path.join(work, p.stem + ".o") for p in cu_files]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for obj, src in zip(objects, cu_files)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for cmd in compiles]
+        failed = []
+        for cmd, proc in zip(compiles, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        # link beside the target, then rename: a concurrent process never
+        # loads a half-written library
+        tmp = os.path.join(work, LIB_PATH.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, LIB_PATH)
     stamp.write_text(digest + "\n")
     return LIB_PATH
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dsjax_torch_lstm_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsjax_torch_lstm_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_lstm_fwd.restype = i
+    lib.dsjax_torch_lstm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsjax_torch_lstm_bwd.restype = i
     lib.dsjax_torch_error_string.argtypes = [i]
     lib.dsjax_torch_error_string.restype = ctypes.c_char_p
 

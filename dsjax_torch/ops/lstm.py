@@ -1,8 +1,9 @@
-"""Masked LSTM recurrence: the CUDA kernel, its plain version and the wrapper.
+"""Masked LSTM recurrence: the CUDA kernels, their plain versions, the wrappers
+and the autograd Function that ties them together.
 
-Counterpart of dsjax/ops/lstm_pallas.py (forward, no residuals). The input
-projections of all time steps are computed outside, as one large matrix
-product; this op runs only the sequential half, h_{t-1} . W_hh^T per step.
+Counterpart of dsjax/ops/lstm_pallas.py. The input projections of all time
+steps are computed outside, as one large matrix product; these ops run only
+the sequential half, h_{t-1} . W_hh^T per step, and its reverse.
 
 Every tensor carries a leading direction axis D (1 or 2), so one call, and
 one kernel launch sequence, covers both directions of a layer:
@@ -10,27 +11,39 @@ one kernel launch sequence, covers both directions of a layer:
   xp    (D, T, B, 4H)  input projections with b_ih added, gate order i, f, g, o
   mask  (T, B) f32     1 where t < length
   w_hh  (D, 4H, H)     recurrent weights in torch's layout (one row per gate
-                       column, as the kernel reads them)
+                       column, as the forward kernel reads them)
   b_hh  (D, 4H)
   h0/c0 (D, B, H)      initial carry
   reverse              D bools: direction d scans time backwards, which
                        equals flipping xp and mask, scanning, and flipping y
                        back (dsjax/model/ds2.py:334-346)
 
-Returns (y (D, T, B, H), h_T (D, B, H), c_T (D, B, H)). The carry freezes
-where the mask is 0; y is h' * m computed from the unrounded h'. xp, w_hh,
-b_hh, h0 and c0 share one working dtype, float32 or bfloat16; sums and the
-cell math run in float32 and the carry is rounded to the working dtype every
-step, as in the Pallas kernel.
+``lstm_scan`` returns (y (D, T, B, H), h_T (D, B, H), c_T (D, B, H)). The
+carry freezes where the mask is 0; y is h' * m computed from the unrounded
+h'. xp, w_hh, b_hh, h0 and c0 share one working dtype, float32 or bfloat16;
+sums and the cell math run in float32 and the carry is rounded to the
+working dtype every step, as in the Pallas kernels.
 
-On CUDA tensors ``lstm_scan`` always launches the kernel in
-``csrc/lstm_fwd.cu``; on CPU tensors it runs ``lstm_scan_reference``.
+Three kernels, as in dsjax:
+  K1  ``lstm_scan_fwd``       forward without residuals (inference);
+  K2  ``lstm_scan_fwd(save_residuals=True)``  the forward of training, which
+      also writes the post-activation gates (D, T, B, 4H) and the kept carry
+      c (D, T, B, H), both at natural time t (csrc/lstm_fwd.cu);
+  K3  ``lstm_scan_bwd``       the reverse scan: dgates (= dxp), dh0, dc0
+      (csrc/lstm_bwd.cu).
+``lstm_scan`` is the op: a call that autograd will differentiate (grad mode
+on and an input requiring grad) goes through ``LSTMScan``, which runs K2 then
+K3 and reduces dW and db outside the kernel, as dsjax's custom VJP does
+(lstm_pallas.py:367-416); any other call runs K1 and writes no residuals.
+On CUDA tensors the wrappers always launch their kernel; on CPU tensors they
+run the plain versions ``lstm_scan_reference`` and
+``lstm_scan_backward_reference``.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -38,51 +51,111 @@ from dsjax_torch.ops import _build
 
 Tensor = torch.Tensor
 
-# lstm_scan calls on CUDA tensors so far: one per call of the C entry point,
-# which covers every direction of a layer and launches one step kernel per
-# time step; STEP_LAUNCHES counts those step kernels
+# wrapper calls on CUDA tensors so far, one per call of a C entry point,
+# which covers every direction of a layer: LAUNCHES for K1 (and
+# STEP_LAUNCHES for its step kernels, one per time step), RESIDUAL_LAUNCHES
+# for K2, BWD_LAUNCHES for K3
 LAUNCHES = 0
 STEP_LAUNCHES = 0
+RESIDUAL_LAUNCHES = 0
+BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-# the kernel stages (8, H) f32 rows of h in shared memory and loads 16 bytes
+# the kernels stage (8, H) f32 rows of h in shared memory and load 16 bytes
 # at a time, so H must be a multiple of 8 and the stage must fit a CTA
 MAX_HIDDEN = 4096
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _scan_one(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor,
-              h: Tensor, c: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """One forward-in-time direction; mirrors lstm_pallas.lstm_scan_reference."""
+def _scan_one(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h: Tensor,
+              c: Tensor, save_residuals: bool):
+    """One forward-in-time direction; mirrors lstm_pallas.lstm_scan_reference
+    and, when saving, the residual writes of lstm_pallas._fwd_kernel."""
     dtype = xp.dtype
     w_t = w_hh.t().float()
     b = b_hh.float()
-    ys = []
+    ys, gs, cs = [], [], []
     for t in range(xp.shape[0]):
-        gates = xp[t].float() + h.float() @ w_t + b
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c_new = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
-        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        z = xp[t].float() + h.float() @ w_t + b
+        i, f, g, o = z.chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c_new = f * c.float() + i * g
+        h_new = o * torch.tanh(c_new)
         m = mask[t][:, None].float()
         h = (m * h_new + (1 - m) * h.float()).to(dtype)
         c = (m * c_new + (1 - m) * c.float()).to(dtype)
         ys.append((h_new * m).to(dtype))
+        if save_residuals:
+            gs.append(torch.cat([i, f, g, o], dim=-1).to(dtype))
+            cs.append(c)
     y = torch.stack(ys) if ys else xp.new_zeros((0,) + h.shape)
-    return y, h, c
+    if not save_residuals:
+        return y, h, c
+    g_seq = torch.stack(gs) if gs else xp.new_zeros(xp.shape)
+    c_seq = torch.stack(cs) if cs else xp.new_zeros((0,) + c.shape)
+    return y, h, c, g_seq, c_seq
+
+
+def _flip(a: Tensor, rev: bool) -> Tensor:
+    return a.flip(0) if rev else a
 
 
 def lstm_scan_reference(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor,
-                        h0: Tensor, c0: Tensor, reverse: Sequence[bool]
-                        ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Plain PyTorch version of the kernel: same contract, a loop over time."""
-    ys, hs, cs = [], [], []
+                        h0: Tensor, c0: Tensor, reverse: Sequence[bool],
+                        save_residuals: bool = False) -> Tuple[Tensor, ...]:
+    """Plain PyTorch version of K1 (and, with ``save_residuals``, of K2):
+    same contract, a loop over time. With ``save_residuals`` it also returns
+    the gates (D, T, B, 4H) and the kept carry c (D, T, B, H), both at
+    natural time. Autograd can differentiate it."""
+    outs = []
     for d, rev in enumerate(reverse):
-        x_d, m_d = (xp[d].flip(0), mask.flip(0)) if rev else (xp[d], mask)
-        y, h, c = _scan_one(x_d, m_d, w_hh[d], b_hh[d], h0[d], c0[d])
-        ys.append(y.flip(0) if rev else y)
-        hs.append(h)
-        cs.append(c)
-    return torch.stack(ys), torch.stack(hs), torch.stack(cs)
+        out = _scan_one(_flip(xp[d], rev), _flip(mask, rev), w_hh[d], b_hh[d], h0[d],
+                        c0[d], save_residuals)
+        outs.append((_flip(out[0], rev), out[1], out[2])
+                    + tuple(_flip(r, rev) for r in out[3:]))
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _bwd_one(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: Tensor,
+             dy: Tensor, dh: Tensor, dc: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """One forward-in-time direction in reverse; mirrors lstm_pallas._bwd_kernel."""
+    dtype = g_seq.dtype
+    w = w_hh.float()
+    dh, dc = dh.float(), dc.float()
+    dgs = [None] * g_seq.shape[0]
+    for t in reversed(range(g_seq.shape[0])):
+        cp = (c0 if t == 0 else c_seq[t - 1]).float()
+        i, f, g, o = g_seq[t].float().chunk(4, dim=-1)
+        tc = torch.tanh(f * cp + i * g)
+        m = mask[t][:, None].float()
+        dh_acc = dh + dy[t].float() * m
+        dc_acc = dc
+        dh_new, dc_new = dh_acc * m, dc_acc * m
+        d_o = dh_new * tc
+        dc_t = dc_new + dh_new * o * (1 - tc * tc)
+        dg = torch.cat([(dc_t * g) * i * (1 - i), (dc_t * cp) * f * (1 - f),
+                        (dc_t * i) * (1 - g * g), d_o * o * (1 - o)], dim=-1).to(dtype)
+        dgs[t] = dg
+        dh = dg.float() @ w + dh_acc * (1 - m)
+        dc = dc_t * f + dc_acc * (1 - m)
+    dgates = torch.stack(dgs) if dgs else g_seq.new_zeros(g_seq.shape)
+    return dgates, dh.to(dtype), dc.to(dtype)
+
+
+def lstm_scan_backward_reference(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor,
+                                 c_seq: Tensor, dy: Tensor, dh_t: Tensor, dc_t: Tensor,
+                                 reverse: Sequence[bool]) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of K3: the gates and kept carry that K2 saved,
+    the cotangents dy (D, T, B, H), dh_T and dc_T (D, B, H), all in the
+    working dtype -> (dgates (D, T, B, 4H), dh0, dc0 (D, B, H)). dh and dc
+    run in float32; dgates are rounded to the working dtype before the
+    product with W_hh, as lstm_pallas.py:294-298 does."""
+    outs = []
+    for d, rev in enumerate(reverse):
+        dg, dh0, dc0 = _bwd_one(_flip(g_seq[d], rev), _flip(mask, rev), w_hh[d], c0[d],
+                                _flip(c_seq[d], rev), _flip(dy[d], rev), dh_t[d], dc_t[d])
+        outs.append((_flip(dg, rev), dh0, dc0))
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 def _check(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tensor,
@@ -118,19 +191,23 @@ def _check(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tensor,
     # fault after the launch returned, where no error check can see it
     if w_hh.data_ptr() % 16:
         raise ValueError("w_hh must start on a 16-byte boundary")
-
-
-def lstm_scan(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor,
-              h0: Tensor, c0: Tensor, reverse: Sequence[bool]
-              ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Masked LSTM recurrence over time for D directions. See the module
-    docstring for the contract."""
-    global LAUNCHES, STEP_LAUNCHES
-    _check(xp, mask, w_hh, b_hh, h0, c0, reverse)
-    if xp.device.type == "cpu":
-        return lstm_scan_reference(xp, mask, w_hh, b_hh, h0, c0, reverse)
-    if xp.device.type != "cuda":
+    if xp.device.type not in ("cuda", "cpu"):
         raise ValueError(f"lstm_scan runs on cuda or cpu tensors, not {xp.device}")
+
+
+def _reverse_bits(reverse: Sequence[bool]) -> int:
+    return sum(1 << d for d, rev in enumerate(reverse) if rev)
+
+
+def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tensor,
+                  c0: Tensor, reverse: Sequence[bool], save_residuals: bool = False
+                  ) -> Tuple[Tensor, ...]:
+    """The forward scan: K1, or K2 with ``save_residuals`` (then also the
+    gates and the kept carry). Inputs as ``_check`` takes them."""
+    global LAUNCHES, STEP_LAUNCHES, RESIDUAL_LAUNCHES
+    if xp.device.type == "cpu":
+        return lstm_scan_reference(xp, mask, w_hh, b_hh, h0, c0, reverse,
+                                   save_residuals=save_residuals)
     n_dir, n_t, n_b, g4 = xp.shape
     n_h = g4 // 4
     # slot 0 holds the carry entering step 0; step s reads slot s % 2
@@ -139,16 +216,123 @@ def lstm_scan(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor,
     h[0].copy_(h0)
     c[0].copy_(c0)
     y = torch.empty((n_dir, n_t, n_b, n_h), dtype=xp.dtype, device=xp.device)
-    reverse_bits = sum(1 << d for d, rev in enumerate(reverse) if rev)
+    g_seq: Optional[Tensor] = None
+    c_seq: Optional[Tensor] = None
+    if save_residuals:
+        g_seq = torch.empty_like(xp)
+        c_seq = torch.empty_like(y)
     lib = _build.load_library()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dsjax_torch_lstm_fwd(
             xp.data_ptr(), mask.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            h.data_ptr(), c.data_ptr(), y.data_ptr(), n_dir, n_t, n_b, n_h,
-            reverse_bits, int(xp.dtype == torch.bfloat16), stream)
+            h.data_ptr(), c.data_ptr(), y.data_ptr(),
+            g_seq.data_ptr() if save_residuals else None,
+            c_seq.data_ptr() if save_residuals else None, n_dir, n_t, n_b, n_h,
+            _reverse_bits(reverse), int(xp.dtype == torch.bfloat16), stream)
     _build.check(lib, err, "lstm_fwd launch")
     with _launch_lock:
-        LAUNCHES += 1
-        STEP_LAUNCHES += n_t
-    return y, h[n_t % 2], c[n_t % 2]
+        if save_residuals:
+            RESIDUAL_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+            STEP_LAUNCHES += n_t
+    out = (y, h[n_t % 2], c[n_t % 2])
+    return out + (g_seq, c_seq) if save_residuals else out
+
+
+def lstm_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: Tensor,
+                  dy: Tensor, dh_t: Tensor, dc_t: Tensor, reverse: Sequence[bool]
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The reverse scan, K3: the contract of ``lstm_scan_backward_reference``.
+    The residuals come from ``lstm_scan_fwd(save_residuals=True)``; the
+    cotangents are cast to the working dtype and made contiguous here."""
+    global BWD_LAUNCHES
+    dtype = g_seq.dtype
+    dy, dh_t, dc_t = (a.to(dtype).contiguous() for a in (dy, dh_t, dc_t))
+    for name, a, like in (("dy", dy, c_seq), ("dh_T", dh_t, c0), ("dc_T", dc_t, c0)):
+        if a.shape != like.shape or a.device != like.device:
+            raise ValueError(f"{name} is {tuple(a.shape)} on {a.device}, "
+                             f"expected {tuple(like.shape)} on {like.device}")
+    if g_seq.device.type == "cpu":
+        return lstm_scan_backward_reference(g_seq, mask, w_hh, c0, c_seq, dy, dh_t, dc_t,
+                                            reverse)
+    n_dir, n_t, n_b, g4 = g_seq.shape
+    w_t = w_hh.transpose(1, 2).contiguous()          # (D, H, 4H): a unit's weights per row
+    dg = torch.empty_like(g_seq)
+    dh_rest = dh_t.to(torch.float32, copy=True)      # the kernel's f32 carries, overwritten
+    dc = dc_t.to(torch.float32, copy=True)
+    dh0 = torch.empty_like(c0)
+    dc0 = torch.empty_like(c0)
+    lib = _build.load_library()
+    with torch.cuda.device(g_seq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dsjax_torch_lstm_bwd(
+            g_seq.data_ptr(), mask.data_ptr(), w_t.data_ptr(), c0.data_ptr(),
+            c_seq.data_ptr(), dy.data_ptr(), dg.data_ptr(), dh_rest.data_ptr(),
+            dc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), n_dir, n_t, n_b, g4 // 4,
+            _reverse_bits(reverse), int(dtype == torch.bfloat16), stream)
+    _build.check(lib, err, "lstm_bwd launch")
+    with _launch_lock:
+        BWD_LAUNCHES += 1
+    return dg, dh0, dc0
+
+
+def _carried_h_prev(y: Tensor, mask: Tensor, h0: Tensor, reverse: Sequence[bool]) -> Tensor:
+    """(D, T, B, H): the h entering each step of each direction, at natural
+    time. That is y of the previous scan step once a valid step has been
+    seen (masked y equals the carry there), else h0: the "else" matters for
+    the suffix masks of a reverse direction with a nonzero carry
+    (lstm_pallas.py:396-405)."""
+    outs = []
+    for d, rev in enumerate(reverse):
+        y_s, m_s = _flip(y[d], rev), _flip(mask, rev)
+        h_prev = torch.cat([h0[d][None], y_s[:-1]], dim=0)
+        seen = (torch.cumsum(m_s, dim=0) - m_s) > 0
+        h_prev = torch.where(seen[..., None], h_prev, h0[d][None])
+        outs.append(_flip(h_prev, rev))
+    return torch.stack(outs)
+
+
+class LSTMScan(torch.autograd.Function):
+    """``lstm_scan`` under autograd: K2 forward, K3 reverse scan, and dW, db
+    reduced outside the kernel (dsjax's lstm_scan custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, xp, mask, w_hh, b_hh, h0, c0, reverse):
+        y, h_t, c_t, g_seq, c_seq = lstm_scan_fwd(xp, mask, w_hh, b_hh, h0, c0, reverse,
+                                                  save_residuals=True)
+        # the gates residual replaces xp (same shape and dtype)
+        ctx.save_for_backward(g_seq, mask, w_hh, h0, c0, y, c_seq)
+        ctx.reverse = reverse
+        return y, h_t, c_t
+
+    @staticmethod
+    def backward(ctx, dy, dh_t, dc_t):
+        # the model never uses h_T and c_T in its loss: autograd materializes
+        # their cotangents as zeros
+        g_seq, mask, w_hh, h0, c0, y, c_seq = ctx.saved_tensors
+        dgates, dh0, dc0 = lstm_scan_bwd(g_seq, mask, w_hh, c0, c_seq, dy, dh_t, dc_t,
+                                         ctx.reverse)
+        n_dir, n_t, n_b, g4 = dgates.shape
+        h_prev = _carried_h_prev(y, mask, h0, ctx.reverse)
+        # dW[d] = dgates[d]^T . h_prev[d] over all T * B rows, one large
+        # product per direction; cuBLAS and the CPU accumulate bf16 products
+        # in f32, as the f32-accumulated dot of _vjp_bwd does
+        dw = torch.matmul(dgates.reshape(n_dir, n_t * n_b, g4).transpose(1, 2),
+                          h_prev.reshape(n_dir, n_t * n_b, -1))
+        db = dgates.sum(dim=(1, 2), dtype=torch.float32).to(dgates.dtype)
+        return dgates, None, dw.to(w_hh.dtype), db, dh0, dc0, None
+
+
+def lstm_scan(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor,
+              h0: Tensor, c0: Tensor, reverse: Sequence[bool]
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Masked LSTM recurrence over time for D directions. See the module
+    docstring for the contract. Differentiable: a call autograd will
+    differentiate saves residuals (K2) for the reverse scan (K3); any other
+    call (eval, serving) runs K1 and writes none."""
+    _check(xp, mask, w_hh, b_hh, h0, c0, reverse)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xp, w_hh, b_hh, h0, c0)):
+        return LSTMScan.apply(xp, mask, w_hh, b_hh, h0, c0, tuple(reverse))
+    return lstm_scan_fwd(xp, mask, w_hh, b_hh, h0, c0, reverse)

@@ -1,0 +1,349 @@
+"""Training and validation loops on one torch device: the counterpart of
+dsjax/train/loop.py.
+
+One optimizer step does: forward (bf16 compute under precision=16, f32
+parameters) -> log_softmax in f32 -> CTC (sum over rows, zero_infinity,
+zero weight on batch-pad rows) -> backward (through the LSTM kernels K2 and
+K3 on CUDA) -> global-norm clip -> AdamW/SGD at base * anneal^epoch.
+Validation runs the eval forward (K1), greedy decoding and WER/CER.
+
+The state lives in a ``TrainState`` that the methods update in place and
+return, so calls read like dsjax's functional ones: ``state, loss =
+trainer.train_step(state, batch)``.
+
+Settings the port does not carry raise instead of being ignored: the device
+STFT, augmentation, more than one device or process, ``trainer.profile``,
+and the fields that select or tune JAX (``refuse_unported``).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dsjax_torch.config import TrainConfig, TrainerConfig
+from dsjax_torch.data.dataset import DEVICE_FEATURES_NOT_PORTED, Batch, check_augmentation
+from dsjax_torch.decode.greedy import GreedyDecoder
+from dsjax_torch.inference import resolve_device
+from dsjax_torch.model.ctc import ctc_loss
+from dsjax_torch.model.ds2 import DeepSpeech2
+from dsjax_torch.train.metrics import CharErrorRate, WordErrorRate, update_batch
+from dsjax_torch.train.state import (TrainState, clip_by_global_norm, epoch_lr,
+                                     make_optimizer, set_lr)
+
+Tensor = torch.Tensor
+
+# TrainerConfig fields that select or tune JAX itself
+_JAX_ONLY = ("platform", "num_cpu_devices", "mesh_data", "mesh_model", "mesh_dcn",
+             "matmul_precision", "donate_state")
+
+
+def refuse_unported(cfg: TrainConfig) -> None:
+    """Raise for every setting the port's training slice does not carry, so
+    none is silently ignored."""
+    if cfg.data.device_features:
+        raise NotImplementedError(DEVICE_FEATURES_NOT_PORTED)
+    check_augmentation(cfg.data.augmentation)
+    tr, default = cfg.trainer, TrainerConfig()
+    for name in _JAX_ONLY:
+        if getattr(tr, name) != getattr(default, name):
+            raise ValueError(f"trainer.{name} selects or tunes JAX; the port does not read "
+                             f"it: leave it at {getattr(default, name)!r}")
+    multi = ("more than one device or process: multi-device training is not ported yet "
+             "(ROADMAP.md, Queue 1 item 6)")
+    if tr.devices not in (-1, 1) or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(multi)
+    if (tr.devices == -1 and torch.device(tr.device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(f"trainer.devices=-1 asks for all "
+                                  f"{torch.cuda.device_count()} cards, {multi}: set "
+                                  f"trainer.devices=1")
+    if tr.profile:
+        raise NotImplementedError("trainer.profile (a device trace of a few steps) is not "
+                                  "ported yet (ROADMAP.md, Queue 1 item 7): see "
+                                  "tools/torch_profile_train.py")
+    if tr.deterministic or cfg.checkpoint.filename:
+        raise ValueError("trainer.deterministic and checkpoint.filename are read neither "
+                         "by dsjax nor by the port: leave them at their defaults")
+
+
+def _limit(n_batches: int, limit: float) -> int:
+    if limit is None:
+        return n_batches
+    if limit <= 1.0:
+        return max(1, int(n_batches * limit)) if limit > 0 else 0
+    return min(n_batches, int(limit))
+
+
+class Staged(NamedTuple):
+    """A batch's tensors on the device: (inputs, input_lengths, targets,
+    target_lengths, valid); ``ready`` is the event that ends their copy on
+    the side stream (None when no copy is in flight)."""
+    tensors: Tuple[Tensor, ...]
+    ready: Optional[torch.cuda.Event]
+
+
+class Trainer:
+    def __init__(self, cfg: TrainConfig, labels: List[str]):
+        refuse_unported(cfg)
+        self.cfg = cfg
+        self.labels = list(labels)
+        self.device = resolve_device(cfg.trainer.device)
+        self.dtype = torch.bfloat16 if cfg.trainer.precision == 16 else torch.float32
+        if cfg.trainer.detect_anomaly:
+            torch.autograd.set_detect_anomaly(True)
+        self.decoder = GreedyDecoder(labels)
+        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                             else None)
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """A fresh model with weights drawn from ``seed`` (cfg.seed by
+        default) and a fresh optimizer."""
+        gen = torch.Generator().manual_seed(self.cfg.seed if seed is None else seed)
+        model = DeepSpeech2(len(self.labels), self.cfg.data.spect, self.cfg.model,
+                            dtype=self.dtype, generator=gen).to(self.device)
+        return TrainState(model, make_optimizer(model.parameters(), self.cfg.optim))
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+
+    def put_batch(self, batch: Batch) -> Staged:
+        """Host batch -> device tensors. On CUDA the host arrays are pinned
+        and copied without blocking on the trainer's side stream, so a
+        DevicePrefetcher thread can run this ahead of the step."""
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            batch.inputs, batch.input_lengths.astype(np.int32),
+            batch.targets.astype(np.int32), batch.target_lengths.astype(np.int32),
+            batch.valid_mask)]
+        if self._copy_stream is None:
+            return Staged(tuple(t.to(self.device) for t in host), None)
+        with torch.cuda.stream(self._copy_stream):
+            tensors = tuple(t.pin_memory().to(self.device, non_blocking=True) for t in host)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return Staged(tensors, ready)
+
+    def _ready(self, staged: Staged) -> Tuple[Tensor, ...]:
+        """The staged tensors, safe to use on the current stream."""
+        if staged.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.ready)
+            for t in staged.tensors:
+                t.record_stream(stream)
+        return staged.tensors
+
+    def _backward(self, state: TrainState, batch: Batch,
+                  staged: Optional[Staged] = None) -> Tensor:
+        """Forward, loss and backward on one batch; gradients accumulate in
+        the parameters' .grad and the BatchNorm running stats move."""
+        x, input_lengths, targets, target_lengths, valid = self._ready(
+            staged if staged is not None else self.put_batch(batch))
+        state.model.train()
+        out, out_lens, _ = state.model(x, input_lengths)
+        logp = torch.log_softmax(out.float(), dim=-1)
+        nll = ctc_loss(logp, out_lens, targets, target_lengths, reduction="none",
+                       zero_infinity=True)
+        # batch-pad rows (Batch.valid=False) carry zero loss and gradient
+        loss = torch.sum(nll * valid)
+        loss.backward()
+        return loss.detach()
+
+    def _update(self, state: TrainState, n_accum: int) -> TrainState:
+        """Scale the accumulated gradients by 1 / n_accum, clip, and step
+        the optimizer at this epoch's learning rate."""
+        params = [p for p in state.model.parameters() if p.grad is not None]
+        if n_accum != 1:
+            for p in params:
+                p.grad.mul_(1.0 / max(1, n_accum))
+        clip = self.cfg.trainer.gradient_clip_val
+        if clip and clip > 0:
+            clip_by_global_norm([p.grad for p in params], clip)
+        set_lr(state.optimizer, epoch_lr(self.cfg.optim, state.epoch))
+        state.optimizer.step()
+        state.step += 1
+        return state
+
+    def train_step(self, state: TrainState, batch: Batch,
+                   staged: Optional[Staged] = None) -> Tuple[TrainState, Tensor]:
+        """One optimizer step. ``staged`` short-circuits put_batch with
+        tensors a DevicePrefetcher already copied."""
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = self._backward(state, batch, staged)
+        return self._update(state, 1), loss
+
+    def grad_step(self, state: TrainState, batch: Batch) -> Tuple[Dict[str, Tensor], Tensor]:
+        """Gradients of one batch's loss by parameter name, and the loss;
+        moves the BatchNorm running stats, changes no parameter."""
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = self._backward(state, batch)
+        return {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}, loss
+
+    def apply_grads(self, state: TrainState, grads: Dict[str, Tensor],
+                    n_accum: int) -> TrainState:
+        """One optimizer step from summed gradients of n_accum batches."""
+        for n, p in state.model.named_parameters():
+            p.grad = grads[n].clone()
+        return self._update(state, n_accum)
+
+    def train_step_accum(self, state: TrainState, batches: List[Batch],
+                         n_accum: int = 0) -> Tuple[TrainState, Tensor]:
+        """One optimizer step from several micro-batches.
+
+        ``n_accum`` is the divisor applied to the summed gradients: the
+        number of REAL batches accumulated (Lightning parity: each batch
+        contributes its mean). ragged_split sub-batches of one batch are
+        partitions of a single sum-reduced loss, so they sum WITHOUT
+        scaling (n_accum=1); callers mixing both pass the real-batch
+        count. 0 (default) = len(batches), the plain accumulation case."""
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = None
+        for b in batches:
+            loss = self._backward(state, b)
+        return self._update(state, n_accum or len(batches)), loss
+
+    @torch.inference_mode()
+    def eval_step(self, state: TrainState, batch: Batch) -> Tuple[Tensor, Tensor]:
+        """The eval forward (K1 on CUDA): (probs (B, T', C) f32, out_lens)."""
+        x, input_lengths = self._ready(self.put_batch(batch))[:2]
+        state.model.eval()
+        out, out_lens, _ = state.model(x, input_lengths)
+        return out, out_lens
+
+    # ------------------------------------------------------------------
+    # epoch loops
+    # ------------------------------------------------------------------
+
+    def validate(self, state: TrainState, pipeline: Iterable[Batch],
+                 max_batches: Optional[int] = None, verbose: bool = False
+                 ) -> Tuple[float, float]:
+        wer, cer = WordErrorRate(), CharErrorRate()
+        for i, batch in enumerate(pipeline):
+            if max_batches is not None and i >= max_batches:
+                break
+            out, out_lens = self.eval_step(state, batch)
+            n_real = int(batch.valid_mask.sum()) or batch.size
+            decoded, _ = self.decoder.decode(out, out_lens, n_best=1)
+            refs = self.decoder.convert_to_strings(
+                [batch.targets[b, :batch.target_lengths[b]] for b in range(batch.size)])
+            transcripts = [d[0] for d in decoded[:n_real]]
+            references = [r[0] for r in refs[:n_real]]
+            update_batch(wer, cer, transcripts, references)
+            if verbose:
+                for t, r in zip(transcripts, references):
+                    print(f"Ref:  {r}\nHyp:  {t}\n")
+        return wer.compute(), cer.compute()
+
+    def fit(self, train_pipeline, val_pipeline, checkpoint_handler=None,
+            state: Optional[TrainState] = None,
+            log_fn: Callable[[str], None] = print,
+            metrics_logger=None) -> TrainState:
+        from dsjax_torch.data.loader import DevicePrefetcher
+        from dsjax_torch.train.logging import StepTimer
+
+        cfg = self.cfg
+        state = state if state is not None else self.init_state()
+        start_epoch = state.epoch
+        n_val = _limit(len(val_pipeline), cfg.trainer.limit_val_batches)
+        timer = StepTimer()
+        for epoch in range(start_epoch, cfg.trainer.max_epochs):
+            train_pipeline.sampler.set_epoch(epoch)
+            # recompute per epoch: after a mid-epoch auto-resume the first
+            # epoch is shorter (sampler.start_index > 0) but later epochs,
+            # whose start_index resets to 0, must run full length
+            n_train = _limit(len(train_pipeline), cfg.trainer.limit_train_batches)
+            state.epoch = epoch
+            t0 = time.time()
+            losses = []
+            timer.start()
+            accum = max(1, cfg.trainer.accumulate_grad_batches)
+            micro: List[Batch] = []
+            micro_batches = 0
+            # copy batches to the device ahead of the step
+            use_dp = cfg.data.device_prefetch > 0 and accum == 1
+            if use_dp:
+                import itertools
+
+                # bound the SOURCE so the producer never copies batches
+                # past the n_train limit
+                train_iter = DevicePrefetcher(
+                    itertools.islice(iter(train_pipeline), n_train),
+                    self.put_batch, depth=cfg.data.device_prefetch)
+            else:
+                train_iter = train_pipeline
+            for i, item in enumerate(train_iter):
+                batch, staged = item if use_dp else (item, None)
+                if i >= n_train:
+                    break
+                # ragged_split pipelines yield each batch as a list of
+                # length-quantile sub-batches -> one summed-grad step
+                subs = batch if isinstance(batch, list) else [batch]
+                if accum > 1:
+                    micro.extend(subs)
+                    micro_batches += 1
+                    if micro_batches < accum and i + 1 < n_train:
+                        continue
+                    # scale by REAL batches accumulated, not sub-batches:
+                    # ragged_split partitions one sum-reduced loss
+                    state, loss = self.train_step_accum(state, micro, n_accum=micro_batches)
+                    micro = []
+                    micro_batches = 0
+                elif len(subs) > 1:
+                    state, loss = self.train_step_accum(state, subs, n_accum=1)
+                else:
+                    state, loss = self.train_step(state, batch, staged=staged)
+                losses.append(loss)
+                # mid-epoch validation (Lightning val_check_interval parity)
+                vci = cfg.trainer.val_check_interval
+                if 0 < vci < 1.0:
+                    every_val = max(1, int(n_train * vci))
+                    if (i + 1) % every_val == 0 and (i + 1) < n_train:
+                        wer_i, cer_i = self.validate(state, val_pipeline, max_batches=n_val)
+                        log_fn(f"epoch {epoch} step {i + 1}: wer {wer_i:.2f} cer {cer_i:.2f}")
+                        if metrics_logger is not None:
+                            metrics_logger.log(state.step, wer=wer_i, cer=cer_i, epoch=epoch)
+                # mid-epoch checkpointing with the sampler position, for a
+                # mid-epoch resume (reference: samplers' start_index)
+                every = cfg.checkpoint.every_n_steps
+                if (checkpoint_handler is not None and every > 0
+                        and (i + 1) % every == 0 and (i + 1) < n_train):
+                    checkpoint_handler.save(
+                        state, {"loss": float(loss)},
+                        extra={"start_index": train_pipeline.sampler.start_index + i + 1,
+                               "epoch": epoch},
+                        last_only=True)
+                if (i + 1) % max(1, cfg.trainer.log_every_n_steps) == 0:
+                    loss_val = float(loss)  # device sync only when logging
+                    timer.tick(sum(b.size for b in subs)
+                               * max(1, cfg.trainer.log_every_n_steps))
+                    log_fn(f"epoch {epoch} step {i + 1}/{n_train} "
+                           f"loss {loss_val:.3f} "
+                           f"({timer.utterances_per_sec:.1f} utt/s)")
+                    if metrics_logger is not None:
+                        metrics_logger.log(state.step, loss=loss_val,
+                                           utt_per_sec=timer.utterances_per_sec, epoch=epoch)
+            train_time = time.time() - t0
+            mean_loss = float(np.mean([float(l) for l in losses])) if losses else 0.0
+            wer, cer = self.validate(state, val_pipeline, max_batches=n_val)
+            log_fn(f"epoch {epoch}: loss {mean_loss:.3f} "
+                   f"wer {wer:.2f} cer {cer:.2f} ({train_time:.1f}s)")
+            if metrics_logger is not None:
+                metrics_logger.log(state.step, wer=wer, cer=cer, mean_loss=mean_loss,
+                                   epoch=epoch)
+            if checkpoint_handler is not None and cfg.trainer.enable_checkpointing:
+                # saved with epoch + 1, so a resume continues at the NEXT epoch
+                state.epoch = epoch + 1
+                checkpoint_handler.save(
+                    state, {"wer": wer, "cer": cer, "loss": mean_loss, "epoch": epoch})
+                state.epoch = epoch
+            # sampler start_index reset after completing an epoch
+            train_pipeline.sampler.start_index = 0
+        return state

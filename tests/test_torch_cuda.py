@@ -1,13 +1,16 @@
-"""dsjax_torch's CUDA kernel on the card (marked `cuda`; skips without one).
+"""dsjax_torch's CUDA kernels on the card (marked `cuda`; skips without one).
 
 Run on a machine with an NVIDIA card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The kernel is held against its plain PyTorch version on the same CUDA
-tensors (f32: atol 2e-5, rtol 1e-4, sum order only; bf16: atol 3e-2, the
-carry rounds to bf16 every step), and the model's CUDA forward against its
-CPU forward with TF32 off.
+Each kernel (K1 the forward, K2 the residual-saving forward, K3 the reverse
+scan) is held against its plain PyTorch version on the same CUDA tensors
+(f32: atol 2e-5, rtol 1e-4 forward, sum order only; bf16: atol 3e-2, the
+carry rounds to bf16 every step; the reverse scan's looser bounds are
+stated at BWD_TOL), the differentiated op against autograd through the
+plain loop, and the model's CUDA forward and gradients against its CPU ones
+with TF32 off.
 """
 
 import numpy as np
@@ -19,6 +22,11 @@ from dsjax_torch.ops import lstm
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=3e-2, rtol=0.0)}
+# dh and dc carry sums of 4H products through every step: f32 sum order
+# only; in bf16 each step's dgates round to bf16 before the product, so a
+# flipped rounding propagates back through the steps
+BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
+SHAPES = [(12, 8, 128, (False, True)), (7, 3, 64, (False,)), (33, 20, 256, (True, False))]
 
 
 @pytest.fixture
@@ -31,20 +39,27 @@ def full_fp32():
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(12, 8, 128, (False, True)), (7, 3, 64, (False,)),
-                                   (33, 20, 256, (True, False))])
-def test_kernel_matches_plain_version(full_fp32, dtype, shape):
+def problem(shape, dtype, suffix=False):
+    """Inputs on the card: ragged lengths including 1 and T (a suffix mask
+    when asked, as a time-flipped padded stream has), nonzero carry."""
     T, B, H, reverse = shape
     D = len(reverse)
     rng = np.random.default_rng(T)
-    dev = lambda a, dt=dtype: torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+    dev = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda", dt)
     lengths = rng.integers(1, T + 1, B)
     lengths[0], lengths[-1] = 1, T
-    mask = dev(np.arange(T)[:, None] < lengths[None, :], torch.float32)
-    args = (dev(rng.standard_normal((D, T, B, 4 * H)) * 0.3), mask,
+    mask = np.arange(T)[:, None] < lengths[None, :]
+    mask = dev(mask[::-1] if suffix else mask, torch.float32)
+    return (dev(rng.standard_normal((D, T, B, 4 * H)) * 0.3), mask,
             dev(rng.standard_normal((D, 4 * H, H)) * 0.1), dev(rng.standard_normal((D, 4 * H)) * 0.1),
             dev(rng.standard_normal((D, B, H)) * 0.1), dev(rng.standard_normal((D, B, H)) * 0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_matches_plain_version(full_fp32, dtype, shape):
+    T, B, H, reverse = shape
+    args = problem(shape, dtype)
     before = lstm.LAUNCHES
     out = lstm.lstm_scan(*args, reverse)
     torch.cuda.synchronize()
@@ -70,3 +85,97 @@ def test_model_cuda_forward_matches_cpu(full_fp32):
     assert lstm.LAUNCHES == before + cfg.hidden_layers
     assert torch.equal(got_lens.cpu(), want_lens)
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_residual_forward_matches_plain_version(full_fp32, dtype, shape):
+    """K2: y, h_T, c_T, the gates and the kept carry c."""
+    for suffix in (False, True):
+        args = problem(shape, dtype, suffix)
+        before = (lstm.LAUNCHES, lstm.RESIDUAL_LAUNCHES)
+        out = lstm.lstm_scan_fwd(*args, shape[3], save_residuals=True)
+        torch.cuda.synchronize()
+        assert (lstm.LAUNCHES, lstm.RESIDUAL_LAUNCHES) == (before[0], before[1] + 1)
+        ref = lstm.lstm_scan_reference(*args, shape[3], save_residuals=True)
+        assert len(out) == len(ref) == 5
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o.float(), r.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_reverse_scan_matches_plain_version(full_fp32, dtype, shape):
+    """K3 on the residuals of the plain forward, with nonzero dh_T, dc_T."""
+    T, B, H, reverse = shape
+    for suffix in (False, True):
+        xp, mask, w, b, h0, c0 = problem(shape, dtype, suffix)
+        _, _, _, g_seq, c_seq = lstm.lstm_scan_reference(xp, mask, w, b, h0, c0, reverse,
+                                                         save_residuals=True)
+        rng = np.random.default_rng(T + 1)
+        cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+               for s in (c_seq.shape, h0.shape, c0.shape)]
+        before = lstm.BWD_LAUNCHES
+        out = lstm.lstm_scan_bwd(g_seq, mask, w, c0, c_seq, *cot, reverse)
+        torch.cuda.synchronize()
+        assert lstm.BWD_LAUNCHES == before + 1
+        ref = lstm.lstm_scan_backward_reference(g_seq, mask, w, c0, c_seq, *cot, reverse)
+        for o, r in zip(out, ref):
+            assert o.dtype == dtype and o.shape == r.shape
+            torch.testing.assert_close(o.float(), r.float(), **BWD_TOL[dtype])
+
+
+def test_differentiated_scan_runs_k2_k3_and_matches_autograd(full_fp32):
+    """The gradient cut is repaired: with inputs that require grad the
+    outputs carry a grad_fn, every input gets its gradient through K2 and
+    K3, and they match autograd through the plain loop; a call without
+    grad still runs K1 only."""
+    shape = (20, 12, 128, (False, True))
+    args = [a.requires_grad_(a.dtype == torch.float32 and i != 1)
+            for i, a in enumerate(problem(shape, torch.float32, suffix=False))]
+    rng = np.random.default_rng(5)
+    weights = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+               for s in ((2, 20, 12, 128), (2, 12, 128), (2, 12, 128))]
+    counts = (lstm.LAUNCHES, lstm.RESIDUAL_LAUNCHES, lstm.BWD_LAUNCHES)
+    out = lstm.lstm_scan(*args, shape[3])
+    assert all(o.grad_fn is not None for o in out)
+    grads = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(out, weights)),
+                                [args[i] for i in (0, 2, 3, 4, 5)])
+    torch.cuda.synchronize()
+    assert (lstm.LAUNCHES, lstm.RESIDUAL_LAUNCHES, lstm.BWD_LAUNCHES) == \
+        (counts[0], counts[1] + 1, counts[2] + 1)
+    ref = lstm.lstm_scan_reference(*args, shape[3])
+    want = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(ref, weights)),
+                               [args[i] for i in (0, 2, 3, 4, 5)])
+    for g, w in zip(grads, want):
+        assert g.abs().max() > 0
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        lstm.lstm_scan(*args, shape[3])
+    assert (lstm.LAUNCHES, lstm.RESIDUAL_LAUNCHES, lstm.BWD_LAUNCHES) == \
+        (counts[0] + 1, counts[1] + 1, counts[2] + 1)
+
+
+def test_model_cuda_gradients_match_cpu(full_fp32):
+    """A training forward and backward of a small model on the card against
+    the same on the CPU: every parameter's gradient and the BatchNorm
+    running stats."""
+    from dsjax_torch.config import BiDirectionalConfig, SpectConfig
+    from dsjax_torch.model.ds2 import DeepSpeech2
+
+    cfg = BiDirectionalConfig(hidden_size=64, hidden_layers=2)
+    cpu = DeepSpeech2(29, SpectConfig(), cfg, generator=torch.Generator().manual_seed(0)).train()
+    gpu = DeepSpeech2(29, SpectConfig(), cfg).cuda().train()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((4, 161, 50)).astype(np.float32))
+    lengths = torch.tensor([50, 31, 12, 1], dtype=torch.int32)
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        out, _, _ = model(x.to(dev), lengths.to(dev))
+        torch.log_softmax(out.float(), -1)[..., 1].sum().backward()
+    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = float(p.grad.abs().max())
+        torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-4 * scale + 1e-6, rtol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
+    for name, buf in cpu.named_buffers():
+        torch.testing.assert_close(dict(gpu.named_buffers())[name].cpu(), buf, atol=1e-5,
+                                   rtol=1e-4)

@@ -12,9 +12,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 IMPORTS = ("dsjax_torch", "dsjax_torch.server", "dsjax_torch.inference",
-           "dsjax_torch.model.ds2", "dsjax_torch.model.convert", "dsjax_torch.ops.lstm",
-           "dsjax_torch.decode.greedy", "dsjax_torch.audio.features",
-           "dsjax_torch.audio.io", "dsjax_torch.config", "dsjax_torch.labels")
+           "dsjax_torch.model.ds2", "dsjax_torch.model.convert", "dsjax_torch.model.ctc",
+           "dsjax_torch.ops.lstm", "dsjax_torch.decode.greedy", "dsjax_torch.audio.features",
+           "dsjax_torch.audio.io", "dsjax_torch.config", "dsjax_torch.labels",
+           "dsjax_torch.workflows", "dsjax_torch.train.loop", "dsjax_torch.train.state",
+           "dsjax_torch.train.checkpoint", "dsjax_torch.train.metrics",
+           "dsjax_torch.train.logging", "dsjax_torch.data.dataset", "dsjax_torch.data.loader",
+           "dsjax_torch.data.sampler", "dsjax_torch.data.manifest")
 
 
 def _imports(path):
@@ -36,7 +40,9 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_profile_serving.py")]
+    [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_profile_serving.py"),
+     os.path.join(ROOT, "tools", "torch_profile_train.py"),
+     os.path.join(ROOT, "tests", "synthetic_manifest.py")]
     + glob.glob(os.path.join(ROOT, "dsjax_torch", "**", "*.py"), recursive=True)),
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_import_of_the_jax_package(path):
@@ -61,6 +67,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(mod)",
         "import dsjax_torch",
         "dsjax_torch.DeepSpeech2, dsjax_torch.load_model, dsjax_torch.lstm_scan",
+        "dsjax_torch.Trainer, dsjax_torch.TrainConfig",
         "loaded = [m for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax')",
         "          if sys.modules.get(m) is not None]",
         "assert not loaded, loaded",
