@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive dsjax_torch's serving and training paths once on one CUDA card and
-check them.
+"""Drive dsjax_torch's serving, training and evaluation paths once on one
+CUDA card and check them.
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
@@ -29,15 +29,38 @@ Phases, each printing what it measured; any failure exits non-zero:
               finite losses, and the last checkpoint loaded as the server
               loads it giving the trainer's eval posteriors;
   9. step parity  one training step of a small model (H=256, 2 layers, f32)
-              on the card against the same step on the CPU.
-The parity phases (3, 4, 6, 7, 9) turn TF32 off (cuDNN convolutions and
-matmuls in full float32); serving and training run PyTorch's defaults.
-The last two lines are a JSON object of kernel results and
-{"ok": true, "device": {...}}.
+              on the card against the same step on the CPU;
+ 10. top-k kernel  K6 against its plain version (a stable sort) at the beam
+              pool's shapes (16, 3840) -> 128 and (20, 300) -> 10, at
+              (64, 7680) -> 256, and on a tie-heavy pool: values and indices
+              exactly equal; CUDA-event median times of both;
+ 11. beam kernel  K7 against the plain scan at (B, T, W, C) = (16, 500, 128,
+              29) and (20, 500, 10, 29), log-softmax posteriors with ragged
+              sizes including 0, 1 and T: backptr, emit, h1, h2 and the
+              integer carry exactly equal, totals and the float carry within
+              1e-5; a two-chunk K7 stream equal to the one-shot K7; times
+              of K7, of the scan with K6 and of the plain scan;
+ 12. evaluation  ``workflows.evaluate`` of the flagship (seeded weights) on a
+              synthetic corpus of 40 WAVs of 2-12 s, with the STFT on the
+              card from int16 raw audio, batch 20: greedy, beam W=10 by the
+              scan with K6, and beam W=10 with DSJAX_FUSED_BEAM=1 (K7); the
+              two beam routes give identical transcripts, WER and CER; exact
+              K1, K6 and K7 launch counts; the raw-audio forward's
+              posteriors against the host-feature forward's;
+ 13. beam serving  the server with lm.decoder_type=beam: 8 concurrent
+              /transcribe requests against DeviceBeamDecoder.decode on the
+              same posteriors, a /stream session whose last transcript
+              equals the one-shot beam decode of the same chunks, and a
+              one-chunk session equal to /transcribe of the same audio.
+The parity phases (3, 4, 6, 7, 9, 10, 11 and 12's posterior comparison)
+turn TF32 off (cuDNN convolutions and matmuls in full float32); serving,
+training and evaluation run PyTorch's defaults. The last two lines are a
+JSON object of kernel results and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import io
 import json
@@ -67,6 +90,13 @@ GRAD_TOL = (1e-4, 1e-4)
 STEP_TOL = 1e-3
 GOLDEN_TOL = (5e-6, 1e-4)
 SR = 16000
+TOPK_SHAPES = [(16, 3840, 128), (20, 300, 10), (64, 7680, 256)]
+BEAM_SHAPES = [(16, 500, 128, 29), (20, 500, 10, 29)]      # (B, T, W, C)
+BEAM_TOL = 1e-5                 # totals and the float carry of K7 vs the scan
+EVAL_UTTS, EVAL_BATCH, EVAL_WIDTH = 40, 20, 10
+# the flagship's posteriors from int16 raw audio with the STFT on the card
+# against host features of the same 16-bit WAVs: the STFT's rounding only
+FEATURE_PATH_TOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -234,6 +264,22 @@ def direct_chunked(worker, y, chunk_s, np, torch):
     return worker.decoder.decode(torch.cat(outs, dim=1))[0][0][0]
 
 
+def reset_counts():
+    """Every kernel's launch count to 0, before a path is driven."""
+    from dsjax_torch.ops import beam, lstm, topk
+
+    lstm.LAUNCHES = lstm.STEP_LAUNCHES = lstm.RESIDUAL_LAUNCHES = lstm.BWD_LAUNCHES = 0
+    topk.LAUNCHES = beam.LAUNCHES = 0
+
+
+def read_counts():
+    from dsjax_torch.ops import beam, lstm, topk
+
+    return {"lstm_fwd": lstm.LAUNCHES, "lstm_steps": lstm.STEP_LAUNCHES,
+            "lstm_fwd_residuals": lstm.RESIDUAL_LAUNCHES, "lstm_bwd": lstm.BWD_LAUNCHES,
+            "topk": topk.LAUNCHES, "beam_scan": beam.LAUNCHES}
+
+
 def phase_serving(torch, np, state, model_cfg, gpu_name):
     from dsjax_torch.config import ServerConfig, SpectConfig, compose
     from dsjax_torch.labels import DEFAULT_LABELS
@@ -256,7 +302,7 @@ def phase_serving(torch, np, state, model_cfg, gpu_name):
         cfg = compose(ServerConfig, [f"model.model_path={path}", "host=127.0.0.1", "port=0",
                                      "device=cuda", "max_batch=8", "batch_timeout_ms=2000",
                                      "chunk_size_seconds=10", "warmup_seconds=10"])
-        lstm.LAUNCHES = lstm.STEP_LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         server, worker = serve(cfg)
         try:
@@ -457,7 +503,7 @@ def phase_training(torch, np, gpu_name, card):
             "trainer.precision=16", "trainer.device=cuda", "trainer.devices=1",
             f"trainer.max_epochs={EPOCHS}", "trainer.log_every_n_steps=1",
             f"trainer.log_dir={os.path.join(tmp, 'logs')}", f"checkpoint.dirpath={ckpt}"])
-        lstm.LAUNCHES = lstm.STEP_LAUNCHES = lstm.RESIDUAL_LAUNCHES = lstm.BWD_LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         state = train(cfg)
         torch.cuda.synchronize()
@@ -545,6 +591,273 @@ def phase_step_parity(torch, np):
           f"{results['cuda'][1]!r} vs {results['cpu'][1]!r} (relative {loss_err!r})")
 
 
+def phase_topk(torch, np):
+    """K6: dsjax/ops/topk_pallas.py:_topk_kernel -> dsjax_torch/csrc/topk.cu."""
+    from dsjax_torch.ops import topk
+
+    rng = np.random.default_rng(10)
+    result = {}
+    cases = [(f"({b}, {n}) -> {k}", rng.standard_normal((b, n)).astype(np.float32), k)
+             for b, n, k in TOPK_SHAPES]
+    ties = rng.standard_normal((16, 3840)).astype(np.float32)
+    ties[:, ::2] = np.float32(-1e30)                     # half the pool dead
+    ties[:, 1::6] = np.float32(-3.25)                    # repeated scores
+    ties[0] = np.float32(-1e30)
+    cases.append(("tie-heavy (16, 3840) -> 128", ties, 128))
+    for name, s_np, k in cases:
+        s = torch.from_numpy(s_np).cuda()
+        got = topk.topk(s, k)
+        want = topk.topk_reference(s, k)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K6 {name}: differs from the stable sort")
+        k_ms = cuda_time(lambda: topk.topk(s, k), 50)
+        p_ms = cuda_time(lambda: topk.topk_reference(s, k), 50)
+        print(f"kernel topk {name}: values and indices equal to the plain version (max_abs_err "
+              f"0.0); kernel {k_ms!r} ms, plain {p_ms!r} ms (median, CUDA events)")
+        result[name] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms}
+    return result
+
+
+def beam_inputs(torch, np, b, t, c, seed):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((b, t, c)) * 2.5
+    logits[..., 0] += 2.0                                 # blank-heavy, as CTC output is
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    sizes = rng.integers(2, t + 1, b).astype(np.int32)
+    sizes[:3] = (0, 1, t)
+    return (torch.from_numpy(lp.astype(np.float32)).cuda(), torch.from_numpy(sizes).cuda())
+
+
+def same_scan(torch, got, want, what):
+    """K7's outputs against the scan's: integers exactly, floats to BEAM_TOL."""
+    err = 0.0
+    for name, g, w in (("backptr", got[0], want[0]), ("emit", got[1], want[1]),
+                       ("h1", got[2][0], want[2][0]), ("h2", got[2][1], want[2][1]),
+                       ("totals", got[3], want[3])) + tuple(
+                           (f"carry[{i}]", g, w) for i, (g, w) in enumerate(zip(got[4], want[4]))):
+        if g.dtype == torch.int32:
+            check(torch.equal(g, w), f"{what}: {name} differs")
+        else:
+            e = (g - w).abs().max().item() if g.numel() else 0.0
+            check(e <= BEAM_TOL, f"{what}: {name} max err {e} over {BEAM_TOL}")
+            err = max(err, e)
+    return err
+
+
+def phase_beam_kernel(torch, np):
+    """K7: dsjax/ops/beam_pallas.py:_beam_kernel -> dsjax_torch/csrc/beam_scan.cu."""
+    from dsjax_torch.decode.beam_device import _beam_scan
+    from dsjax_torch.ops import beam, topk
+
+    result = {}
+    for b, t, w, c in BEAM_SHAPES:
+        what = f"B={b} T={t} W={w} C={c}"
+        lp, sizes = beam_inputs(torch, np, b, t, c, seed=w)
+        got = beam.fused_beam_scan(lp, sizes, w, 0)
+        want = beam.fused_beam_scan_reference(lp, sizes, w, 0)
+        torch.cuda.synchronize()
+        err = same_scan(torch, got, want, f"K7 {what}")
+        check(torch.equal(got[5][1], want[5][1]), f"K7 {what}: ranking differs")
+        scan = _beam_scan(lp, sizes, w, 0)                # the scan route, with K6
+        err = max(err, same_scan(torch, got, scan, f"K7 vs the K6 scan {what}"))
+        # a stream of two chunks from the carry equals the one-shot scan
+        half = t // 2
+        first = beam.fused_beam_scan(lp[:, :half], sizes.clamp(max=half), w, 0)
+        second = beam.fused_beam_scan(lp[:, half:], (sizes - half).clamp(min=0), w, 0,
+                                      carry0=first[4])
+        joined = (torch.cat([first[0], second[0]]), torch.cat([first[1], second[1]]),
+                  (torch.cat([first[2][0], second[2][0]]), torch.cat([first[2][1], second[2][1]])),
+                  second[3], second[4])
+        torch.cuda.synchronize()
+        err = max(err, same_scan(torch, joined, got, f"K7 two-chunk stream {what}"))
+        k_ms = cuda_time(lambda: beam.fused_beam_scan(lp, sizes, w, 0), 10)
+        s_ms = cuda_time(lambda: _beam_scan(lp, sizes, w, 0), 3)
+        p_ms = cuda_time(lambda: beam.fused_beam_scan_reference(lp, sizes, w, 0), 3)
+        print(f"kernel beam_scan {what}: backptr, emit, h1, h2, carry and ranking equal to the "
+              f"plain scan and to the K6 scan, totals max_abs_err {err!r} (atol {BEAM_TOL}); "
+              f"two-chunk stream equal; K7 {k_ms!r} ms, scan with K6 {s_ms!r} ms, plain scan "
+              f"{p_ms!r} ms (median, CUDA events)")
+        result[what] = {"max_abs_err": err, "ms": k_ms, "scan_k6_ms": s_ms, "plain_ms": p_ms}
+    return result
+
+
+def phase_feature_paths(torch, np, state, model_cfg, root):
+    """The raw-audio forward (STFT on the card) against host features."""
+    from dsjax_torch.audio.features import FeatureExtractor, pad_audio_for_device
+    from dsjax_torch.audio.io import load_audio
+    from dsjax_torch.config import SpectConfig
+    from dsjax_torch.inference import ModelBundle
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.model.convert import from_reference_state_dict
+    from dsjax_torch.model.ds2 import DeepSpeech2
+
+    model = DeepSpeech2(len(DEFAULT_LABELS), SpectConfig(), model_cfg)
+    model.load_state_dict(from_reference_state_dict(state))
+    bundle = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), device="cuda")
+    ys = [load_audio(os.path.join(root, "wav", f"eval_{i}.wav")) for i in range(6)]
+    items = [pad_audio_for_device(y, bundle.spect_cfg) for y in ys]
+    n_valid = np.array([n for _, n in items], np.int32)
+    t_max = int(n_valid.max())
+    items = [pad_audio_for_device(y, bundle.spect_cfg, t_max) for y in ys]
+    audio = np.stack([np.clip(np.rint(yp * 32768.0), -32768, 32767).astype(np.int16)
+                      for yp, _ in items])
+    extractor = FeatureExtractor(bundle.spect_cfg)
+    feats = np.zeros((len(ys), extractor.n_freq, t_max), np.float32)
+    for i, y in enumerate(ys):
+        f = extractor(y)
+        feats[i, :, : f.shape[1]] = f
+    raw, raw_lens, _ = bundle.forward(audio, n_valid)
+    host, host_lens, _ = bundle.forward(feats, n_valid)
+    torch.cuda.synchronize()
+    check(torch.equal(raw_lens, host_lens), "raw-audio and host-feature out_lens differ")
+    err = max((raw[i, :n] - host[i, :n]).abs().max().item()
+              for i, n in enumerate(raw_lens.tolist()))
+    check(err <= FEATURE_PATH_TOL, f"raw-audio posteriors differ from host-feature ones by {err}")
+    return err
+
+
+def phase_evaluation(torch, np, state, model_cfg, gpu_name, full_fp32, defaults_back):
+    from dsjax_torch.config import EvalConfig, SpectConfig, compose
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.model.convert import from_reference_state_dict, save_checkpoint
+    from dsjax_torch.workflows import evaluate
+    from tests.synthetic_manifest import write_manifest
+
+    rng = np.random.default_rng(12)
+    with tempfile.TemporaryDirectory() as tmp:
+        seconds = [round(float(s), 2) for s in rng.uniform(2.0, 12.0, EVAL_UTTS)]
+        manifest = write_manifest(tmp, "eval", seconds, seed=13)
+        path = os.path.join(tmp, "flagship.pt")
+        save_checkpoint(path, from_reference_state_dict(state), model_cfg, SpectConfig(),
+                        DEFAULT_LABELS)
+        full_fp32()
+        feature_err = phase_feature_paths(torch, np, state, model_cfg, tmp)
+        defaults_back()
+        runs = {}
+        for name, decoder, fused in (("greedy", "greedy", "0"), ("beam, scan with K6", "beam", "0"),
+                                     ("beam, K7", "beam", "1")):
+            os.environ["DSJAX_FUSED_BEAM"] = fused
+            cfg = compose(EvalConfig, [f"model.model_path={path}", f"test_path={manifest}",
+                                       f"batch_size={EVAL_BATCH}", "num_workers=4",
+                                       "device=cuda", f"lm.decoder_type={decoder}",
+                                       f"lm.beam_width={EVAL_WIDTH}"])
+            out = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                wer, cer = evaluate(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            lines = out.getvalue().splitlines()
+            hyps = [line for line in lines if line.startswith("Hyp:")]
+            summary = [line for line in lines if line.startswith("Test Summary")]
+            check(len(hyps) == EVAL_UTTS and len(summary) == 1, f"evaluate ({name}) printed "
+                  f"{len(hyps)} hypotheses and {len(summary)} summaries")
+            runs[name] = dict(wer=wer, cer=cer, hyps=hyps, summary=summary[0].strip(),
+                              counts=counts, wall=wall)
+        os.environ.pop("DSJAX_FUSED_BEAM")
+    layers, batches = model_cfg.hidden_layers, -(-EVAL_UTTS // EVAL_BATCH)
+    for name, r in runs.items():
+        c = r["counts"]
+        check(c["lstm_fwd"] == layers * batches,
+              f"evaluate ({name}): {c['lstm_fwd']} lstm_fwd launches for {batches} batches")
+        check(np.isfinite(r["wer"]) and np.isfinite(r["cer"]), f"evaluate ({name}): {r}")
+    steps = runs["greedy"]["counts"]["lstm_steps"] // layers      # output frames, all batches
+    want = {"greedy": (0, 0), "beam, scan with K6": (steps + batches, 0),
+            "beam, K7": (0, batches)}
+    for name, (n_topk, n_beam) in want.items():
+        c = runs[name]["counts"]
+        check((c["topk"], c["beam_scan"]) == (n_topk, n_beam),
+              f"evaluate ({name}): topk {c['topk']} and beam_scan {c['beam_scan']} launches, "
+              f"expected {n_topk} and {n_beam} ({steps} frames in {batches} batches)")
+    scan, fused = runs["beam, scan with K6"], runs["beam, K7"]
+    check(scan["hyps"] == fused["hyps"], "the two beam routes' transcripts differ")
+    check((scan["wer"], scan["cer"]) == (fused["wer"], fused["cer"]),
+          f"the two beam routes' WER/CER differ: {scan['wer'], scan['cer']} vs "
+          f"{fused['wer'], fused['cer']}")
+    for name, r in runs.items():
+        print(f"evaluation on {gpu_name}, flagship f32, {EVAL_UTTS} utterances of 2-12 s, batch "
+              f"{EVAL_BATCH}, STFT on the card ({name}): {r['summary']!r}; wall {r['wall']!r} s; "
+              f"launches {r['counts']}")
+    print(f"evaluation: beam routes identical ({EVAL_UTTS} transcripts, WER {scan['wer']!r}, CER "
+          f"{scan['cer']!r}); raw-audio vs host-feature posteriors max_abs_err {feature_err!r} "
+          f"(<= {FEATURE_PATH_TOL}, TF32 off)")
+    return runs
+
+
+def phase_beam_serving(torch, np, state, model_cfg, gpu_name):
+    from dsjax_torch.config import ServerConfig, SpectConfig, compose
+    from dsjax_torch.decode.beam_device import DeviceBeamDecoder
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.model.convert import from_reference_state_dict, save_checkpoint
+    from dsjax_torch.server import serve, shutdown
+
+    rng = np.random.default_rng(14)
+    seconds = [round(float(s), 2) for s in rng.uniform(1.0, 8.0, 8)]
+    ys = [synth(rng, np, s) for s in seconds]
+    stream_ys = [synth(rng, np, 1.0) for _ in range(3)]
+    single_y = synth(rng, np, 2.5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.pt")
+        save_checkpoint(path, from_reference_state_dict(state), model_cfg, SpectConfig(),
+                        DEFAULT_LABELS)
+        cfg = compose(ServerConfig, [f"model.model_path={path}", "host=127.0.0.1", "port=0",
+                                     "device=cuda", "max_batch=8", "batch_timeout_ms=2000",
+                                     "warmup_seconds=2", "lm.decoder_type=beam",
+                                     f"lm.beam_width={EVAL_WIDTH}"])
+        server, worker = serve(cfg)
+        try:
+            check(isinstance(worker.decoder, DeviceBeamDecoder), "the server's decoder is not "
+                  "the device beam")
+            port = server.server_address[1]
+            chunks_seen = []
+            decode_chunk = worker.decoder.decode_chunk
+
+            def recording(probs, state=None):
+                chunks_seen.append(probs.clone())
+                return decode_chunk(probs, state)
+
+            worker.decoder.decode_chunk = recording
+            results = [None] * len(ys)
+
+            def client(i):
+                results[i] = post(port, "/transcribe", ys[i])
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(ys))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+                check(not t.is_alive(), "a beam /transcribe request hung")
+            stream = [post(port, f"/stream?session=beam&final={int(i == 2)}", y)
+                      for i, y in enumerate(stream_ys)]
+            stream_chunks = list(chunks_seen)
+            single = post(port, "/stream?session=one&final=1", single_y)
+            single_ref = post(port, "/transcribe", single_y)
+            for status, payload, _ in results + stream + [single, single_ref]:
+                check(status == 200, f"beam server -> {status} {payload}")
+            want = direct_transcripts(worker, ys, np)
+            got = [r[1]["output"][0]["transcription"] for r in results]
+            check(got == want, f"beam /transcribe differs from DeviceBeamDecoder.decode on the "
+                               f"same posteriors:\n{got}\n{want}")
+            one_shot = worker.decoder.decode(torch.cat(stream_chunks, dim=1))[0][0][0]
+            check(stream[-1][1]["transcription"] == one_shot,
+                  f"/stream beam transcript {stream[-1][1]['transcription']!r} differs from the "
+                  f"one-shot beam decode of its chunks {one_shot!r}")
+            check(single[1]["transcription"] == single_ref[1]["output"][0]["transcription"],
+                  "a one-chunk beam /stream session differs from /transcribe")
+        finally:
+            shutdown(server, worker)
+    lat = sorted(r[2] for r in results)
+    print(f"beam serving on {gpu_name} (W={EVAL_WIDTH}): 8 concurrent /transcribe of {seconds} s: "
+          f"p50 {statistics.median(lat)!r} ms, max {lat[-1]!r} ms, equal to "
+          f"DeviceBeamDecoder.decode on the same posteriors; /stream chunks "
+          f"{[round(s[2], 3) for s in stream]} ms, last transcript equal to the one-shot beam "
+          f"decode of its {len(stream_chunks)} chunks; a one-chunk session equals /transcribe")
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -588,11 +901,20 @@ def run(torch, np):
     defaults_back()
     print("training phase: PyTorch defaults")
     train_launches = phase_training(torch, np, gpu_name, card)
+    full_fp32()
+    topk_res = phase_topk(torch, np)
+    beam_res = phase_beam_kernel(torch, np)
+    defaults_back()
+    print("evaluation and beam serving phases: PyTorch defaults (the posterior comparison with "
+          "TF32 off)")
+    eval_runs = phase_evaluation(torch, np, state, model_cfg, gpu_name, full_fp32, defaults_back)
+    phase_beam_serving(torch, np, state, model_cfg, gpu_name)
 
     f32 = kernel["float32"]
     rows = [{"name": "lstm_fwd", "route": "cuda", "source": "dsjax_torch/csrc/lstm_fwd.cu",
              "replaces": "dsjax/ops/lstm_pallas.py:62", "launches": launches,
              "step_launches": step_launches, "launches_in_training": train_launches["lstm_fwd"],
+             "launches_in_evaluation": eval_runs["greedy"]["counts"]["lstm_fwd"],
              "max_abs_err": f32["max_abs_err"], "ms": f32["ms"], "plain_ms": f32["plain_ms"]}]
     for key, name, source, replaces in (
             ("fwd", "lstm_fwd_residuals", "dsjax_torch/csrc/lstm_fwd.cu",
@@ -605,6 +927,20 @@ def run(torch, np):
                      "ms": r32["ms"], "plain_ms": r32["plain_ms"],
                      "bf16_max_abs_err": r16["max_abs_err"], "bf16_ms": r16["ms"],
                      "bf16_plain_ms": r16["plain_ms"]})
+    first_topk, first_beam = TOPK_SHAPES[0], BEAM_SHAPES[0]
+    k6 = topk_res[f"({first_topk[0]}, {first_topk[1]}) -> {first_topk[2]}"]
+    rows.append({"name": "topk", "route": "cuda", "source": "dsjax_torch/csrc/topk.cu",
+                 "replaces": "dsjax/ops/topk_pallas.py:139",
+                 "launches": eval_runs["beam, scan with K6"]["counts"]["topk"],
+                 "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+                 "shapes": topk_res})
+    b, t, w, c = first_beam
+    k7 = beam_res[f"B={b} T={t} W={w} C={c}"]
+    rows.append({"name": "beam_scan", "route": "cuda", "source": "dsjax_torch/csrc/beam_scan.cu",
+                 "replaces": "dsjax/ops/beam_pallas.py:121",
+                 "launches": eval_runs["beam, K7"]["counts"]["beam_scan"],
+                 "max_abs_err": k7["max_abs_err"], "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+                 "shapes": beam_res})
     print(json.dumps({"kernels": rows}))
     return gpu_name
 

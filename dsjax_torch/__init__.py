@@ -6,15 +6,20 @@ dsjax module of the same name and is held against it by a CPU test
 kernels become kernels written by hand for sm_90a under ``csrc/``, built
 with nvcc at first use (``dsjax_torch.ops._build``).
 
-Two paths are ported:
+Three paths are ported:
   * serving: host STFT features, the DeepSpeech2 forward with bidirectional
-    LSTM layers (the recurrence runs in ``csrc/lstm_fwd.cu``), greedy CTC
-    decoding and the HTTP server
+    LSTM layers (the recurrence runs in ``csrc/lstm_fwd.cu``), greedy or
+    beam CTC decoding and the HTTP server
     (``python -m dsjax_torch.server model.model_path=...``);
-  * training on host features: CTC, the backward through the LSTM layers
-    (``csrc/lstm_fwd.cu`` saving residuals, ``csrc/lstm_bwd.cu``), AdamW or
-    SGD, validation and checkpoints the server loads
-    (``python -m dsjax_torch.train data.device_features=false ...``).
+  * training, with the STFT on the device from raw audio or on the host:
+    CTC, the backward through the LSTM layers (``csrc/lstm_fwd.cu`` saving
+    residuals, ``csrc/lstm_bwd.cu``), AdamW or SGD, validation and
+    checkpoints the server loads (``python -m dsjax_torch.train ...``);
+  * evaluation and transcription (``python -m dsjax_torch.evaluate ...``,
+    ``python -m dsjax_torch.transcribe ...``): WER/CER over a manifest and
+    the result JSON of a file, greedy or with the device beam search
+    without LM, whose top-k runs in ``csrc/topk.cu`` and whose whole scan
+    can run in ``csrc/beam_scan.cu``.
 
 The package never imports jax. Importing it builds and loads nothing.
 """
@@ -26,6 +31,7 @@ def __getattr__(name):
     """Lazy public API: submodules load on first use."""
     api = {
         "DeepSpeech2": ("dsjax_torch.model.ds2", "DeepSpeech2"),
+        "DeviceBeamDecoder": ("dsjax_torch.decode.beam_device", "DeviceBeamDecoder"),
         "GreedyDecoder": ("dsjax_torch.decode.greedy", "GreedyDecoder"),
         "ModelBundle": ("dsjax_torch.inference", "ModelBundle"),
         "load_model": ("dsjax_torch.inference", "load_model"),

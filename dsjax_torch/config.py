@@ -9,8 +9,10 @@ on the same command lines (including the group swaps ``optim=sgd`` and
 ``TrainerConfig.device``, the torch device the server or the trainer runs
 the model on. Fields that select or tune JAX itself (``platform``,
 ``num_cpu_devices``, the trainer's ``mesh_*``, ``matmul_precision``,
-``donate_state``) are kept so the same command lines parse; the server
-reads none of them, and the trainer refuses a value other than the default.
+``donate_state``) are kept so the same command lines parse; the server,
+evaluation and transcription read none of them, and the trainer refuses a
+value other than the default. ``EvalConfig`` and ``TranscribeConfig`` also
+gain ``device``; ``EvalConfig`` drops dsjax's unread ``save_output``.
 
 Override values follow YAML's scalar rules (``8`` is an int, ``true`` a
 bool, ``null`` None), implemented here: PyYAML is imported only to read an
@@ -73,8 +75,8 @@ class DataConfig:
     labels_path: str = "labels.json"
     spect: SpectConfig = field(default_factory=SpectConfig)
     augmentation: AugmentationConfig = field(default_factory=AugmentationConfig)
-    # dsjax's default computes the STFT on the device; the port's training
-    # slice takes host features only (data.device_features=false)
+    # the STFT on the device inside the step, from int16 raw audio; false
+    # computes the features on the loader's threads
     device_features: bool = True
     bucket_frames: int = 64             # pad the time axis to a multiple of this
     # split each training batch into this many length-quantile sub-batches
@@ -196,6 +198,26 @@ class InferenceConfig:
     model: ModelLoadConfig = field(default_factory=ModelLoadConfig)
     platform: str = ""                # dsjax's JAX platform; not read here
     num_cpu_devices: int = 0          # dsjax's fake CPU devices; not read here
+
+
+@dataclass
+class TranscribeConfig(InferenceConfig):
+    audio_path: str = ""
+    offsets: bool = False
+    chunk_size_seconds: float = -1.0
+    device: str = "cuda"              # "cpu" only when asked for
+
+
+@dataclass
+class EvalConfig(InferenceConfig):
+    test_path: str = ""
+    verbose: bool = True
+    batch_size: int = 20
+    num_workers: int = 4
+    # the STFT on the device from int16 raw audio (dsjax's default);
+    # evaluate() takes host features when the window overlap is not 50%
+    device_features: bool = True
+    device: str = "cuda"              # "cpu" only when asked for
 
 
 @dataclass

@@ -1,15 +1,21 @@
-"""Dataset + collate: manifest -> (spectrogram, transcript ids) -> padded batch.
+"""Dataset + collate: manifest -> (spectrogram or raw audio, transcript ids)
+-> padded batch.
 
-The host-feature half of dsjax/data/dataset.py (reference
-loader/data_loader.py:189-279): per-sample wav load -> STFT/log1p/normalize
-on the host; collate sorts by length desc, zero-pads the time axis to a
-multiple of ``bucket_frames`` and the targets to a multiple of
-``bucket_labels``, and marks batch-pad rows invalid. Held against dsjax's
-pipeline by tests/test_torch_data.py.
+The counterpart of dsjax/data/dataset.py (reference
+loader/data_loader.py:189-279), in two modes:
+  * host features: per-sample wav load -> STFT/log1p/normalize on the host;
+    ``collate`` sorts by length desc, zero-pads the time axis to a multiple
+    of ``bucket_frames`` and the targets to a multiple of ``bucket_labels``,
+    and marks batch-pad rows invalid;
+  * device features (``device_features=True``, dsjax's default): the host
+    only loads and reflect-pads the waveform and ships it as int16 PCM;
+    ``collate_audio`` pads it to a bucketed frame count and the STFT runs
+    on the device (``audio.features.spectrogram_torch``).
+Held against dsjax's pipeline by tests/test_torch_data.py and
+tests/test_torch_frontend.py.
 
-Not ported yet (ROADMAP.md, Queue 1): the device STFT (raw-audio batches,
-``data.device_features=true``) and augmentation (tempo/gain, noise,
-SpecAugment). Asking for either raises.
+Not ported yet (ROADMAP.md, Queue 1 item 5): augmentation (tempo/gain,
+noise, SpecAugment). Asking for it raises.
 """
 
 from __future__ import annotations
@@ -19,16 +25,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from dsjax_torch.audio.features import FeatureExtractor
-from dsjax_torch.audio.io import load_audio
+from dsjax_torch.audio.features import FeatureExtractor, num_frames, pad_audio_for_device
+from dsjax_torch.audio.io import load_audio, read_wav
 from dsjax_torch.config import AugmentationConfig, SpectConfig
 from dsjax_torch.data.manifest import parse_input
 from dsjax_torch.labels import LabelMap
-
-DEVICE_FEATURES_NOT_PORTED = ("data.device_features=true (the device STFT) is not ported "
-                              "yet (ROADMAP.md, Queue 1 item 1): set "
-                              "data.device_features=false")
-
 
 def check_augmentation(aug: Optional[AugmentationConfig]) -> None:
     """Raise for any augmentation the port does not carry yet."""
@@ -46,15 +47,18 @@ def check_augmentation(aug: Optional[AugmentationConfig]) -> None:
 
 @dataclasses.dataclass
 class Batch:
-    """One padded batch: ``inputs`` (B, F, T) float32 spectrograms,
-    ``input_lengths`` the valid frame counts, ``targets`` (B, L) padded with
-    0 and masked by ``target_lengths``; ``valid`` is False on batch-pad rows."""
+    """One padded batch: ``inputs`` (B, F, T) float32 spectrograms, or, in
+    device-feature mode, ``inputs`` None and ``audio`` (B, L_pad) raw
+    signal prepared by ``pad_audio_for_device``; ``input_lengths`` the valid
+    frame counts in both modes, ``targets`` (B, L) padded with 0 and masked
+    by ``target_lengths``; ``valid`` is False on batch-pad rows."""
 
-    inputs: np.ndarray
+    inputs: Optional[np.ndarray]
     input_lengths: np.ndarray      # (B,) valid frame counts
     targets: np.ndarray            # (B, L) padded with 0 (masked by lengths)
     target_lengths: np.ndarray     # (B,)
     input_percentages: np.ndarray  # (B,) reference-parity: len / padded T
+    audio: Optional[np.ndarray] = None  # (B, L_pad) device-feature mode
     valid: Optional[np.ndarray] = None  # (B,) bool; False = batch-pad row
 
     @property
@@ -68,7 +72,8 @@ class Batch:
 
     @property
     def size(self) -> int:
-        return self.inputs.shape[0]
+        arr = self.inputs if self.inputs is not None else self.audio
+        return arr.shape[0]
 
 
 def round_up(n: int, mult: int) -> int:
@@ -107,32 +112,86 @@ def collate(samples: Sequence[Tuple[np.ndarray, List[int]]],
     return Batch(inputs, input_lengths, targets, target_lengths, percentages, valid=valid)
 
 
+def collate_audio(samples: Sequence[Tuple[np.ndarray, int, List[int]]],
+                  hop: int, bucket_frames: int = 1, bucket_labels: int = 1,
+                  pad_to_batch: Optional[int] = None) -> Batch:
+    """Device-feature twin of :func:`collate`: pads reflect-padded raw audio
+    to a common bucketed frame count; the STFT happens on the device."""
+    samples = sorted(samples, key=lambda s: s[1], reverse=True)
+    b = len(samples)
+    max_t = round_up(max(s[1] for s in samples), bucket_frames)
+    max_l = round_up(max((len(s[2]) for s in samples), default=1) or 1, bucket_labels)
+    total = (max_t + 1) * hop
+    b_pad = pad_to_batch if pad_to_batch is not None else b
+    audio = np.zeros((b_pad, total), samples[0][0].dtype if b else np.float32)
+    input_lengths = np.ones((b_pad,), np.int32)
+    targets = np.zeros((b_pad, max_l), np.int32)
+    target_lengths = np.zeros((b_pad,), np.int32)
+    percentages = np.zeros((b_pad,), np.float32)
+    valid = np.zeros((b_pad,), bool)
+    valid[:b] = True
+    for i, (yp, n_frames, transcript) in enumerate(samples):
+        audio[i, : len(yp)] = yp[:total]
+        input_lengths[i] = n_frames
+        targets[i, : len(transcript)] = transcript
+        target_lengths[i] = len(transcript)
+        percentages[i] = n_frames / float(max_t)
+    return Batch(None, input_lengths, targets, target_lengths, percentages,
+                 audio=audio, valid=valid)
+
+
 class SpectrogramDataset:
     """Manifest- or directory-backed dataset (reference:
-    data_loader.py:189-244): ``__getitem__`` -> (spect (F, T), ids), the
-    STFT on the host."""
+    data_loader.py:189-244).
+
+    device_features=False: ``__getitem__`` -> (spect (F, T), ids), the STFT
+    on the host. device_features=True: ``__getitem__`` -> (audio (L_pad,),
+    n_frames, ids), the reflect-padded waveform as int16 PCM when
+    ``audio_int16`` (exact for 16-bit sources), and the STFT and
+    normalization run on the device.
+    """
 
     def __init__(self, spect_cfg: SpectConfig, input_path: str,
                  labels: Sequence[str], normalize: bool = True,
                  aug_cfg: Optional[AugmentationConfig] = None,
-                 device_features: bool = False):
-        if device_features:
-            raise NotImplementedError(DEVICE_FEATURES_NOT_PORTED)
+                 device_features: bool = False, audio_int16: bool = True):
         check_augmentation(aug_cfg)
         self.ids = parse_input(input_path)
         self.label_map = LabelMap(labels)
         self.spect_cfg = spect_cfg
         self.extractor = FeatureExtractor(spect_cfg, normalize=normalize)
+        self.device_features = device_features
+        self.audio_int16 = audio_int16
 
     def __len__(self) -> int:
         return len(self.ids)
 
-    def __getitem__(self, index: int) -> Tuple[np.ndarray, List[int]]:
+    def __getitem__(self, index: int):
         wav_path, transcript_path = self.ids[index]
         y = load_audio(str(wav_path), self.spect_cfg.sample_rate)
-        return self.extractor(y), self.parse_transcript(str(transcript_path))
+        transcript = self.parse_transcript(str(transcript_path))
+        if self.device_features:
+            yp, n_frames = pad_audio_for_device(y, self.spect_cfg)
+            if self.audio_int16:
+                # without augmentation the signal stays within full scale;
+                # the peak rescale is dsjax's, for mixes that exceed it
+                peak = float(np.max(np.abs(yp), initial=0.0))
+                if peak > 1.0:
+                    yp = yp / peak
+                yp = np.clip(np.rint(yp * 32768.0), -32768, 32767).astype(np.int16)
+            return yp, n_frames, transcript
+        return self.extractor(y), transcript
 
     def parse_transcript(self, transcript_path: str) -> List[int]:
         with open(transcript_path, "r", encoding="utf8") as f:
             transcript = f.read().replace("\n", "")
         return self.label_map.encode(transcript)
+
+    def frame_count(self, index: int) -> int:
+        """Frame count from the file's samples, for bucketing."""
+        wav_path, _ = self.ids[index]
+        x, sr = read_wav(str(wav_path))
+        n = x.shape[1]
+        if sr != self.spect_cfg.sample_rate:
+            n = int(n * self.spect_cfg.sample_rate / sr)
+        return num_frames(n, self.extractor.hop)

@@ -1,8 +1,8 @@
 """Data pipeline: threaded prefetch of collated batches, and a prefetcher
 that copies batches to the device ahead of the step.
 
-A copy of dsjax/data/loader.py without its raw-audio branch (the device STFT
-is not ported yet). It replaces the reference's torch DataLoader + worker
+A copy of dsjax/data/loader.py for one process (no shard quantum). It
+replaces the reference's torch DataLoader + worker
 processes (loader/data_loader.py:273-279): a small thread pool parses
 samples (numpy and the FFT release the GIL), batches are collated to
 bucketed shapes and prefetched ahead of the training step.
@@ -12,11 +12,14 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 from concurrent.futures import ThreadPoolExecutor
 
-from dsjax_torch.data.dataset import Batch, SpectrogramDataset, collate
+import numpy as np
+import torch
+
+from dsjax_torch.data.dataset import Batch, SpectrogramDataset, collate, collate_audio
 from dsjax_torch.data.sampler import BucketBatchSampler
 
 
@@ -42,6 +45,9 @@ class DataPipeline:
         return len(self.sampler)
 
     def _collate(self, samples, pad_to):
+        if getattr(self.dataset, "device_features", False):
+            return collate_audio(samples, self.dataset.extractor.hop, self.bucket_frames,
+                                 self.bucket_labels, pad_to)
         return collate(samples, self.bucket_frames, self.bucket_labels, pad_to)
 
     def _load_batch(self, indices):
@@ -50,7 +56,9 @@ class DataPipeline:
         if k <= 1 or len(samples) < 2 * k:
             return self._collate(samples, self.pad_to_batch)
         # sort once (collate would anyway), then contiguous length blocks
-        samples = sorted(samples, key=lambda s: s[0].shape[1], reverse=True)
+        key = ((lambda s: s[1]) if getattr(self.dataset, "device_features", False)
+               else (lambda s: s[0].shape[1]))
+        samples = sorted(samples, key=key, reverse=True)
         sub = -(-len(samples) // k)
         pad_to = None if self.pad_to_batch is None else -(-self.pad_to_batch // k)
         return [self._collate(samples[i:i + sub], pad_to)
@@ -91,12 +99,44 @@ class DataPipeline:
             yield item
 
 
+class Staged(NamedTuple):
+    """Host arrays copied to the device; ``ready`` is the event that ends
+    their copy on a side stream (None when no copy is in flight)."""
+    tensors: Tuple[torch.Tensor, ...]
+    ready: Optional[torch.cuda.Event]
+
+    def wait(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """The tensors, safe to use on the device's current stream."""
+        if self.ready is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(self.ready)
+            for t in self.tensors:
+                t.record_stream(stream)
+        return self.tensors
+
+
+def stage(arrays: Sequence[np.ndarray], device: torch.device,
+          copy_stream: Optional[torch.cuda.Stream] = None) -> Staged:
+    """Copy host arrays to ``device``. With a CUDA ``copy_stream`` the arrays
+    are pinned and copied without blocking on that stream, so a
+    DevicePrefetcher thread can stage a batch ahead of its use."""
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if copy_stream is None:
+        return Staged(tuple(t.to(device) for t in host), None)
+    with torch.cuda.stream(copy_stream):
+        tensors = tuple(t.pin_memory().to(device, non_blocking=True) for t in host)
+        ready = torch.cuda.Event()
+        ready.record(copy_stream)
+    return Staged(tensors, ready)
+
+
 class DevicePrefetcher:
     """Overlap the host-to-device copy with device compute.
 
     Wraps a batch iterable: a background thread runs ``put_fn(batch)``
-    (``Trainer.put_batch``: pinned host memory, copies issued on a side
-    stream) up to ``depth`` batches ahead, so the copy of batch i+1 rides
+    (``Trainer.put_batch`` or evaluate's staging, both through ``stage``:
+    pinned host memory, copies issued on a side stream) up to ``depth``
+    batches ahead, so the copy of batch i+1 rides
     under the device step on batch i. Yields ``(batch, staged)`` pairs;
     ``staged`` is None for list-valued items (ragged_split sub-batch lists
     go through the accumulation path, which stages per sub-batch).

@@ -1,13 +1,17 @@
-"""Inference: model loading, the batched and carried forward, transcription.
+"""Inference: model loading, the batched and carried forward, decoders,
+transcription.
 
 Counterpart of dsjax/inference.py on one torch device. ``load_model`` reads a
 ``.pt``/``.ckpt`` file holding a reference-layout state_dict and the
 hyper-parameters beside it, as ``dsjax_torch.model.convert.save_checkpoint``
-writes them. The device defaults to ``cuda``; without a CUDA card the caller
-must ask for ``device="cpu"``.
+writes them. ``ModelBundle.forward`` takes (B, F, T) features, or (B, L_pad)
+raw audio with the STFT on the device before the model. ``load_decoder``
+gives the greedy decoder or the device beam search (without an LM). The
+device defaults to ``cuda``; without a CUDA card the caller must ask for
+``device="cpu"``.
 
-Not ported yet (ROADMAP.md, Queue 1): the raw-audio forward with the device
-STFT, beam decoders, dsjax checkpoint directories, multi-device.
+Not ported yet (ROADMAP.md, Queue 1): decoding with an n-gram LM (a set
+``lm.lm_path`` raises), dsjax checkpoint directories, multi-device.
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dsjax_torch.audio.features import FeatureExtractor
+from dsjax_torch.audio.features import FeatureExtractor, spectrogram_torch
 from dsjax_torch.audio.io import load_audio
 from dsjax_torch.config import DecoderType, LMConfig, SpectConfig, SpectrogramWindow
+from dsjax_torch.decode.beam_device import LM_NOT_PORTED, DeviceBeamDecoder
 from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.labels import DEFAULT_LABELS
 from dsjax_torch.model.convert import from_reference_state_dict, infer_architecture
@@ -49,15 +54,22 @@ class ModelBundle:
         self.model.to(self.device).eval()
 
     def forward(self, spect, lengths, carry=None):
-        """(B, F, T) features -> (probs (B, T', C) float32, out_lens (B,),
-        carry), all on the bundle's device. ``carry`` is the value returned
-        by the previous call of a chunked stream."""
-        if np.ndim(spect) != 3:
-            raise NotImplementedError("only (B, F, T) features: the raw-audio "
-                                      "forward waits for the device STFT")
+        """(B, F, T) features, or (B, L_pad) raw audio prepared by
+        ``pad_audio_for_device`` (float32 or int16) with the STFT run on the
+        device first -> (probs (B, T', C) float32, out_lens (B,), carry),
+        all on the bundle's device. ``carry`` is the value returned by the
+        previous call of a chunked stream (features only)."""
+        raw = spect.dim() == 2 if isinstance(spect, torch.Tensor) else np.ndim(spect) == 2
         with torch.inference_mode():
-            x = torch.as_tensor(spect, dtype=torch.float32, device=self.device)
-            lens = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
+            lens = torch.as_tensor(lengths).to(device=self.device, dtype=torch.int32)
+            if raw:
+                if carry is not None:
+                    raise ValueError("the raw-audio forward starts a new utterance: "
+                                     "pass features to carry state")
+                y = torch.as_tensor(spect).to(self.device)
+                x = spectrogram_torch(y, lens, self.spect_cfg, normalize=True)
+            else:
+                x = torch.as_tensor(spect).to(device=self.device, dtype=torch.float32)
             return self.model(x, lens, carry)
 
 
@@ -84,11 +96,21 @@ def load_model(model_path: str, precision: int = 32, device: Any = "cuda") -> Mo
     return ModelBundle(model, labels, spect, device)
 
 
-def load_decoder(labels: Sequence[str], cfg: LMConfig) -> GreedyDecoder:
-    """The decoder LMConfig asks for; only greedy is ported."""
+def load_decoder(labels: Sequence[str], cfg: LMConfig, want_offsets: bool = False):
+    """Greedy or beam decoder from config (reference: utils.py:37-54). The
+    beam search runs on the posteriors' device (DeviceBeamDecoder); with an
+    ``lm_path`` it raises, since the LM is not ported.
+
+    ``want_offsets``: the caller shows per-char offsets (transcribe
+    offsets=true), so the beam rebuilds ctcdecode-parity timesteps (one
+    posterior copy to the host a decode); WER-only paths keep the emission
+    frames."""
     if cfg.decoder_type == DecoderType.beam:
-        raise NotImplementedError("beam decoding is not ported yet (ROADMAP.md, "
-                                  "Queue 1: device beam search and the LM)")
+        if cfg.lm_path:
+            raise NotImplementedError(LM_NOT_PORTED)
+        return DeviceBeamDecoder(labels, beam_width=cfg.beam_width,
+                                 cutoff_top_n=cfg.cutoff_top_n, cutoff_prob=cfg.cutoff_prob,
+                                 ctc_offsets=want_offsets)
     return GreedyDecoder(labels)
 
 
@@ -97,7 +119,8 @@ def run_transcribe(audio_path: str, bundle: ModelBundle, decoder,
                    n_best: Optional[int] = None
                    ) -> Tuple[List[List[str]], List[List[np.ndarray]]]:
     """Chunked transcription carrying the RNN state from chunk to chunk;
-    chunk_size_seconds <= 0 transcribes in one shot."""
+    chunk_size_seconds <= 0 transcribes in one shot. n_best caps the
+    hypotheses per utterance (None = all)."""
     extractor = FeatureExtractor(bundle.spect_cfg, normalize=normalize)
     y = load_audio(audio_path, bundle.spect_cfg.sample_rate)
     carry = None

@@ -101,6 +101,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dsjax_torch_lstm_fwd.restype = i
     lib.dsjax_torch_lstm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_lstm_bwd.restype = i
+    lib.dsjax_torch_topk.argtypes = [p, p, p, i, i, i, p]
+    lib.dsjax_torch_topk.restype = i
+    lib.dsjax_torch_beam_scan.argtypes = [p] * 23 + [i] * 5 + [p]
+    lib.dsjax_torch_beam_scan.restype = i
     lib.dsjax_torch_error_string.argtypes = [i]
     lib.dsjax_torch_error_string.restype = ctypes.c_char_p
 

@@ -6,7 +6,10 @@ an incremental session that carries the RNN state; GET /health answers ok.
 Concurrent requests are padded into one batch, with the batch size rounded
 up to a power of two and T to a multiple of 64 frames, as dsjax does, so the
 two servers see the same shapes. Audio longer than chunk_size_seconds runs
-chunk by chunk with the RNN state carried, on a side pool.
+chunk by chunk with the RNN state carried, on a side pool. With
+``lm.decoder_type=beam`` batches decode with the device beam search, and a
+/stream session carries the beam state from chunk to chunk, so its
+transcript equals a one-shot beam decode of the chunks so far.
 
     python -m dsjax_torch.server model.model_path=model.pt port=8888 [device=cpu]
 """
@@ -49,15 +52,17 @@ class _Request:
 
 
 class _StreamSession:
-    """Server-held state of one /stream session: the RNN carry, the greedy
-    collapse carry (text so far and the last argmax label), and running
-    feature statistics over every frame seen, so chunks normalize by the
-    utterance's statistics rather than their own."""
+    """Server-held state of one /stream session: the RNN carry, the decoder's
+    carry (greedy: text so far and the last argmax label; beam: the search
+    state and the W hypotheses), and running feature statistics over every
+    frame seen, so chunks normalize by the utterance's statistics rather
+    than their own."""
 
     def __init__(self, blank_index: int = 0):
         self.carry = None
         self.text: str = ""
         self.prev_label: int = blank_index
+        self.beam_state = None
         self.feat_sum = 0.0
         self.feat_sumsq = 0.0
         self.feat_count = 0
@@ -75,6 +80,9 @@ class BatchWorker(threading.Thread):
         self.decoder = decoder
         self.cfg = cfg
         self.extractor = FeatureExtractor(bundle.spect_cfg, normalize=True)
+        # responses show only the top hypothesis: a beam decode backtracks
+        # one char stream per utterance instead of beam_width of them
+        self._n_best = 1
         self.queue: "queue.Queue[_Request]" = queue.Queue()
         self.running = True
         self._sessions: dict = {}
@@ -110,7 +118,7 @@ class BatchWorker(threading.Thread):
             inputs = np.zeros((b, spect.shape[0], max_t), np.float32)
             lengths = np.full((b,), spect.shape[1], np.int32)
             probs, out_lens, _ = self.bundle.forward(inputs, lengths)
-            self.decoder.decode(probs, out_lens)
+            self.decoder.decode(probs, out_lens, n_best=self._n_best)
             b *= 2
 
     def run(self) -> None:
@@ -151,7 +159,8 @@ class BatchWorker(threading.Thread):
                 lengths[i] = s.shape[1]
             probs, out_lens, _ = self.bundle.forward(inputs, lengths)
             decoded, offsets = self.decoder.decode(probs[: len(batch)],
-                                                   out_lens[: len(batch)])
+                                                   out_lens[: len(batch)],
+                                                   n_best=self._n_best)
             for i, req in enumerate(batch):
                 req.result = decode_results([decoded[i]], [offsets[i]])
                 req.event.set()
@@ -162,8 +171,9 @@ class BatchWorker(threading.Thread):
 
     def stream_chunk(self, session_id: str, audio: np.ndarray, final: bool) -> dict:
         """Feed one audio chunk into a session; returns the transcript so
-        far. The model (RNN carry) and the greedy collapse are incremental,
-        so a session's memory and per-chunk work stay O(chunk)."""
+        far. The model (RNN carry) and the decoder (greedy collapse, or the
+        beam search's carried state) are incremental, so a session's
+        per-chunk work stays O(chunk)."""
         blank = self.decoder.blank_index
         with self._sessions_lock:
             sess = self._sessions.setdefault(session_id, _StreamSession(blank))
@@ -190,11 +200,15 @@ class BatchWorker(threading.Thread):
                 spect = np.pad(spect, ((0, 0), (0, 0), (0, _bucket(t_true) - t_true)))
                 probs, out_lens, sess.carry = self.bundle.forward(spect, [t_true],
                                                                   sess.carry)
-                labels = probs[0, : int(out_lens[0])].argmax(dim=-1).tolist()
-                for lbl in labels:
-                    if lbl != blank and lbl != sess.prev_label:
-                        sess.text += self.decoder.int_to_char[lbl]
-                    sess.prev_label = lbl
+                probs = probs[:, : int(out_lens[0])]
+                if hasattr(self.decoder, "decode_chunk"):
+                    sess.text, sess.beam_state = self.decoder.decode_chunk(
+                        probs, sess.beam_state)
+                else:
+                    for lbl in probs[0].argmax(dim=-1).tolist():
+                        if lbl != blank and lbl != sess.prev_label:
+                            sess.text += self.decoder.int_to_char[lbl]
+                        sess.prev_label = lbl
             out = {"transcription": sess.text, "final": final}
             if final:
                 with self._sessions_lock:
@@ -213,7 +227,8 @@ class BatchWorker(threading.Thread):
                 spect = np.pad(spect, ((0, 0), (0, 0), (0, _bucket(t_true) - t_true)))
                 probs, out_lens, carry = self.bundle.forward(spect, [t_true], carry)
                 outs.append(probs[:, : int(out_lens[0])])
-            decoded, offsets = self.decoder.decode(torch.cat(outs, dim=1))
+            decoded, offsets = self.decoder.decode(torch.cat(outs, dim=1),
+                                                   n_best=self._n_best)
             req.result = decode_results([decoded[0]], [offsets[0]])
         except Exception as e:
             req.error = str(e)

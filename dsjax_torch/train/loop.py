@@ -5,14 +5,18 @@ One optimizer step does: forward (bf16 compute under precision=16, f32
 parameters) -> log_softmax in f32 -> CTC (sum over rows, zero_infinity,
 zero weight on batch-pad rows) -> backward (through the LSTM kernels K2 and
 K3 on CUDA) -> global-norm clip -> AdamW/SGD at base * anneal^epoch.
-Validation runs the eval forward (K1), greedy decoding and WER/CER.
+Validation runs the eval forward (K1), greedy decoding and WER/CER. With
+``data.device_features=true`` (dsjax's default) a batch arrives as int16 raw
+audio and the spectrogram is computed on the device at the top of the step
+(``audio.features.spectrogram_torch``), as dsjax's ``Trainer._features``
+does inside its compiled step.
 
 The state lives in a ``TrainState`` that the methods update in place and
 return, so calls read like dsjax's functional ones: ``state, loss =
 trainer.train_step(state, batch)``.
 
-Settings the port does not carry raise instead of being ignored: the device
-STFT, augmentation, more than one device or process, ``trainer.profile``,
+Settings the port does not carry raise instead of being ignored:
+augmentation, more than one device or process, ``trainer.profile``,
 and the fields that select or tune JAX (``refuse_unported``).
 """
 
@@ -20,13 +24,15 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from dsjax_torch.audio.features import spectrogram_torch
 from dsjax_torch.config import TrainConfig, TrainerConfig
-from dsjax_torch.data.dataset import DEVICE_FEATURES_NOT_PORTED, Batch, check_augmentation
+from dsjax_torch.data.dataset import Batch, check_augmentation
+from dsjax_torch.data.loader import DevicePrefetcher, Staged, stage
 from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.inference import resolve_device
 from dsjax_torch.model.ctc import ctc_loss
@@ -45,8 +51,6 @@ _JAX_ONLY = ("platform", "num_cpu_devices", "mesh_data", "mesh_model", "mesh_dcn
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise for every setting the port's training slice does not carry, so
     none is silently ignored."""
-    if cfg.data.device_features:
-        raise NotImplementedError(DEVICE_FEATURES_NOT_PORTED)
     check_augmentation(cfg.data.augmentation)
     tr, default = cfg.trainer, TrainerConfig()
     for name in _JAX_ONLY:
@@ -77,14 +81,6 @@ def _limit(n_batches: int, limit: float) -> int:
     if limit <= 1.0:
         return max(1, int(n_batches * limit)) if limit > 0 else 0
     return min(n_batches, int(limit))
-
-
-class Staged(NamedTuple):
-    """A batch's tensors on the device: (inputs, input_lengths, targets,
-    target_lengths, valid); ``ready`` is the event that ends their copy on
-    the side stream (None when no copy is in flight)."""
-    tensors: Tuple[Tensor, ...]
-    ready: Optional[torch.cuda.Event]
 
 
 class Trainer:
@@ -119,36 +115,28 @@ class Trainer:
     def put_batch(self, batch: Batch) -> Staged:
         """Host batch -> device tensors. On CUDA the host arrays are pinned
         and copied without blocking on the trainer's side stream, so a
-        DevicePrefetcher thread can run this ahead of the step."""
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
-            batch.inputs, batch.input_lengths.astype(np.int32),
-            batch.targets.astype(np.int32), batch.target_lengths.astype(np.int32),
-            batch.valid_mask)]
-        if self._copy_stream is None:
-            return Staged(tuple(t.to(self.device) for t in host), None)
-        with torch.cuda.stream(self._copy_stream):
-            tensors = tuple(t.pin_memory().to(self.device, non_blocking=True) for t in host)
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
-        return Staged(tensors, ready)
+        DevicePrefetcher thread can run this ahead of the step. A
+        device-feature batch ships its raw audio (int16) as the inputs."""
+        x = batch.inputs if batch.inputs is not None else batch.audio
+        return stage((x, batch.input_lengths.astype(np.int32),
+                      batch.targets.astype(np.int32), batch.target_lengths.astype(np.int32),
+                      batch.valid_mask), self.device, self._copy_stream)
 
-    def _ready(self, staged: Staged) -> Tuple[Tensor, ...]:
-        """The staged tensors, safe to use on the current stream."""
-        if staged.ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(staged.ready)
-            for t in staged.tensors:
-                t.record_stream(stream)
-        return staged.tensors
+    def _features(self, x: Tensor, input_lengths: Tensor) -> Tensor:
+        """(B, L_pad) raw audio -> (B, F, T) features on the device; host
+        features pass through (dsjax's Trainer._features)."""
+        if x.dim() == 2:
+            return spectrogram_torch(x, input_lengths, self.cfg.data.spect, normalize=True)
+        return x
 
     def _backward(self, state: TrainState, batch: Batch,
                   staged: Optional[Staged] = None) -> Tensor:
         """Forward, loss and backward on one batch; gradients accumulate in
         the parameters' .grad and the BatchNorm running stats move."""
-        x, input_lengths, targets, target_lengths, valid = self._ready(
-            staged if staged is not None else self.put_batch(batch))
+        staged = staged if staged is not None else self.put_batch(batch)
+        x, input_lengths, targets, target_lengths, valid = staged.wait(self.device)
         state.model.train()
-        out, out_lens, _ = state.model(x, input_lengths)
+        out, out_lens, _ = state.model(self._features(x, input_lengths), input_lengths)
         logp = torch.log_softmax(out.float(), dim=-1)
         nll = ctc_loss(logp, out_lens, targets, target_lengths, reduction="none",
                        zero_infinity=True)
@@ -213,9 +201,9 @@ class Trainer:
     @torch.inference_mode()
     def eval_step(self, state: TrainState, batch: Batch) -> Tuple[Tensor, Tensor]:
         """The eval forward (K1 on CUDA): (probs (B, T', C) f32, out_lens)."""
-        x, input_lengths = self._ready(self.put_batch(batch))[:2]
+        x, input_lengths = self.put_batch(batch).wait(self.device)[:2]
         state.model.eval()
-        out, out_lens, _ = state.model(x, input_lengths)
+        out, out_lens, _ = state.model(self._features(x, input_lengths), input_lengths)
         return out, out_lens
 
     # ------------------------------------------------------------------
@@ -246,7 +234,6 @@ class Trainer:
             state: Optional[TrainState] = None,
             log_fn: Callable[[str], None] = print,
             metrics_logger=None) -> TrainState:
-        from dsjax_torch.data.loader import DevicePrefetcher
         from dsjax_torch.train.logging import StepTimer
 
         cfg = self.cfg

@@ -1,25 +1,36 @@
-"""Workflow layer: training orchestration, the counterpart of the training
-half of dsjax/workflows.py (reference: deepspeech_pytorch/training.py:13-47).
+"""Workflow layer: training, evaluation and transcription on one torch
+device, the counterpart of dsjax/workflows.py (reference:
+deepspeech_pytorch/{training,testing,inference}.py).
 
-``train`` takes a composed ``TrainConfig`` and wires the data pipelines, the
-trainer on one torch device, checkpoints and metrics logging. Run it as
-``python -m dsjax_torch.train key=value ...``.
+  * ``train`` takes a composed ``TrainConfig`` and wires the data pipelines,
+    the trainer, checkpoints and metrics logging
+    (``python -m dsjax_torch.train key=value ...``);
+  * ``evaluate`` takes an ``EvalConfig`` and prints WER/CER over a manifest
+    (``python -m dsjax_torch.evaluate ...``);
+  * ``transcribe`` takes a ``TranscribeConfig`` and prints the result JSON
+    of one file (``python -m dsjax_torch.transcribe ...``).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import time
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
+import torch
 
-from dsjax_torch.config import TrainConfig
+from dsjax_torch.audio.features import stft_params
+from dsjax_torch.config import EvalConfig, TrainConfig, TranscribeConfig
 from dsjax_torch.data.dataset import SpectrogramDataset
-from dsjax_torch.data.loader import DataPipeline
+from dsjax_torch.data.loader import DataPipeline, DevicePrefetcher, stage
 from dsjax_torch.data.sampler import BucketBatchSampler, OrderedBatchSampler
+from dsjax_torch.inference import decode_results, load_decoder, load_model, run_transcribe
 from dsjax_torch.labels import load_labels
 from dsjax_torch.train.checkpoint import CheckpointHandler, restore_from_path
 from dsjax_torch.train.loop import Trainer
+from dsjax_torch.train.metrics import CharErrorRate, WordErrorRate, update_batch
 from dsjax_torch.train.state import TrainState
 
 
@@ -85,3 +96,93 @@ def train(cfg: TrainConfig) -> TrainState:
     finally:
         if metrics_logger is not None:
             metrics_logger.close()
+
+
+def evaluate(cfg: EvalConfig) -> Tuple[float, float]:
+    """Evaluation workflow (reference: testing.py:12-50). Returns (wer, cer).
+
+    Samples load on a thread pool while the device runs the previous batch;
+    the batch dimension is padded to ``batch_size``; batch k+1's copy to
+    the device is staged ahead (DevicePrefetcher) and its forward is issued
+    before batch k is decoded, so the host's string building for k
+    overlaps the device's forward of k+1."""
+    bundle = load_model(cfg.model.model_path, cfg.model.precision, cfg.device)
+    decoder = load_decoder(bundle.labels, cfg.lm)
+    target_decoder = load_decoder(bundle.labels, type(cfg.lm)())  # greedy
+    dev_feats = cfg.device_features
+    if dev_feats:
+        n_fft, hop, _ = stft_params(bundle.spect_cfg)
+        if n_fft != 2 * hop:  # device framing assumes 50% window overlap
+            print("device_features disabled: window overlap != 50%")
+            dev_feats = False
+    ds = SpectrogramDataset(bundle.spect_cfg, cfg.test_path, bundle.labels,
+                            normalize=True, device_features=dev_feats)
+    sampler = OrderedBatchSampler(len(ds), cfg.batch_size)
+    pipe = DataPipeline(ds, sampler, bucket_frames=64, bucket_labels=64,
+                        num_workers=cfg.num_workers, prefetch=2, pad_to_batch=cfg.batch_size)
+    wer, cer = WordErrorRate(), CharErrorRate()
+    copy_stream = torch.cuda.Stream(bundle.device) if bundle.device.type == "cuda" else None
+
+    def finish(pending) -> int:
+        probs, out_lens, batch = pending
+        n_real = int(batch.valid_mask.sum()) or batch.size
+        # the full padded batch decodes on the device (pad rows decode to
+        # ""); n_best=1: WER needs only the top hypothesis, so the beam
+        # backtracks one char stream per utterance
+        decoded, _ = decoder.decode(probs, out_lens, n_best=1)
+        refs = target_decoder.convert_to_strings(
+            [batch.targets[b, :batch.target_lengths[b]] for b in range(n_real)])
+        transcripts = [d[0] for d in decoded[:n_real]]
+        references = [r[0] for r in refs]
+        update_batch(wer, cer, transcripts, references)
+        if cfg.verbose:
+            for t, r in zip(transcripts, references):
+                print(f"Ref:  {r}\nHyp:  {t}\n")
+        return n_real
+
+    def stage_batch(batch):
+        x = batch.inputs if batch.inputs is not None else batch.audio
+        return stage((x, batch.input_lengths.astype(np.int32)), bundle.device, copy_stream)
+
+    t0 = time.time()
+    n_utts = 0
+    pending = None  # (posteriors, out_lens, batch): decoded after the next forward
+    t_warm = None   # when the first batch finished: before it, first-use work
+    n_warm = 0
+    for batch, staged in DevicePrefetcher(pipe, stage_batch):
+        x, lens = staged.wait(bundle.device)
+        probs, out_lens, _ = bundle.forward(x, lens)
+        if pending is not None:
+            n_utts += finish(pending)
+            if t_warm is None:
+                t_warm, n_warm = time.time(), n_utts
+        pending = (probs, out_lens, batch)
+    if pending is not None:
+        n_utts += finish(pending)
+        if t_warm is None:
+            t_warm, n_warm = time.time(), n_utts
+    t_end = time.time()
+    dt = max(t_end - t0, 1e-9)
+    w, c = wer.compute(), cer.compute()
+    steady = ""
+    if t_warm is not None and n_utts > n_warm and t_end > t_warm:
+        steady = (f", {(n_utts - n_warm) / (t_end - t_warm):.1f} utt/s "
+                  f"steady past warmup")
+    print(f"Test Summary \tAverage WER {w:.3f}\tAverage CER {c:.3f}"
+          f"\t({n_utts / dt:.1f} utt/s eval{steady})")
+    return w, c
+
+
+def transcribe(cfg: TranscribeConfig) -> Dict[str, Any]:
+    """Transcription workflow (reference: inference.py:44-76): prints and
+    returns the result JSON."""
+    bundle = load_model(cfg.model.model_path, cfg.model.precision, cfg.device)
+    decoder = load_decoder(bundle.labels, cfg.lm, want_offsets=cfg.offsets)
+    decoded_output, decoded_offsets = run_transcribe(
+        audio_path=cfg.audio_path, bundle=bundle, decoder=decoder,
+        chunk_size_seconds=cfg.chunk_size_seconds, n_best=max(1, cfg.lm.top_paths))
+    results = decode_results(decoded_output, decoded_offsets,
+                             model_path=cfg.model.model_path, lm_cfg=cfg.lm,
+                             offsets=cfg.offsets, top_paths=cfg.lm.top_paths)
+    print(json.dumps(results))
+    return results

@@ -4,13 +4,17 @@ Run on a machine with an NVIDIA card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Each kernel (K1 the forward, K2 the residual-saving forward, K3 the reverse
-scan) is held against its plain PyTorch version on the same CUDA tensors
-(f32: atol 2e-5, rtol 1e-4 forward, sum order only; bf16: atol 3e-2, the
-carry rounds to bf16 every step; the reverse scan's looser bounds are
-stated at BWD_TOL), the differentiated op against autograd through the
+Each LSTM kernel (K1 the forward, K2 the residual-saving forward, K3 the
+reverse scan) is held against its plain PyTorch version on the same CUDA
+tensors (f32: atol 2e-5, rtol 1e-4 forward, sum order only; bf16: atol
+3e-2, the carry rounds to bf16 every step; the reverse scan's looser bounds
+are stated at BWD_TOL), the differentiated op against autograd through the
 plain loop, and the model's CUDA forward and gradients against its CPU ones
-with TF32 off.
+with TF32 off. K6 (the exact top-k) and K7 (the fused beam scan) are held
+against their plain versions exactly, K7's float totals and carry to atol
+1e-5 (logaddexp sums the same floats in the same order on both sides), with
+their launch counts per decode route and the raise when the kernel library
+cannot load.
 """
 
 import numpy as np
@@ -179,3 +183,129 @@ def test_model_cuda_gradients_match_cpu(full_fp32):
     for name, buf in cpu.named_buffers():
         torch.testing.assert_close(dict(gpu.named_buffers())[name].cpu(), buf, atol=1e-5,
                                    rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K6, the exact top-k, and K7, the fused beam scan
+# ---------------------------------------------------------------------------
+
+
+def tie_heavy(rng, b, n):
+    """Scores with the beam pool's ties: a share at -1e30, repeated values."""
+    s = rng.standard_normal((b, n)).astype(np.float32)
+    s[:, ::3] = np.float32(-1e30)
+    s[:, 1::7] = np.float32(0.5)
+    s[0] = 0.0
+    return s
+
+
+@pytest.mark.parametrize("b,n,k", [(16, 3840, 128), (20, 300, 10), (64, 7680, 256), (3, 1, 1),
+                                   (2, 16384, 300), (5, 129, 129)])
+def test_topk_kernel_matches_plain_version(full_fp32, b, n, k):
+    from dsjax_torch.ops import topk
+
+    s = torch.from_numpy(tie_heavy(np.random.default_rng(n), b, n)).cuda()
+    before = topk.LAUNCHES
+    values, idx = topk.topk(s, k)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + 1
+    want_v, want_i = topk.topk_reference(s, k)
+    assert idx.dtype == want_i.dtype == torch.int32
+    assert torch.equal(values, want_v) and torch.equal(idx, want_i)
+
+
+def test_topk_kernel_refuses_rows_over_its_limit(full_fp32):
+    from dsjax_torch.ops import topk
+
+    with pytest.raises(ValueError, match="at most"):
+        topk.topk(torch.zeros((1, topk.MAX_N + 1), device="cuda"), 4)
+
+
+def beam_problem(b, t, c, seed):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((b, t, c)) * 3.0
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    lp[0, : t // 2] = np.maximum(lp[0, : t // 2], np.log(1e-30))
+    sizes = rng.integers(2, t + 1, b).astype(np.int32)
+    sizes[:3] = (0, 1, t)
+    return (torch.from_numpy(lp.astype(np.float32)).cuda(), torch.from_numpy(sizes).cuda())
+
+
+def assert_same_scan(got, want):
+    for name, g, w in (("backptr", got[0], want[0]), ("emit", got[1], want[1]),
+                       ("h1", got[2][0], want[2][0]), ("h2", got[2][1], want[2][1])):
+        assert torch.equal(g, w), name
+    torch.testing.assert_close(got[3], want[3], atol=1e-5, rtol=0)
+    for i, (g, w) in enumerate(zip(got[4], want[4])):
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w), f"carry[{i}]"
+        else:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,t,c,w,blank", [(16, 60, 29, 128, 0), (20, 60, 29, 10, 0),
+                                           (3, 25, 6, 32, 2), (4, 9, 4, 128, 0)])
+def test_fused_beam_scan_matches_plain_scan(full_fp32, b, t, c, w, blank):
+    from dsjax_torch.ops import beam
+
+    lp, sizes = beam_problem(b, t, c, seed=t + w)
+    before = beam.LAUNCHES
+    got = beam.fused_beam_scan(lp, sizes, w, blank)
+    torch.cuda.synchronize()
+    assert beam.LAUNCHES == before + 1
+    want = beam.fused_beam_scan_reference(lp, sizes, w, blank)
+    assert_same_scan(got, want)
+    assert torch.equal(got[5][1], want[5][1])
+    torch.testing.assert_close(got[5][0], want[5][0], atol=1e-5, rtol=0)
+    # a stream that switches routes between chunks: resume K7 from the
+    # plain scan's carry of the first half, and the reverse
+    half = t // 2
+    first = beam.fused_beam_scan_reference(lp[:, :half], sizes, w, blank)
+    got2 = beam.fused_beam_scan(lp[:, half:], sizes - half, w, blank, carry0=first[4])
+    want2 = beam.fused_beam_scan_reference(lp[:, half:], sizes - half, w, blank,
+                                           carry0=first[4])
+    assert_same_scan(got2, want2)
+
+
+def test_beam_decoder_routes_and_launch_counts(full_fp32, monkeypatch):
+    """T + 1 K6 launches a decode on the scan route, one K7 launch and no
+    K6 on the fused route; both give the plain decode's strings."""
+    from dsjax_torch.decode.beam_device import DeviceBeamDecoder
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.ops import beam, topk
+
+    lp, sizes = beam_problem(6, 40, len(DEFAULT_LABELS), seed=3)
+    probs = lp.exp()
+    dec = DeviceBeamDecoder(DEFAULT_LABELS, beam_width=10)
+    want = dec.decode(probs.cpu(), sizes.cpu(), n_best=3, with_scores=True)
+    counts = []
+    for fused in ("0", "1"):
+        monkeypatch.setenv("DSJAX_FUSED_BEAM", fused)
+        before = (topk.LAUNCHES, beam.LAUNCHES)
+        got = dec.decode(probs, sizes, n_best=3, with_scores=True)
+        torch.cuda.synchronize()
+        counts.append((topk.LAUNCHES - before[0], beam.LAUNCHES - before[1]))
+        assert got[0] == want[0]
+        for a, b in zip(got[1], want[1]):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        np.testing.assert_allclose(got[2], want[2], atol=1e-5, rtol=0)
+    assert counts == [(lp.shape[1] + 1, 0), (0, 1)]
+
+
+def test_cuda_decode_without_the_library_raises(full_fp32, monkeypatch):
+    """No quiet fallback: a CUDA decode whose kernels cannot load raises."""
+    from dsjax_torch.decode.beam_device import DeviceBeamDecoder
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.ops import _build
+
+    def refuse():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    lp, sizes = beam_problem(3, 8, len(DEFAULT_LABELS), seed=4)
+    dec = DeviceBeamDecoder(DEFAULT_LABELS, beam_width=4)
+    for fused in ("0", "1"):
+        monkeypatch.setenv("DSJAX_FUSED_BEAM", fused)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            dec.decode(lp.exp(), sizes)

@@ -236,7 +236,6 @@ def test_checkpoint_handler_keeps_best_k_and_last(tmp_path):
 
 
 @pytest.mark.parametrize("override, exc", [
-    ("data.device_features=true", NotImplementedError),
     ("data.augmentation.spec_augment=true", NotImplementedError),
     ("data.augmentation.speed_volume_perturb=true", NotImplementedError),
     ("data.augmentation.noise_dir=/noise", NotImplementedError),

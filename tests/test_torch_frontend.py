@@ -184,3 +184,118 @@ def test_labels_copy_matches_dsjax():
             (len(ref), ref.space_index, ref.blank_index, ref.char_to_int)
         assert port.encode("AB Z'q") == ref.encode("AB Z'q")
         assert port.decode([2, 1, 0]) == ref.decode([2, 1, 0])
+
+
+# ---------------------------------------------------------------------------
+# the device half: raw-audio prep, the batched STFT, raw-audio batches
+# ---------------------------------------------------------------------------
+
+# float32 FFTs (pocketfft under XLA, torch's on the CPU) and sums in other
+# orders: features of magnitude up to 7.8 differ by a few ulps (measured up
+# to 6.6e-6 normalized, 2.4e-6 unnormalized)
+SPECT_ATOL = 2e-5
+
+
+def raw_batch(lengths, int16, cfg):
+    """Raw audio prepared as both packages' datasets prepare it."""
+    ys = [signal(100 + i, n) for i, n in enumerate(lengths)]
+    items = [jax_features.pad_audio_for_device(y, cfg) for y in ys]
+    n_valid = np.array([n for _, n in items], np.int32)
+    max_t = int(n_valid.max()) + 5
+    batch = np.zeros((len(ys), (max_t + 1) * features.stft_params(cfg)[1]), np.float32)
+    for i, y in enumerate(ys):
+        yp, _ = jax_features.pad_audio_for_device(y, cfg, max_t)
+        batch[i] = yp
+    if int16:
+        batch = np.clip(np.rint(batch * 32768.0), -32768, 32767).astype(np.int16)
+    return batch, n_valid
+
+
+@pytest.mark.parametrize("int16", [False, True], ids=["float32", "int16"])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_device_spectrogram_matches_dsjax(int16, normalize):
+    import jax.numpy as jnp
+
+    cfg = config.SpectConfig()
+    batch, n_valid = raw_batch([4000, 16001, 160, 9000], int16, cfg)
+    want = np.asarray(jax_features.spectrogram_jax(jnp.asarray(batch), jnp.asarray(n_valid),
+                                                   cfg, normalize))
+    got = features.spectrogram_torch(torch.from_numpy(batch), torch.from_numpy(n_valid), cfg,
+                                     normalize)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=SPECT_ATOL, rtol=0)
+    # zero past each utterance's valid frames, exactly
+    for i, n in enumerate(n_valid):
+        assert not got[i, :, n:].any()
+    np.testing.assert_allclose(features.FeatureExtractor(cfg, normalize).batch(
+        torch.from_numpy(batch), torch.from_numpy(n_valid)).numpy(), want, atol=SPECT_ATOL,
+        rtol=0)
+
+
+def test_device_spectrogram_matches_the_host_path():
+    """On one unpadded float utterance the device path is the host STFT."""
+    cfg = config.SpectConfig()
+    y = signal(7, 12345)
+    yp, n = features.pad_audio_for_device(y, cfg)
+    got = features.spectrogram_torch(torch.from_numpy(yp[None]), torch.tensor([n]), cfg)[0]
+    np.testing.assert_allclose(got.numpy(), features.spectrogram_np(y, cfg), atol=SPECT_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("n,pad_to", [(1, None), (159, None), (160, 3), (16001, None),
+                                      (4000, 40), (4000, 26)])
+def test_pad_audio_for_device_matches_dsjax(n, pad_to):
+    cfg = config.SpectConfig()
+    y = signal(n, n)
+    got = features.pad_audio_for_device(y, cfg, pad_to)
+    want = jax_features.pad_audio_for_device(y, cfg, pad_to)
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[0].dtype == want[0].dtype
+
+
+def test_raw_audio_dataset_and_collate_match_dsjax(tmp_path):
+    from dsjax.data.dataset import SpectrogramDataset as JaxDataset
+    from dsjax.data.dataset import collate_audio as jax_collate_audio
+    from dsjax_torch.data.dataset import SpectrogramDataset, collate_audio
+    from tests.synthetic_manifest import write_manifest
+
+    cfg = config.SpectConfig()
+    path = write_manifest(str(tmp_path), "raw", [0.3, 1.25, 0.71, 0.02], seed=9)
+    port = SpectrogramDataset(cfg, path, DEFAULT_LABELS, device_features=True)
+    ref = JaxDataset(jax_config.SpectConfig(), path, DEFAULT_LABELS, device_features=True)
+    items = []
+    for i in range(len(port)):
+        got, want = port[i], ref[i]
+        assert got[0].dtype == want[0].dtype == np.int16
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+        assert port.frame_count(i) == ref.frame_count(i) == got[1]
+        items.append(got)
+    for bucket_frames, pad_to in ((1, None), (64, 6)):
+        got = collate_audio(items, port.extractor.hop, bucket_frames, 8, pad_to)
+        want = jax_collate_audio(items, ref.extractor.hop, bucket_frames, 8, pad_to)
+        assert got.inputs is None and got.size == want.size
+        for name in ("audio", "input_lengths", "targets", "target_lengths",
+                     "input_percentages", "valid"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["EvalConfig", "TranscribeConfig"])
+def test_eval_and_transcribe_configs_extend_dsjax(name):
+    """dsjax's fields and defaults, without EvalConfig.save_output (read by
+    nothing) and with `device`; the same command lines parse alike."""
+    port_cls, jax_cls = getattr(config, name), getattr(jax_config, name)
+    jax_fields = [f.name for f in dataclasses.fields(jax_cls) if f.name != "save_output"]
+    assert [f.name for f in dataclasses.fields(port_cls)] == jax_fields + ["device"]
+    port, want = plain(port_cls()), plain(jax_cls())
+    want.pop("save_output", None)
+    assert port.pop("device") == "cuda"
+    assert port == want
+    argv = ["model.model_path=m.pt", "lm.decoder_type=beam", "lm.beam_width=4",
+            "lm.top_paths=2", "model.precision=16"]
+    got = plain(config.compose(port_cls, argv + ["device=cpu"]))
+    want = plain(jax_config.compose(jax_cls, argv))
+    want.pop("save_output", None)
+    assert got.pop("device") == "cpu"
+    assert got == want

@@ -18,7 +18,9 @@ IMPORTS = ("dsjax_torch", "dsjax_torch.server", "dsjax_torch.inference",
            "dsjax_torch.workflows", "dsjax_torch.train.loop", "dsjax_torch.train.state",
            "dsjax_torch.train.checkpoint", "dsjax_torch.train.metrics",
            "dsjax_torch.train.logging", "dsjax_torch.data.dataset", "dsjax_torch.data.loader",
-           "dsjax_torch.data.sampler", "dsjax_torch.data.manifest")
+           "dsjax_torch.data.sampler", "dsjax_torch.data.manifest", "dsjax_torch.ops.topk",
+           "dsjax_torch.ops.beam", "dsjax_torch.decode.beam_device", "dsjax_torch.evaluate",
+           "dsjax_torch.transcribe")
 
 
 def _imports(path):
@@ -42,6 +44,7 @@ def _imports(path):
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_profile_serving.py"),
      os.path.join(ROOT, "tools", "torch_profile_train.py"),
+     os.path.join(ROOT, "tools", "torch_profile_eval.py"),
      os.path.join(ROOT, "tests", "synthetic_manifest.py")]
     + glob.glob(os.path.join(ROOT, "dsjax_torch", "**", "*.py"), recursive=True)),
     ids=lambda p: os.path.relpath(p, ROOT))

@@ -188,3 +188,58 @@ def test_run_transcribe_matches_dsjax(servers, tmp_path, chunk_s):
     assert_decisive(forwards)
     assert got[0] == want[0] and got[0][0][0]
     np.testing.assert_array_equal(got[1][0][0], want[1][0][0])
+
+
+@pytest.fixture(scope="module")
+def beam_servers(tmp_path_factory):
+    """The same weights served with lm.decoder_type=beam by the port over
+    HTTP and by dsjax's BatchWorker with its device beam."""
+    from dsjax.decode.beam_device import DeviceBeamDecoder as JaxBeamDecoder
+
+    state = reference_state(seed=21, hidden=32, layers=2, fc_scale=4.0)
+    path = str(tmp_path_factory.mktemp("beam") / "model.ckpt")
+    model_cfg, _ = convert.infer_architecture(state)
+    convert.save_checkpoint(path, convert.from_reference_state_dict(state), model_cfg,
+                            config.SpectConfig(), DEFAULT_LABELS)
+    cfg = config.compose(config.ServerConfig, [f"model.model_path={path}", "host=127.0.0.1",
+                                               "port=0", "device=cpu", "lm.decoder_type=beam",
+                                               "lm.beam_width=6"])
+    for k, v in SETTINGS.items():
+        setattr(cfg, k, v)
+    httpd, worker = serve(cfg)
+    jax_worker = JaxBatchWorker(jax_load_model(path), JaxBeamDecoder(DEFAULT_LABELS, beam_width=6),
+                                jax_config.ServerConfig(**SETTINGS))
+    yield httpd.server_address[1], worker, jax_worker
+    shutdown(httpd, worker)
+    jax_worker._long_pool.shutdown(wait=True)
+
+
+def test_beam_transcribe_and_stream_match_dsjax(beam_servers):
+    """Beam /transcribe batches (n_best=1) and a /stream session carrying
+    the beam state give dsjax's transcripts; a one-chunk session equals
+    the one-shot /transcribe of the same audio."""
+    port, worker, jax_worker = beam_servers
+    ys = [audio(40 + i, s) for i, s in enumerate([0.35, 0.6, 0.9])]
+    results = [None] * len(ys)
+
+    def client(i):
+        results[i] = post(port, "/transcribe", ys[i])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(ys))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert [status for status, _ in results] == [200] * len(ys), results
+    want = jax_transcribe(jax_worker, ys)
+    assert [got for _, got in results] == want
+    assert any(r["output"][0]["transcription"] for r in want)
+
+    chunks = [audio(50 + i, 0.4) for i in range(3)]
+    got = [post(port, f"/stream?session=b&final={int(i == 2)}", y)[1]
+           for i, y in enumerate(chunks)]
+    assert got == [jax_worker.stream_chunk("b", y, final=i == 2) for i, y in enumerate(chunks)]
+    assert got[-1]["transcription"]
+    one = post(port, "/stream?session=one&final=1", ys[2])[1]
+    assert one["transcription"] == results[2][1]["output"][0]["transcription"]

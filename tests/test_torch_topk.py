@@ -1,0 +1,77 @@
+"""dsjax_torch's exact top-k (K6) on CPU tensors against dsjax's.
+
+On the CPU ``ops.topk.topk`` runs its plain version (a stable descending
+sort cut to k); it must give exactly what ``jax.lax.top_k`` gives and what
+dsjax's Pallas kernel gives in interpret mode (as tests/test_topk_pallas.py
+runs it): the same values and the same indices, ties to the lower index,
+for k up to and beyond 128. The kernel itself is held against this plain
+version on the card (tests/test_torch_cuda.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dsjax.ops.topk_pallas import topk_pallas
+from dsjax_torch.ops import topk
+
+
+def beam_like(rng, b, n):
+    s = rng.standard_normal((b, n)).astype(np.float32)
+    s[:, ::7] = np.float32(-1e30)          # the pool's dead-slot ties
+    s[:, 1::5] = np.float32(0.5)           # mid-range ties
+    return s
+
+
+def assert_matches(s, k, pallas=True):
+    got_v, got_i = topk.topk(torch.from_numpy(s), k)
+    assert got_v.dtype == torch.float32 and got_i.dtype == torch.int32
+    want_v, want_i = jax.lax.top_k(jnp.asarray(s), k)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    if pallas:
+        pv, pi = topk_pallas(jnp.asarray(s), k, interpret=True)
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(pv))
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(pi))
+
+
+@pytest.mark.parametrize("b,n,k", [
+    (16, 3840, 128),   # the width-128 beam pool: 128 + 128 * 29
+    (20, 300, 10),     # the width-10 pool: 10 + 10 * 29
+    (5, 700, 33),      # n not a multiple of 128, k not a power of two
+    (9, 129, 64),      # k above half the pool
+    (1, 1, 1),
+])
+def test_matches_lax_top_k_and_pallas(b, n, k, rng):
+    assert_matches(beam_like(rng, b, n), k)
+
+
+@pytest.mark.parametrize("b,n,k", [(4, 7680, 256), (3, 600, 129), (2, 200, 200)])
+def test_k_above_128_matches_lax_top_k(b, n, k, rng):
+    """dsjax's kernel stops at k = 128; the port's covers any k <= N."""
+    assert_matches(beam_like(rng, b, n), k, pallas=False)
+
+
+@pytest.mark.parametrize("row", ["equal", "ascending", "descending", "dead"])
+def test_degenerate_rows(row):
+    n = 640
+    values = {"equal": np.zeros(n), "ascending": np.arange(n, dtype=np.float64),
+              "descending": -np.arange(n, dtype=np.float64),
+              "dead": np.full(n, -1e30)}[row]
+    s = np.tile(values.astype(np.float32), (4, 1))
+    assert_matches(s, 17)
+    assert_matches(s, 200, pallas=False)
+
+
+def test_bad_arguments_raise():
+    s = torch.zeros((2, 10))
+    for bad in (0, 11):
+        with pytest.raises(ValueError, match="k="):
+            topk.topk(s, bad)
+    with pytest.raises(TypeError, match="float32"):
+        topk.topk(s.double(), 3)
+    with pytest.raises(ValueError, match=r"\(B, N\)"):
+        topk.topk(torch.zeros(10), 3)

@@ -258,3 +258,52 @@ def test_train_cli_trains_saves_resumes_and_serves(tmp_path):
     assert "auto-resumed from step 4" in out.stdout
     assert "epoch 2: loss" in out.stdout and "epoch 1: loss" not in out.stdout
     assert handler.latest_step() == 6
+
+
+def test_device_feature_step_matches_host_feature_step_and_dsjax(tmp_path):
+    """data.device_features=true: the loader ships int16 raw audio and the
+    step computes the spectrogram first. Its loss and gradients equal the
+    host-feature step's on the same utterances to rtol 1e-4 (the int16
+    upload quantizes the signal, and the STFT runs batched: the features
+    differ by about 1e-5), and its loss equals dsjax's device-feature step
+    on the same raw batch to rtol 1e-5."""
+    from dsjax.train.loop import Trainer as JaxTrainer
+    from dsjax.parallel.mesh import make_mesh
+    from dsjax_torch import workflows
+    from dsjax_torch.train.loop import Trainer
+
+    train = write_manifest(str(tmp_path), "train", [1.0, 1.12, 0.7], seed=4)
+    argv = [f"data.train_path={train}", f"data.val_path={train}", "data.batch_size=3",
+            "data.num_workers=1", "model.hidden_size=32", "model.hidden_layers=2",
+            "trainer.precision=32", "seed=7"]
+    labels = list(DEFAULT_LABELS)
+    results = {}
+    for feats in ("true", "false"):
+        cfg = config.compose(config.TrainConfig, argv + [f"data.device_features={feats}",
+                                                         "trainer.device=cpu"])
+        trainer = Trainer(cfg, labels)
+        batch = next(iter(workflows._pipelines(cfg, labels)[0]))
+        assert (batch.inputs is None) == (feats == "true")
+        state = trainer.init_state(seed=0)
+        results[feats] = trainer.grad_step(state, batch) + (batch, state)
+    grads, loss, raw_batch, state = results["true"]
+    host_grads, host_loss = results["false"][:2]
+    assert raw_batch.audio.dtype == np.int16
+    np.testing.assert_allclose(float(loss), float(host_loss), rtol=1e-4)
+    for name, g in grads.items():
+        scale = float(host_grads[name].abs().max())
+        np.testing.assert_allclose(g.numpy(), host_grads[name].numpy(), atol=1e-4 * scale,
+                                   rtol=0, err_msg=name)
+
+    jcfg = jax_config.compose(jax_config.TrainConfig, argv + ["data.device_features=true",
+                                                             "trainer.mesh_data=1"])
+    jtrainer = JaxTrainer(jcfg, labels, mesh=make_mesh(1, 1, devices=jax.devices()[:1]))
+    jstate = jtrainer.init_state()
+    weights = from_dsjax_variables(jax.tree_util.tree_map(np.asarray, jstate.variables()))
+    cfg = config.compose(config.TrainConfig, argv + ["trainer.device=cpu"])
+    trainer = Trainer(cfg, labels)
+    state = trainer.init_state()
+    state.model.load_state_dict(weights)
+    _, _, jloss = jtrainer.grad_step(jstate, raw_batch)
+    _, loss = trainer.grad_step(state, raw_batch)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
