@@ -51,11 +51,36 @@ Phases, each printing what it measured; any failure exits non-zero:
               /transcribe requests against DeviceBeamDecoder.decode on the
               same posteriors, a /stream session whose last transcript
               equals the one-shot beam decode of the same chunks, and a
-              one-chunk session equal to /transcribe of the same audio.
-The parity phases (3, 4, 6, 7, 9, 10, 11 and 12's posterior comparison)
-turn TF32 off (cuDNN convolutions and matmuls in full float32); serving,
-training and evaluation run PyTorch's defaults. The last two lines are a
-JSON object of kernel results and {"ok": true, "device": {...}}.
+              one-chunk session equal to /transcribe of the same audio;
+ 14. GRU kernel  K4 (the GRU forward) against its plain version at the
+              serving shapes, 2 directions and 1, prefix and suffix masks,
+              f32 and bf16;
+ 15. GRU train kernels  K4 with residuals and K5 (the GRU reverse scan) at
+              T=512, B=64: ragged lengths, a prefix mask with a nonzero carry
+              and a suffix mask with a zero one, f32 and bf16;
+ 16. GRU gradients  the differentiated gru_scan against autograd through
+              the plain loop;
+ 17. GRU parity  5 x BiGRU-1024 and 5 x GRU-1024 + Lookahead 20
+              (tests/golden_gru.py) loaded from checkpoints, against
+              tests/fixtures/golden_gru.npz;
+ 18. GRU serving  the server on the BiGRU checkpoint answering 8 concurrent
+              /transcribe requests, and on the unidirectional checkpoint a
+              /stream session of 1 s chunks equal to the direct chunked
+              forward, with exact K4 launch counts;
+ 19. GRU training  phase 8 for 5 x BiGRU-1024 (one epoch of 3 steps), exact
+              K4-with-residuals, K5 and K4 counts;
+ 20. K8  the matmul-only chain against its plain version at T=512, B=64,
+              H=1024, bf16, then tools/torch_lstm_microbench.py's run with
+              its K8 launches counted.
+Every kernel phase also times the kernel's library counterpart where one
+PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN,
+torch.topk; the port never calls them) and computes its bound: the larger
+of its operations over the H100's peak for their type and its bytes over
+3.35 TB/s. The parity phases (3, 4, 6, 7, 9, 10, 11, 12's posterior
+comparison, 14-17 and 20) turn TF32 off (cuDNN convolutions and matmuls in
+full float32); serving, training and evaluation run PyTorch's defaults. The
+last two lines are a JSON object of kernel results and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -97,6 +122,12 @@ EVAL_UTTS, EVAL_BATCH, EVAL_WIDTH = 40, 20, 10
 # the flagship's posteriors from int16 raw audio with the STFT on the card
 # against host features of the same 16-bit WAVs: the STFT's rounding only
 FEATURE_PATH_TOL = 1e-4
+
+
+# H100 SXM at 700 W (NVIDIA's data sheet): HBM rate, and peak rates by type
+# (float32 outside the tensor cores, bfloat16 on them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 class SmokeFailure(Exception):
@@ -160,9 +191,18 @@ def phase_kernel(torch, np):
         mask, reverse = cases["bidirectional, prefix mask"]
         k_ms = cuda_time(lambda: lstm.lstm_scan(xp, mask, w, b, h0, c0, reverse), 20)
         p_ms = cuda_time(lambda: lstm.lstm_scan_reference(xp, mask, w, b, h0, c0, reverse), 5)
+        out = lstm.lstm_scan(xp, mask, w, b, h0, c0, reverse)
+        bound_ms, bound_by = least_time(scan_flops(mask, 2, 4, H),
+                                        nbytes(xp, mask, w, b, h0, c0, *out), name)
+        # cuDNN in f32 only: the row's times are f32
+        lib_ms = (library_times(torch, "LSTM", w, b, lengths, T, 20, train=False)[0]
+                  if dtype == torch.float32 else None)
         print(f"kernel lstm_fwd {name} T={T} B={B} H={H} 2 directions: max_abs_err {err!r} "
-              f"(atol {atol}, rtol {rtol}); kernel {k_ms!r} ms, plain {p_ms!r} ms (median, CUDA events)")
-        result[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+              f"(atol {atol}, rtol {rtol}); kernel {k_ms!r} ms, plain {p_ms!r} ms, "
+              f"torch.nn.LSTM (cuDNN) {lib_ms!r} ms (median, CUDA events); bound {bound_ms!r} ms "
+              f"({bound_by})")
+        result[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms}
     return result
 
 
@@ -266,18 +306,21 @@ def direct_chunked(worker, y, chunk_s, np, torch):
 
 def reset_counts():
     """Every kernel's launch count to 0, before a path is driven."""
-    from dsjax_torch.ops import beam, lstm, topk
+    from dsjax_torch.ops import beam, gru, lstm, mm_chain, topk
 
-    lstm.LAUNCHES = lstm.STEP_LAUNCHES = lstm.RESIDUAL_LAUNCHES = lstm.BWD_LAUNCHES = 0
-    topk.LAUNCHES = beam.LAUNCHES = 0
+    for scan in (lstm, gru):
+        scan.LAUNCHES = scan.STEP_LAUNCHES = scan.RESIDUAL_LAUNCHES = scan.BWD_LAUNCHES = 0
+    topk.LAUNCHES = beam.LAUNCHES = mm_chain.LAUNCHES = 0
 
 
 def read_counts():
-    from dsjax_torch.ops import beam, lstm, topk
+    from dsjax_torch.ops import beam, gru, lstm, mm_chain, topk
 
     return {"lstm_fwd": lstm.LAUNCHES, "lstm_steps": lstm.STEP_LAUNCHES,
             "lstm_fwd_residuals": lstm.RESIDUAL_LAUNCHES, "lstm_bwd": lstm.BWD_LAUNCHES,
-            "topk": topk.LAUNCHES, "beam_scan": beam.LAUNCHES}
+            "gru_fwd": gru.LAUNCHES, "gru_steps": gru.STEP_LAUNCHES,
+            "gru_fwd_residuals": gru.RESIDUAL_LAUNCHES, "gru_bwd": gru.BWD_LAUNCHES,
+            "topk": topk.LAUNCHES, "beam_scan": beam.LAUNCHES, "mm_chain": mm_chain.LAUNCHES}
 
 
 def phase_serving(torch, np, state, model_cfg, gpu_name):
@@ -364,6 +407,69 @@ def phase_serving(torch, np, state, model_cfg, gpu_name):
     return launches, step_launches
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def least_time(flops, n_bytes, dtype_name):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the operations over the peak rate of their type and the bytes (each
+    input read once, each output written once) over the HBM rate."""
+    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def scan_flops(mask, n_dir, gates, n_h):
+    """The recurrent product of a masked scan, 2 * (G * H) * H per direction
+    and valid (t, b): what this run's lengths need (masked steps need none)."""
+    return 2.0 * gates * n_h * n_h * float(mask.sum().item()) * n_dir
+
+
+def cudnn_rnn(torch, kind, w_hh, b_hh, lengths, t_dim):
+    """torch.nn.LSTM or GRU (cuDNN) with a scan's recurrent weights, random
+    input weights, and a packed random input of the scan's lengths: the
+    library call timed beside a scan kernel (it also does the input
+    projection, so its time bounds the recurrence's from above). The port
+    never calls it."""
+    n_dir, _, n_h = w_hh.shape
+    rnn = getattr(torch.nn, kind)(n_h, n_h, bidirectional=n_dir == 2).to("cuda", w_hh.dtype)
+    with torch.no_grad():
+        for d in range(n_dir):
+            sfx = "_reverse" if d else ""
+            getattr(rnn, f"weight_hh_l0{sfx}").copy_(w_hh[d])
+            getattr(rnn, f"bias_hh_l0{sfx}").copy_(b_hh[d])
+    x = torch.randn(t_dim, len(lengths), n_h, device="cuda", dtype=w_hh.dtype)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        x, torch.as_tensor([max(int(n), 1) for n in lengths]), enforce_sorted=False)
+    return rnn, packed
+
+
+def library_times(torch, kind, w_hh, b_hh, lengths, t_dim, reps, train):
+    """cuDNN's time for the scan: the forward without grad (inference), or
+    the training forward and, timed alone, its backward."""
+    rnn, packed = cudnn_rnn(torch, kind, w_hh, b_hh, lengths, t_dim)
+    if not train:
+        with torch.no_grad():
+            return cuda_time(lambda: rnn(packed), reps), None
+    packed = torch.nn.utils.rnn.PackedSequence(packed.data.detach().requires_grad_(True),
+                                               packed.batch_sizes, packed.sorted_indices,
+                                               packed.unsorted_indices)
+    fwd_ms = cuda_time(lambda: rnn(packed), reps)
+    times = []
+    for _ in range(reps):
+        out = rnn(packed)[0].data
+        grad = torch.ones_like(out)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(out, [packed.data] + list(rnn.parameters()), grad)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return fwd_ms, statistics.median(times)
+
+
 def within(got, want, atol, rtol):
     """(max abs error, whether every element is within atol + rtol |want|)."""
     e = (got.float() - want.float()).abs()
@@ -417,8 +523,15 @@ def phase_train_kernels(torch, np):
                 check(ok, f"K3 {name} {case}: {what} max err {e} over atol {atol} rtol {rtol}")
                 err["bwd"] = max(err["bwd"], e)
         mask, reverse = cases["bidirectional, prefix mask"]
-        _, _, _, g_seq, c_seq = lstm.lstm_scan_reference(xp, mask, w, b, h0, c0, reverse,
-                                                         save_residuals=True)
+        fwd_out = lstm.lstm_scan_reference(xp, mask, w, b, h0, c0, reverse, save_residuals=True)
+        g_seq, c_seq = fwd_out[3], fwd_out[4]
+        bwd_out = lstm.lstm_scan_backward_reference(g_seq, mask, w, c0, c_seq, *cot, reverse)
+        flops = scan_flops(mask, 2, 4, H)
+        bounds = {"fwd": least_time(flops, nbytes(xp, mask, w, b, h0, c0, *fwd_out), name),
+                  "bwd": least_time(flops, nbytes(g_seq, mask, w, c0, c_seq, *cot, *bwd_out),
+                                    name)}
+        lib = (library_times(torch, "LSTM", w, b, lengths, TRAIN_T, 5, train=True)
+               if dtype == torch.float32 else (None, None))
         times = {
             "fwd": (cuda_time(lambda: lstm.lstm_scan_fwd(xp, mask, w, b, h0, c0, reverse,
                                                          save_residuals=True), 10),
@@ -428,13 +541,17 @@ def phase_train_kernels(torch, np):
                                                          reverse), 10),
                     cuda_time(lambda: lstm.lstm_scan_backward_reference(
                         g_seq, mask, w, c0, c_seq, *cot, reverse), 3))}
-        for key, label in (("fwd", "lstm_fwd_residuals (K2)"), ("bwd", "lstm_bwd (K3)")):
+        for i, (key, label) in enumerate((("fwd", "lstm_fwd_residuals (K2)"),
+                                          ("bwd", "lstm_bwd (K3)"))):
             tol = TOLERANCE[name] if key == "fwd" else BWD_TOLERANCE[name]
             print(f"kernel {label} {name} T={TRAIN_T} B={TRAIN_B} H={H} 2 directions: "
                   f"max_abs_err {err[key]!r} (atol {tol[0]}, rtol {tol[1]}); kernel "
-                  f"{times[key][0]!r} ms, plain {times[key][1]!r} ms (median, CUDA events)")
+                  f"{times[key][0]!r} ms, plain {times[key][1]!r} ms, torch.nn.LSTM (cuDNN) "
+                  f"{'training forward' if key == 'fwd' else 'backward'} {lib[i]!r} ms (median, "
+                  f"CUDA events); bound {bounds[key][0]!r} ms ({bounds[key][1]})")
             result[(key, name)] = {"max_abs_err": err[key], "ms": times[key][0],
-                                   "plain_ms": times[key][1]}
+                                   "plain_ms": times[key][1], "bound_ms": bounds[key][0],
+                                   "bound_by": bounds[key][1], "library_ms": lib[i]}
     return result
 
 
@@ -479,11 +596,13 @@ TRAIN_SECONDS = 1023 * 160 / SR               # 1024 STFT frames, 512 scan steps
 TRAIN_UTTS, VAL_UTTS, EPOCHS = 192, 16, 2
 
 
-def phase_training(torch, np, gpu_name, card):
+def phase_training(torch, np, gpu_name, card, rnn="lstm", epochs=EPOCHS):
+    """``workflows.train`` of the flagship width (5 x BiLSTM-1024, or with
+    ``rnn="gru"`` 5 x BiGRU-1024) in bf16 at B=64, with exact scan-kernel
+    counts; returns {kernel: launches} of the run."""
     from dsjax_torch.config import TrainConfig, compose
     from dsjax_torch.inference import load_model
     from dsjax_torch.labels import DEFAULT_LABELS
-    from dsjax_torch.ops import lstm
     from dsjax_torch.train.checkpoint import CheckpointHandler
     from dsjax_torch.train.loop import Trainer
     from dsjax_torch.workflows import _pipelines, train
@@ -501,24 +620,26 @@ def phase_training(torch, np, gpu_name, card):
             f"data.train_path={train_path}", f"data.val_path={val_path}",
             "data.device_features=false", f"data.batch_size={TRAIN_B}", "data.num_workers=4",
             "trainer.precision=16", "trainer.device=cuda", "trainer.devices=1",
-            f"trainer.max_epochs={EPOCHS}", "trainer.log_every_n_steps=1",
-            f"trainer.log_dir={os.path.join(tmp, 'logs')}", f"checkpoint.dirpath={ckpt}"])
+            f"model.rnn_type={rnn}", f"trainer.max_epochs={epochs}",
+            "trainer.log_every_n_steps=1", f"trainer.log_dir={os.path.join(tmp, 'logs')}",
+            f"checkpoint.dirpath={ckpt}"])
         reset_counts()
         t0 = time.perf_counter()
         state = train(cfg)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = {"lstm_fwd": lstm.LAUNCHES, "lstm_fwd_residuals": lstm.RESIDUAL_LAUNCHES,
-                    "lstm_bwd": lstm.BWD_LAUNCHES}
+        counts = read_counts()
+        launches = {k: counts[k] for k in (f"{rnn}_fwd", f"{rnn}_fwd_residuals", f"{rnn}_bwd")}
 
         layers = cfg.model.hidden_layers
-        steps = EPOCHS * -(-TRAIN_UTTS // TRAIN_B)
-        val_forwards = EPOCHS * -(-VAL_UTTS // TRAIN_B)
+        steps = epochs * -(-TRAIN_UTTS // TRAIN_B)
+        val_forwards = epochs * -(-VAL_UTTS // TRAIN_B)
         check(state.step == steps, f"{state.step} optimizer steps, expected {steps}")
-        check(launches == {"lstm_fwd": layers * val_forwards,
-                           "lstm_fwd_residuals": layers * steps, "lstm_bwd": layers * steps},
-              f"launches {launches} for {steps} steps and {val_forwards} validation "
-              f"forwards of {layers} layers")
+        check(launches == {f"{rnn}_fwd": layers * val_forwards,
+                           f"{rnn}_fwd_residuals": layers * steps, f"{rnn}_bwd": layers * steps}
+              and sum(counts.values()) == sum(launches.values()) + counts[f"{rnn}_steps"],
+              f"launches {counts} for {steps} steps and {val_forwards} validation "
+              f"forwards of {layers} {rnn} layers")
         records = [json.loads(line) for line in open(os.path.join(tmp, "logs", "metrics.jsonl"))]
         losses = [r["loss"] for r in records if "loss" in r]
         check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
@@ -526,7 +647,7 @@ def phase_training(torch, np, gpu_name, card):
         step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(records, records[1:])
                    if "loss" in a and "loss" in b and a["epoch"] == b["epoch"]]
         val = [r for r in records if "wer" in r and "mean_loss" in r]
-        check(len(val) == EPOCHS and all(np.isfinite(r["mean_loss"]) for r in val),
+        check(len(val) == epochs and all(np.isfinite(r["mean_loss"]) for r in val),
               f"validation records {val}")
 
         handler = CheckpointHandler(ckpt)
@@ -542,9 +663,9 @@ def phase_training(torch, np, gpu_name, card):
         load_err = (got - want).abs().max().item()
         check(load_err <= 1e-6, f"loaded checkpoint's posteriors differ by {load_err}")
     med = statistics.median(step_ms)
-    print(f"training on {gpu_name} ({card}): flagship 5x BiLSTM-1024 bf16, B={TRAIN_B} x "
+    print(f"training on {gpu_name} ({card}): 5x Bi{rnn.upper()}-1024 bf16, B={TRAIN_B} x "
           f"{TRAIN_SECONDS} s (T=1024 frames, {TRAIN_T} scan steps), {steps} steps over "
-          f"{EPOCHS} epochs: step median {med!r} ms of {sorted(step_ms)}, "
+          f"{epochs} epochs: step median {med!r} ms of {sorted(step_ms)}, "
           f"{TRAIN_B / (med / 1e3)!r} utt/s; losses {losses}; validation wer/cer "
           f"{[(r['wer'], r['cer']) for r in val]}; launches {launches}; run {train_s!r} s "
           f"(corpus written in {data_s!r} s); last checkpoint {size_gb!r} GB, loaded with "
@@ -613,9 +734,14 @@ def phase_topk(torch, np):
               f"K6 {name}: differs from the stable sort")
         k_ms = cuda_time(lambda: topk.topk(s, k), 50)
         p_ms = cuda_time(lambda: topk.topk_reference(s, k), 50)
+        lib_ms = cuda_time(lambda: torch.topk(s, k, dim=-1), 50)
+        # a selection reads each score at least once: one operation per score
+        bound_ms, bound_by = least_time(s.numel(), nbytes(s, *got), "float32")
         print(f"kernel topk {name}: values and indices equal to the plain version (max_abs_err "
-              f"0.0); kernel {k_ms!r} ms, plain {p_ms!r} ms (median, CUDA events)")
-        result[name] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms}
+              f"0.0); kernel {k_ms!r} ms, plain {p_ms!r} ms, torch.topk {lib_ms!r} ms (median, "
+              f"CUDA events; its tie order differs); bound {bound_ms!r} ms ({bound_by})")
+        result[name] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms}
     return result
 
 
@@ -671,14 +797,19 @@ def phase_beam_kernel(torch, np):
                   second[3], second[4])
         torch.cuda.synchronize()
         err = max(err, same_scan(torch, joined, got, f"K7 two-chunk stream {what}"))
+        # one operation per (frame, beam, class) candidate of the valid frames
+        flops = float(sizes.sum().item()) * w * c
+        bound_ms, bound_by = least_time(flops, nbytes(lp, sizes, got[0], got[1], *got[2],
+                                                      got[3], *got[4], *got[5]), "float32")
         k_ms = cuda_time(lambda: beam.fused_beam_scan(lp, sizes, w, 0), 10)
         s_ms = cuda_time(lambda: _beam_scan(lp, sizes, w, 0), 3)
         p_ms = cuda_time(lambda: beam.fused_beam_scan_reference(lp, sizes, w, 0), 3)
         print(f"kernel beam_scan {what}: backptr, emit, h1, h2, carry and ranking equal to the "
               f"plain scan and to the K6 scan, totals max_abs_err {err!r} (atol {BEAM_TOL}); "
               f"two-chunk stream equal; K7 {k_ms!r} ms, scan with K6 {s_ms!r} ms, plain scan "
-              f"{p_ms!r} ms (median, CUDA events)")
-        result[what] = {"max_abs_err": err, "ms": k_ms, "scan_k6_ms": s_ms, "plain_ms": p_ms}
+              f"{p_ms!r} ms (median, CUDA events); bound {bound_ms!r} ms ({bound_by})")
+        result[what] = {"max_abs_err": err, "ms": k_ms, "scan_k6_ms": s_ms, "plain_ms": p_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     return result
 
 
@@ -858,6 +989,367 @@ def phase_beam_serving(torch, np, state, model_cfg, gpu_name):
           f"decode of its {len(stream_chunks)} chunks; a one-chunk session equals /transcribe")
 
 
+def gru_inputs(torch, np, rng, t_dim, b_dim, dtype):
+    def dev(a, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda", dt)
+
+    return (dev(rng.standard_normal((2, t_dim, b_dim, 3 * H)) * 0.3),
+            dev(rng.standard_normal((2, 3 * H, H)) * 0.03),
+            dev(rng.standard_normal((2, 3 * H)) * 0.1),
+            dev(rng.standard_normal((2, b_dim, H)) * 0.1), dev)
+
+
+def check_all(torch, out, ref, tol, what):
+    err = 0.0
+    for i, (o, r) in enumerate(zip(out, ref)):
+        check(bool(torch.isfinite(o.float()).all()), f"{what}: output {i} not finite")
+        e, ok = within(o, r, *tol)
+        check(ok, f"{what}: output {i} max err {e} over atol {tol[0]} rtol {tol[1]}")
+        err = max(err, e)
+    return err
+
+
+def phase_gru_kernel(torch, np):
+    """K4: dsjax/ops/gru_pallas.py:_fwd_kernel -> dsjax_torch/csrc/gru_fwd.cu, at
+    the serving shapes (T=501, B=8, H=1024), both directions and one."""
+    from dsjax_torch.ops import gru
+
+    rng = np.random.default_rng(20)
+    lengths = np.array([T, 1, 250, T, 37, 400, T - 2, 0])
+    prefix = (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        xp, w, b, h0, dev = gru_inputs(torch, np, rng, T, B, dtype)
+        mask, suffix = dev(prefix, torch.float32), dev(prefix[::-1], torch.float32)
+        zero = torch.zeros_like(h0[:1])
+        cases = {"2 directions, prefix mask, nonzero carry": (xp, mask, w, b, h0, (False, True)),
+                 "1 direction, suffix mask, zero carry": (xp[:1], suffix, w[:1], b[:1], zero,
+                                                         (False,)),
+                 "1 direction, prefix mask, nonzero carry": (xp[:1], mask, w[:1], b[:1], h0[:1],
+                                                            (False,))}
+        err = 0.0
+        for case, args in cases.items():
+            out = gru.gru_scan(*args)
+            ref = gru.gru_scan_reference(*args)
+            torch.cuda.synchronize()
+            err = max(err, check_all(torch, out, ref, TOLERANCE[name], f"K4 {name} {case}"))
+        args = cases["2 directions, prefix mask, nonzero carry"]
+        k_ms = cuda_time(lambda: gru.gru_scan(*args), 20)
+        k1_ms = cuda_time(lambda: gru.gru_scan(*cases["1 direction, prefix mask, nonzero carry"]),
+                          20)
+        p_ms = cuda_time(lambda: gru.gru_scan_reference(*args), 5)
+        bound_ms, bound_by = least_time(scan_flops(mask, 2, 3, H),
+                                        nbytes(*args[:5], *gru.gru_scan(*args)), name)
+        lib_ms = (library_times(torch, "GRU", w, b, lengths, T, 20, train=False)[0]
+                  if dtype == torch.float32 else None)
+        print(f"kernel gru_fwd {name} T={T} B={B} H={H}: max_abs_err {err!r} (atol "
+              f"{TOLERANCE[name][0]}, rtol {TOLERANCE[name][1]}); 2 directions: kernel {k_ms!r} "
+              f"ms, plain {p_ms!r} ms, torch.nn.GRU (cuDNN) {lib_ms!r} ms; 1 direction: kernel "
+              f"{k1_ms!r} ms (median, CUDA events); bound {bound_ms!r} ms ({bound_by})")
+        result[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        "one_direction_ms": k1_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms}
+    return result
+
+
+def phase_gru_train_kernels(torch, np):
+    """K4 with residuals: gru_pallas.py:_fwd_kernel (save_residuals) -> csrc/gru_fwd.cu;
+    K5: gru_pallas.py:_bwd_kernel -> csrc/gru_bwd.cu, at the training shapes."""
+    from dsjax_torch.ops import gru
+    from dsjax_torch.ops.lstm import _carried_h_prev
+
+    rng = np.random.default_rng(21)
+    lengths = rng.integers(1, TRAIN_T + 1, TRAIN_B)
+    lengths[:4] = (TRAIN_T, 1, TRAIN_T - 1, 0)
+    prefix = (np.arange(TRAIN_T)[:, None] < lengths[None, :]).astype(np.float32)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        xp, w, b, h0, dev = gru_inputs(torch, np, rng, TRAIN_T, TRAIN_B, dtype)
+        dy, dh_t = dev(rng.standard_normal((2, TRAIN_T, TRAIN_B, H))), dev(
+            rng.standard_normal((2, TRAIN_B, H)))
+        mask = dev(prefix, torch.float32)
+        cases = {"2 directions, prefix mask, nonzero carry": (xp, mask, w, b, h0, (False, True)),
+                 "1 direction, suffix mask, zero carry": (
+                     xp[:1], dev(prefix[::-1], torch.float32), w[:1], b[:1],
+                     torch.zeros_like(h0[:1]), (False,))}
+        err = {"fwd": 0.0, "bwd": 0.0}
+        for case, args in cases.items():
+            out = gru.gru_scan_fwd(*args, save_residuals=True)
+            ref = gru.gru_scan_reference(*args, save_residuals=True)
+            torch.cuda.synchronize()
+            err["fwd"] = max(err["fwd"], check_all(torch, out, ref, TOLERANCE[name],
+                                                   f"K4 residuals {name} {case}"))
+            n_dir, reverse = args[0].shape[0], args[5]
+            h_prev = _carried_h_prev(ref[0], args[1], args[4], reverse)
+            bwd_args = (ref[2], args[1], args[2], h_prev, dy[:n_dir], dh_t[:n_dir], reverse)
+            dout = gru.gru_scan_bwd(*bwd_args)
+            dref = gru.gru_scan_backward_reference(*bwd_args)
+            torch.cuda.synchronize()
+            err["bwd"] = max(err["bwd"], check_all(torch, dout, dref, BWD_TOLERANCE[name],
+                                                   f"K5 {name} {case}"))
+        args = cases["2 directions, prefix mask, nonzero carry"]
+        fwd_out = gru.gru_scan_reference(*args, save_residuals=True)
+        h_prev = _carried_h_prev(fwd_out[0], mask, h0, args[5])
+        bwd_args = (fwd_out[2], mask, w, h_prev, dy, dh_t, args[5])
+        bwd_out = gru.gru_scan_backward_reference(*bwd_args)
+        flops = scan_flops(mask, 2, 3, H)
+        bounds = {"fwd": least_time(flops, nbytes(*args[:5], *fwd_out), name),
+                  "bwd": least_time(flops, nbytes(*bwd_args[:6], *bwd_out), name)}
+        lib = (library_times(torch, "GRU", w, b, lengths, TRAIN_T, 5, train=True)
+               if dtype == torch.float32 else (None, None))
+        times = {
+            "fwd": (cuda_time(lambda: gru.gru_scan_fwd(*args, save_residuals=True), 10),
+                    cuda_time(lambda: gru.gru_scan_reference(*args, save_residuals=True), 3)),
+            "bwd": (cuda_time(lambda: gru.gru_scan_bwd(*bwd_args), 10),
+                    cuda_time(lambda: gru.gru_scan_backward_reference(*bwd_args), 3))}
+        for i, (key, label) in enumerate((("fwd", "gru_fwd_residuals (K4 with residuals)"),
+                                          ("bwd", "gru_bwd (K5)"))):
+            tol = TOLERANCE[name] if key == "fwd" else BWD_TOLERANCE[name]
+            print(f"kernel {label} {name} T={TRAIN_T} B={TRAIN_B} H={H} 2 directions: "
+                  f"max_abs_err {err[key]!r} (atol {tol[0]}, rtol {tol[1]}); kernel "
+                  f"{times[key][0]!r} ms, plain {times[key][1]!r} ms, torch.nn.GRU (cuDNN) "
+                  f"{'training forward' if key == 'fwd' else 'backward'} {lib[i]!r} ms (median, "
+                  f"CUDA events); bound {bounds[key][0]!r} ms ({bounds[key][1]})")
+            result[(key, name)] = {"max_abs_err": err[key], "ms": times[key][0],
+                                   "plain_ms": times[key][1], "bound_ms": bounds[key][0],
+                                   "bound_by": bounds[key][1], "library_ms": lib[i]}
+    return result
+
+
+def phase_gru_gradients(torch, np):
+    """The differentiated gru_scan (K4 with residuals, K5, dW and db by
+    matmul) against autograd through gru_scan_reference, on the card; the
+    reverse direction meets a suffix mask with a nonzero carry."""
+    from dsjax_torch.ops import gru
+
+    t_dim, b_dim, h_dim = 64, 16, 256
+    rng = np.random.default_rng(22)
+    lengths = rng.integers(0, t_dim + 1, b_dim)
+    lengths[:2] = (t_dim, 1)
+    mask = torch.from_numpy((np.arange(t_dim)[:, None] < lengths[None, :])
+                            .astype(np.float32)).cuda()
+    shapes = ((2, t_dim, b_dim, 3 * h_dim), (2, 3 * h_dim, h_dim), (2, 3 * h_dim),
+              (2, b_dim, h_dim))
+    inputs = [torch.from_numpy((rng.standard_normal(s) * k).astype(np.float32)).cuda()
+              .requires_grad_(True) for s, k in zip(shapes, (0.3, 0.1, 0.1, 0.3))]
+    weights = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+               for s in ((2, t_dim, b_dim, h_dim), (2, b_dim, h_dim))]
+    counts = (gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES)
+    out = gru.gru_scan(inputs[0], mask, *inputs[1:], (False, True))
+    got = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(out, weights)), inputs)
+    ref = gru.gru_scan_reference(inputs[0], mask, *inputs[1:], (False, True))
+    want = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(ref, weights)), inputs)
+    torch.cuda.synchronize()
+    check((gru.RESIDUAL_LAUNCHES - counts[0], gru.BWD_LAUNCHES - counts[1]) == (1, 1),
+          "the differentiated GRU scan did not run K4 with residuals and K5 once each")
+    errs = {}
+    for name, g, w in zip(("dxp", "dW_hh", "db_hh", "dh0"), got, want):
+        e, ok = within(g, w, *GRAD_TOL)
+        check(ok and w.abs().max().item() > 0,
+              f"GRU gradient {name}: max err {e} over atol {GRAD_TOL[0]} rtol {GRAD_TOL[1]}")
+        errs[name] = e
+    print(f"gradients of gru_scan (K4 with residuals + K5) vs autograd through the plain loop, "
+          f"f32, T={t_dim} B={b_dim} H={h_dim} 2 directions, nonzero carry: max_abs_err {errs} "
+          f"(atol {GRAD_TOL[0]}, rtol {GRAD_TOL[1]})")
+
+
+def gru_checkpoint(tmp, name):
+    """A port checkpoint of tests/golden_gru.py's model ``name``."""
+    from dsjax_torch.config import SpectConfig
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.model.convert import (from_reference_state_dict, infer_architecture,
+                                           save_checkpoint)
+    from tests.golden_gru import gru_state
+
+    state = gru_state(name)
+    model_cfg, _ = infer_architecture(state)
+    path = os.path.join(tmp, f"{name}.pt")
+    save_checkpoint(path, from_reference_state_dict(state), model_cfg, SpectConfig(),
+                    DEFAULT_LABELS)
+    return path, model_cfg
+
+
+def phase_gru_parity(torch, np, tmp):
+    """5 x BiGRU-1024 and 5 x GRU-1024 + Lookahead 20 against
+    tests/fixtures/golden_gru.npz (dsjax's posteriors), loaded as a user
+    loads a checkpoint."""
+    from dsjax_torch.inference import load_model
+    from dsjax_torch.ops import gru
+    from tests.golden_gru import GOLDEN_TOL, gru_input
+
+    golden = np.load(os.path.join(ROOT, "tests", "fixtures", "golden_gru.npz"))
+    x, lengths = gru_input()
+    paths = {}
+    for name in ("bigru", "unigru"):
+        path, model_cfg = gru_checkpoint(tmp, name)
+        paths[name] = (path, model_cfg)
+        bundle = load_model(path, device="cuda")
+        before = gru.LAUNCHES
+        probs, out_lens, carry = bundle.forward(x, lengths)
+        torch.cuda.synchronize()
+        launched = gru.LAUNCHES - before
+        check(launched == model_cfg.hidden_layers,
+              f"{name}: {launched} gru_fwd launches for {model_cfg.hidden_layers} layers")
+        check(all(len(c) == 1 for c in carry), f"{name}: the carry is not (h,) per layer")
+        probs, out_lens = probs.cpu().numpy(), out_lens.cpu().numpy()
+        check(np.array_equal(out_lens, golden[f"{name}_out_lens"]), f"{name} out_lens {out_lens}")
+        check(bool(np.isfinite(probs).all()), f"{name} probs not finite")
+        err = 0.0
+        for i, n in enumerate(out_lens):
+            want = golden[f"{name}_probs"][i, :n]
+            e = np.abs(probs[i, :n] - want)
+            check(bool((e <= GOLDEN_TOL[0] + GOLDEN_TOL[1] * np.abs(want)).all()),
+                  f"{name} probs row {i}: max err {e.max()} over {GOLDEN_TOL}")
+            err = max(err, float(e.max()))
+        print(f"parity {name} ({model_cfg}) f32 probs {probs.shape} vs golden_gru.npz: "
+              f"max_abs_err {err!r} (atol {GOLDEN_TOL[0]}, rtol {GOLDEN_TOL[1]}); gru_fwd "
+              f"launches {launched}")
+        del bundle
+    return paths
+
+
+def stream_direct(worker, chunks, np):
+    """What a /stream session computes, straight through ModelBundle.forward:
+    running feature statistics over the frames so far, the carry passed
+    along, greedy collapse across chunks (dsjax_torch/server.py:stream_chunk)."""
+    from dsjax_torch.audio.features import spectrogram_np
+
+    cfg, dec = worker.bundle.spect_cfg, worker.decoder
+    total = total_sq = 0.0
+    count, carry, prev, text = 0, None, dec.blank_index, ""
+    for y in chunks:
+        raw = spectrogram_np(y, cfg, normalize=False)
+        total += float(raw.astype(np.float64).sum())
+        total_sq += float((raw.astype(np.float64) ** 2).sum())
+        count += raw.size
+        mean = total / count
+        std = max(np.sqrt(max((total_sq - count * mean * mean) / max(count - 1, 1), 0.0)), 1e-10)
+        spect = ((raw - mean) / std)[None].astype(np.float32)
+        t_true = spect.shape[2]
+        spect = np.pad(spect, ((0, 0), (0, 0), (0, (t_true + 63) // 64 * 64 - t_true)))
+        probs, out_lens, carry = worker.bundle.forward(spect, [t_true], carry)
+        for lbl in probs[0, : int(out_lens[0])].argmax(dim=-1).tolist():
+            if lbl != dec.blank_index and lbl != prev:
+                text += dec.int_to_char[lbl]
+            prev = lbl
+    return text
+
+
+def phase_gru_serving(torch, np, paths, gpu_name):
+    """The server on the 5 x BiGRU-1024 checkpoint answering 8 concurrent
+    /transcribe requests, and on the 5 x GRU-1024 + Lookahead checkpoint a
+    /stream session of 1 s chunks; exact K4 launch counts over both."""
+    from dsjax_torch.config import ServerConfig, compose
+    from dsjax_torch.ops import gru
+    from dsjax_torch.server import serve, shutdown
+
+    rng = np.random.default_rng(23)
+    seconds = [round(float(s), 2) for s in rng.uniform(1.0, 10.0, 8)]
+    ys = [synth(rng, np, s) for s in seconds]
+    stream_ys = [synth(rng, np, 1.0) for _ in range(5)]
+    reset_counts()
+    cfg = compose(ServerConfig, [f"model.model_path={paths['bigru'][0]}", "host=127.0.0.1",
+                                 "port=0", "device=cuda", "max_batch=8", "batch_timeout_ms=2000",
+                                 "warmup_seconds=10"])
+    server, worker = serve(cfg)
+    try:
+        port = server.server_address[1]
+        results = [None] * len(ys)
+
+        def client(i):
+            results[i] = post(port, "/transcribe", ys[i])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(ys))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            check(not t.is_alive(), "a GRU /transcribe request hung")
+        for (status, payload, _), s in zip(results, seconds):
+            check(status == 200, f"GRU /transcribe ({s} s) -> {status} {payload}")
+        want = direct_transcripts(worker, ys, np)
+        got = [r[1]["output"][0]["transcription"] for r in results]
+        check(got == want, f"GRU /transcribe differs from the direct forward:\n{got}\n{want}")
+        bi_forwards = cfg.max_batch.bit_length() + 1 + 1       # warmups, the batch, direct
+    finally:
+        shutdown(server, worker)
+    layers = paths["bigru"][1].hidden_layers
+    cfg = compose(ServerConfig, [f"model.model_path={paths['unigru'][0]}", "host=127.0.0.1",
+                                 "port=0", "device=cuda", "max_batch=1", "warmup_seconds=1"])
+    server, worker = serve(cfg)
+    try:
+        port = server.server_address[1]
+        stream = [post(port, f"/stream?session=uni&final={int(i == len(stream_ys) - 1)}", y)
+                  for i, y in enumerate(stream_ys)]
+        for status, payload, _ in stream:
+            check(status == 200 and isinstance(payload.get("transcription"), str),
+                  f"GRU /stream -> {status} {payload}")
+        direct = stream_direct(worker, stream_ys, np)
+        check(stream[-1][1]["transcription"] == direct,
+              f"the unidirectional /stream transcript {stream[-1][1]['transcription']!r} differs "
+              f"from the direct chunked forward {direct!r}")
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        shutdown(server, worker)
+    uni_forwards = 1 + 2 * len(stream_ys)                         # warmup, session, direct
+    want_k4 = (bi_forwards + uni_forwards) * layers
+    check(counts["gru_fwd"] == want_k4 and counts["lstm_fwd"] == 0,
+          f"GRU serving launches {counts}, expected {want_k4} gru_fwd "
+          f"({bi_forwards} + {uni_forwards} forwards x {layers} layers)")
+    lat = sorted(r[2] for r in results)
+    print(f"GRU serving on {gpu_name}: 5 x BiGRU-1024, 8 concurrent /transcribe of {seconds} s: "
+          f"p50 {statistics.median(lat)!r} ms, max {lat[-1]!r} ms, equal to the direct forward; "
+          f"5 x GRU-1024 + Lookahead 20 /stream of {len(stream_ys)} 1 s chunks: "
+          f"{[round(s[2], 3) for s in stream]} ms, transcript equal to the direct chunked "
+          f"forward; gru_fwd launches {counts['gru_fwd']} ({bi_forwards} + {uni_forwards} "
+          f"forwards x {layers} layers), {counts['gru_steps']} step kernels")
+    return counts
+
+
+def phase_mm_chain(torch, np):
+    """K8: tools/lstm_microbench.py:_mm_kernel -> dsjax_torch/csrc/mm_chain.cu,
+    at the microbench's shapes (T=512, B=64, H=1024, bf16), then the
+    microbench tool itself (its main path) with K8's launches counted."""
+    import importlib.util
+
+    from dsjax_torch.ops import mm_chain
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_lstm_microbench", os.path.join(ROOT, "tools", "torch_lstm_microbench.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+
+    rng = np.random.default_rng(24)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to("cuda", torch.bfloat16)
+    xp = bf(rng.standard_normal((TRAIN_T, TRAIN_B, 4 * H)))
+    w = bf(rng.standard_normal((H, 4 * H)) * 0.01)
+    h0 = bf(rng.standard_normal((TRAIN_B, H)))
+    got = mm_chain.mm_chain(xp, w, h0)
+    want = mm_chain.mm_chain_reference(xp, w, h0)
+    torch.cuda.synchronize()
+    err = check_all(torch, got, want, BWD_TOLERANCE["bfloat16"], "K8")
+    k_ms = cuda_time(lambda: mm_chain.mm_chain(xp, w, h0), 10)
+    p_ms = cuda_time(lambda: mm_chain.mm_chain_reference(xp, w, h0), 3)
+    bound_ms, bound_by = least_time(2.0 * TRAIN_B * H * 4 * H * TRAIN_T,
+                                    nbytes(xp, w, h0, *got), "bfloat16")
+    print(f"kernel mm_chain (K8) bf16 T={TRAIN_T} B={TRAIN_B} H={H}: max_abs_err {err!r} (atol "
+          f"{BWD_TOLERANCE['bfloat16'][0]}, rtol {BWD_TOLERANCE['bfloat16'][1]}); kernel "
+          f"{k_ms!r} ms ({k_ms * 1e3 / TRAIN_T!r} us/step), plain {p_ms!r} ms (median, CUDA "
+          f"events); bound {bound_ms!r} ms ({bound_by})")
+    reset_counts()
+    bench = tool.run(TRAIN_B, H, TRAIN_T, reps=5, log=lambda line: print(f"microbench: {line}"))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["mm_chain"] == 8, f"microbench: {counts['mm_chain']} mm_chain launches, "
+                                   f"expected 8 (5 timed, 1 profiled, 2 warm-ups)")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "launches": counts["mm_chain"],
+            "microbench": bench}
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -909,38 +1401,68 @@ def run(torch, np):
           "TF32 off)")
     eval_runs = phase_evaluation(torch, np, state, model_cfg, gpu_name, full_fp32, defaults_back)
     phase_beam_serving(torch, np, state, model_cfg, gpu_name)
+    del state
+    full_fp32()
+    print("GRU kernel and parity phases: TF32 off")
+    gru_kernel = phase_gru_kernel(torch, np)
+    gru_train_kernels = phase_gru_train_kernels(torch, np)
+    phase_gru_gradients(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = phase_gru_parity(torch, np, tmp)
+        defaults_back()
+        print("GRU serving and training phases: PyTorch defaults")
+        gru_serving = phase_gru_serving(torch, np, paths, gpu_name)
+    gru_train_launches = phase_training(torch, np, gpu_name, card, rnn="gru", epochs=1)
+    full_fp32()
+    k8 = phase_mm_chain(torch, np)
+    defaults_back()
 
-    f32 = kernel["float32"]
-    rows = [{"name": "lstm_fwd", "route": "cuda", "source": "dsjax_torch/csrc/lstm_fwd.cu",
-             "replaces": "dsjax/ops/lstm_pallas.py:62", "launches": launches,
-             "step_launches": step_launches, "launches_in_training": train_launches["lstm_fwd"],
-             "launches_in_evaluation": eval_runs["greedy"]["counts"]["lstm_fwd"],
-             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"], "plain_ms": f32["plain_ms"]}]
+    def row(name, source, replaces, launches, res, **extra):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, **{k: res[k] for k in keys}, **extra}
+
+    def bf16_extra(res):
+        return {"bf16_max_abs_err": res["max_abs_err"], "bf16_ms": res["ms"],
+                "bf16_plain_ms": res["plain_ms"], "bf16_bound_ms": res["bound_ms"]}
+
+    rows = [row("lstm_fwd", "dsjax_torch/csrc/lstm_fwd.cu", "dsjax/ops/lstm_pallas.py:62",
+                launches, kernel["float32"], step_launches=step_launches,
+                launches_in_training=train_launches["lstm_fwd"],
+                launches_in_evaluation=eval_runs["greedy"]["counts"]["lstm_fwd"],
+                **bf16_extra(kernel["bfloat16"]))]
     for key, name, source, replaces in (
             ("fwd", "lstm_fwd_residuals", "dsjax_torch/csrc/lstm_fwd.cu",
              "dsjax/ops/lstm_pallas.py:381"),
             ("bwd", "lstm_bwd", "dsjax_torch/csrc/lstm_bwd.cu",
              "dsjax/ops/lstm_pallas.py:225")):
-        r32, r16 = train_kernels[(key, "float32")], train_kernels[(key, "bfloat16")]
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": train_launches[name], "max_abs_err": r32["max_abs_err"],
-                     "ms": r32["ms"], "plain_ms": r32["plain_ms"],
-                     "bf16_max_abs_err": r16["max_abs_err"], "bf16_ms": r16["ms"],
-                     "bf16_plain_ms": r16["plain_ms"]})
+        rows.append(row(name, source, replaces, train_launches[name],
+                        train_kernels[(key, "float32")],
+                        **bf16_extra(train_kernels[(key, "bfloat16")])))
     first_topk, first_beam = TOPK_SHAPES[0], BEAM_SHAPES[0]
-    k6 = topk_res[f"({first_topk[0]}, {first_topk[1]}) -> {first_topk[2]}"]
-    rows.append({"name": "topk", "route": "cuda", "source": "dsjax_torch/csrc/topk.cu",
-                 "replaces": "dsjax/ops/topk_pallas.py:139",
-                 "launches": eval_runs["beam, scan with K6"]["counts"]["topk"],
-                 "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"],
-                 "shapes": topk_res})
+    rows.append(row("topk", "dsjax_torch/csrc/topk.cu", "dsjax/ops/topk_pallas.py:139",
+                    eval_runs["beam, scan with K6"]["counts"]["topk"],
+                    topk_res[f"({first_topk[0]}, {first_topk[1]}) -> {first_topk[2]}"],
+                    shapes=topk_res))
     b, t, w, c = first_beam
-    k7 = beam_res[f"B={b} T={t} W={w} C={c}"]
-    rows.append({"name": "beam_scan", "route": "cuda", "source": "dsjax_torch/csrc/beam_scan.cu",
-                 "replaces": "dsjax/ops/beam_pallas.py:121",
-                 "launches": eval_runs["beam, K7"]["counts"]["beam_scan"],
-                 "max_abs_err": k7["max_abs_err"], "ms": k7["ms"], "plain_ms": k7["plain_ms"],
-                 "shapes": beam_res})
+    rows.append(row("beam_scan", "dsjax_torch/csrc/beam_scan.cu", "dsjax/ops/beam_pallas.py:121",
+                    eval_runs["beam, K7"]["counts"]["beam_scan"],
+                    beam_res[f"B={b} T={t} W={w} C={c}"], shapes=beam_res))
+    rows.append(row("gru_fwd", "dsjax_torch/csrc/gru_fwd.cu", "dsjax/ops/gru_pallas.py:40",
+                    gru_serving["gru_fwd"], gru_kernel["float32"],
+                    step_launches=gru_serving["gru_steps"],
+                    launches_in_training=gru_train_launches["gru_fwd"],
+                    one_direction_ms=gru_kernel["float32"]["one_direction_ms"],
+                    **bf16_extra(gru_kernel["bfloat16"])))
+    for key, name, source, replaces in (
+            ("fwd", "gru_fwd_residuals", "dsjax_torch/csrc/gru_fwd.cu",
+             "dsjax/ops/gru_pallas.py:293"),
+            ("bwd", "gru_bwd", "dsjax_torch/csrc/gru_bwd.cu", "dsjax/ops/gru_pallas.py:161")):
+        rows.append(row(name, source, replaces,
+                        gru_train_launches[name], gru_train_kernels[(key, "float32")],
+                        **bf16_extra(gru_train_kernels[(key, "bfloat16")])))
+    rows.append(row("mm_chain", "dsjax_torch/csrc/mm_chain.cu", "tools/lstm_microbench.py:100",
+                    k8["launches"], k8, microbench=k8["microbench"]))
     print(json.dumps({"kernels": rows}))
     return gpu_name
 

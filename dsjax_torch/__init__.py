@@ -6,15 +6,17 @@ dsjax module of the same name and is held against it by a CPU test
 kernels become kernels written by hand for sm_90a under ``csrc/``, built
 with nvcc at first use (``dsjax_torch.ops._build``).
 
-Three paths are ported:
-  * serving: host STFT features, the DeepSpeech2 forward with bidirectional
-    LSTM layers (the recurrence runs in ``csrc/lstm_fwd.cu``), greedy or
-    beam CTC decoding and the HTTP server
+Three paths are ported, for every model dsjax supports (LSTM, GRU or
+vanilla RNN layers; bidirectional, or unidirectional with Lookahead):
+  * serving: host STFT features, the DeepSpeech2 forward (the LSTM and GRU
+    recurrences run in ``csrc/lstm_fwd.cu`` and ``csrc/gru_fwd.cu``),
+    greedy or beam CTC decoding and the HTTP server
     (``python -m dsjax_torch.server model.model_path=...``);
   * training, with the STFT on the device from raw audio or on the host:
-    CTC, the backward through the LSTM layers (``csrc/lstm_fwd.cu`` saving
-    residuals, ``csrc/lstm_bwd.cu``), AdamW or SGD, validation and
-    checkpoints the server loads (``python -m dsjax_torch.train ...``);
+    CTC, the backward through the recurrent layers (the forwards saving
+    residuals, ``csrc/lstm_bwd.cu`` and ``csrc/gru_bwd.cu``), AdamW or SGD,
+    validation and checkpoints the server loads
+    (``python -m dsjax_torch.train ...``);
   * evaluation and transcription (``python -m dsjax_torch.evaluate ...``,
     ``python -m dsjax_torch.transcribe ...``): WER/CER over a manifest and
     the result JSON of a file, greedy or with the device beam search
@@ -36,6 +38,7 @@ def __getattr__(name):
         "ModelBundle": ("dsjax_torch.inference", "ModelBundle"),
         "load_model": ("dsjax_torch.inference", "load_model"),
         "lstm_scan": ("dsjax_torch.ops.lstm", "lstm_scan"),
+        "gru_scan": ("dsjax_torch.ops.gru", "gru_scan"),
         "ServerConfig": ("dsjax_torch.config", "ServerConfig"),
         "TrainConfig": ("dsjax_torch.config", "TrainConfig"),
         "Trainer": ("dsjax_torch.train.loop", "Trainer"),

@@ -2,8 +2,8 @@
 
 Copy of the host half of dsjax/audio/io.py (numpy/scipy; held against it
 by tests/test_torch_frontend.py). FLAC and compressed formats decode through
-dsjax's native library (``dsjax.cpp``), imported only when such a file is
-read; it needs no JAX.
+the port's native host library (``dsjax_torch.audio.native``, copies of
+dsjax's C++ decoders), built at the first such file.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 from scipy import signal as sps
+
+from dsjax_torch.audio import native
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -86,16 +88,12 @@ _COMPRESSED_EXTS = {".mp3", ".ogg", ".oga", ".opus", ".webm", ".mka", ".mkv"}
 def load_audio(path: str, sample_rate: Optional[int] = None) -> np.ndarray:
     """Load audio as mono float32, averaging channels; optionally resample
     to ``sample_rate``. WAV via the reader above; FLAC and mp3/ogg/opus/webm
-    via dsjax's native decoders."""
+    via the native decoders of ``dsjax_torch.audio.native``."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".flac":
-        from dsjax.cpp.flac_binding import decode_flac
-
-        y, sr = decode_flac(path)
+        y, sr = native.decode_flac(path)
     elif ext in _COMPRESSED_EXTS:
-        from dsjax.cpp.audio_binding import decode_file
-
-        y, sr = decode_file(path)
+        y, sr = native.decode_file(path)
     else:
         x, sr = read_wav(path)
         y = x[0] if x.shape[0] == 1 else x.mean(axis=0)

@@ -4,14 +4,18 @@ The reference layout is deepspeech.pytorch's module tree (the layout of its
 ``.ckpt`` files, of ``tests/golden_flagship.py:flagship_state`` and of
 ``tests/torch_twin.py:export_reference_state_dict``). dsjax keeps the same
 weights as flax trees (``dsjax/model/torch_import.py:convert_state_dict``:
-HWIO convs, (in, 4H) recurrent matrices). The port keeps torch's layouts and
-stacks the two directions of a layer:
+HWIO convs, (in, G*H) recurrent matrices). The port keeps torch's layouts and
+stacks the D directions of a layer (2, or 1 for the unidirectional model):
 
   conv.conv{1,2}.weight (O, I, kF, kT), .bias    conv.bn{1,2}.*
-  rnns.{i}.weight_ih (D, 4H, in)  .weight_hh (D, 4H, H)  .bias_ih/.bias_hh (D, 4H)
-  rnn_bns.{i-1}.*  (the BatchNorm before layer i)  fc_bn.*  fc.weight (C, H)
+  rnns.{i}.weight_ih (D, G*H, in)  .weight_hh (D, G*H, H)  .bias_ih/.bias_hh (D, G*H)
+  rnn_bns.{i-1}.*  (the BatchNorm before layer i)
+  lookahead.weight (H, context)    (unidirectional only; the reference's
+                                    lookahead.0.conv.weight (H, 1, context))
+  fc_bn.*  fc.weight (C, H)
 
-BatchNorm entries are weight, bias, running_mean and running_var.
+G is 4 for LSTM, 3 for GRU and 1 for the vanilla RNN. BatchNorm entries are
+weight, bias, running_mean and running_var.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ _CONVS = (("conv1", "conv.seq_module.0", "bn1", "conv.seq_module.1"),
 _RNN = (("weight_ih", "weight_ih_l0"), ("weight_hh", "weight_hh_l0"),
         ("bias_ih", "bias_ih_l0"), ("bias_hh", "bias_hh_l0"))
 _SUFFIXES = ("", "_reverse")
+_LOOKAHEAD = "lookahead.0.conv.weight"
 
 
 def _t(a: Any) -> Tensor:
@@ -53,8 +58,7 @@ def infer_architecture(state: Mapping[str, Any]) -> Tuple[BiDirectionalConfig, i
         cfg = BiDirectionalConfig(rnn_type=rnn_type, hidden_size=hidden,
                                   hidden_layers=n_layers)
     else:
-        ctx = (state["lookahead.0.conv.weight"].shape[2]
-               if "lookahead.0.conv.weight" in state else 20)
+        ctx = state[_LOOKAHEAD].shape[2] if _LOOKAHEAD in state else 20
         cfg = UniDirectionalConfig(rnn_type=rnn_type, hidden_size=hidden,
                                    hidden_layers=n_layers, lookahead_context=ctx)
     return cfg, num_classes
@@ -63,9 +67,7 @@ def infer_architecture(state: Mapping[str, Any]) -> Tuple[BiDirectionalConfig, i
 def from_reference_state_dict(state: Mapping[str, Any]) -> Dict[str, Tensor]:
     """Reference state_dict (numpy arrays or tensors) -> the port's state_dict."""
     model_cfg, _ = infer_architecture(state)
-    if isinstance(model_cfg, UniDirectionalConfig):
-        raise NotImplementedError("the unidirectional model is not ported yet "
-                                  "(ROADMAP.md, Queue 1)")
+    suffixes = _SUFFIXES[:1] if isinstance(model_cfg, UniDirectionalConfig) else _SUFFIXES
     out: Dict[str, Tensor] = {}
     for conv, ref_conv, bn, ref_bn in _CONVS:
         out[f"conv.{conv}.weight"] = _t(state[f"{ref_conv}.weight"])
@@ -75,10 +77,12 @@ def from_reference_state_dict(state: Mapping[str, Any]) -> Dict[str, Tensor]:
     for i in range(model_cfg.hidden_layers):
         for name, ref in _RNN:
             out[f"rnns.{i}.{name}"] = torch.stack(
-                [_t(state[f"rnns.{i}.rnn.{ref}{sfx}"]) for sfx in _SUFFIXES])
+                [_t(state[f"rnns.{i}.rnn.{ref}{sfx}"]) for sfx in suffixes])
         if i > 0:
             for k in _BN:
                 out[f"rnn_bns.{i - 1}.{k}"] = _t(state[f"rnns.{i}.batch_norm.module.{k}"])
+    if isinstance(model_cfg, UniDirectionalConfig):
+        out["lookahead.weight"] = _t(state[_LOOKAHEAD])[:, 0, :]
     for k in _BN:
         out[f"fc_bn.{k}"] = _t(state[f"fc.0.module.0.{k}"])
     out["fc.weight"] = _t(state["fc.0.module.1.weight"])
@@ -96,11 +100,14 @@ def to_reference_state_dict(state: Mapping[str, Tensor]) -> Dict[str, Tensor]:
     n_layers = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("rnns."))
     for i in range(n_layers):
         for name, ref in _RNN:
-            for d, sfx in enumerate(_SUFFIXES):
-                out[f"rnns.{i}.rnn.{ref}{sfx}"] = state[f"rnns.{i}.{name}"][d]
+            stacked = state[f"rnns.{i}.{name}"]
+            for d, sfx in zip(range(stacked.shape[0]), _SUFFIXES):
+                out[f"rnns.{i}.rnn.{ref}{sfx}"] = stacked[d]
         if i > 0:
             for k in _BN:
                 out[f"rnns.{i}.batch_norm.module.{k}"] = state[f"rnn_bns.{i - 1}.{k}"]
+    if "lookahead.weight" in state:
+        out[_LOOKAHEAD] = state["lookahead.weight"][:, None, :]
     for k in _BN:
         out[f"fc.0.module.0.{k}"] = state[f"fc_bn.{k}"]
     out["fc.0.module.1.weight"] = state["fc.weight"]
@@ -109,7 +116,8 @@ def to_reference_state_dict(state: Mapping[str, Tensor]) -> Dict[str, Tensor]:
 
 def from_dsjax_variables(variables: Mapping[str, Any]) -> Dict[str, Tensor]:
     """dsjax ``{"params": ..., "batch_stats": ...}`` trees (numpy or array
-    leaves) of a bidirectional LSTM DeepSpeech2 -> the port's state_dict."""
+    leaves) of a DeepSpeech2 (any rnn_type, bidirectional or with Lookahead)
+    -> the port's state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
 
     def bn(p: Mapping[str, Any], s: Mapping[str, Any]) -> List[Tensor]:
@@ -135,9 +143,23 @@ def from_dsjax_variables(variables: Mapping[str, Any]) -> Dict[str, Tensor]:
         if i > 0:
             for k, v in zip(_BN, bn(params[f"rnn{i}_bn"], stats[f"rnn{i}_bn"])):
                 out[f"rnn_bns.{i - 1}.{k}"] = v
+    if "lookahead" in params:
+        # dsjax's (H, context) kernel (dsjax/model/torch_import.py:259-261)
+        out["lookahead.weight"] = _t(params["lookahead"]["weight"])
     for k, v in zip(_BN, bn(params["fc_bn"], stats["fc_bn"])):
         out[f"fc_bn.{k}"] = v
     out["fc.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
+    return out
+
+
+def model_cfg_dict(model_cfg: BiDirectionalConfig) -> Dict[str, Any]:
+    """The hyper-parameters ``save_checkpoint`` records beside the weights:
+    rnn_type, widths, direction and (unidirectional) the Lookahead context."""
+    out = {"rnn_type": model_cfg.rnn_type.value, "hidden_size": model_cfg.hidden_size,
+           "hidden_layers": model_cfg.hidden_layers,
+           "bidirectional": not isinstance(model_cfg, UniDirectionalConfig)}
+    if isinstance(model_cfg, UniDirectionalConfig):
+        out["lookahead_context"] = model_cfg.lookahead_context
     return out
 
 
@@ -158,8 +180,6 @@ def save_checkpoint(path: str, state_dict: Mapping[str, Tensor],
                           "window_size": spect_cfg.window_size,
                           "window_stride": spect_cfg.window_stride,
                           "window": spect_cfg.window.value},
-            "model_cfg": {"rnn_type": model_cfg.rnn_type.value,
-                          "hidden_size": model_cfg.hidden_size,
-                          "hidden_layers": model_cfg.hidden_layers},
+            "model_cfg": model_cfg_dict(model_cfg),
         },
     }, path)

@@ -1,9 +1,11 @@
 """DeepSpeech2 acoustic model in PyTorch: the counterpart of dsjax/model/ds2.py.
 
-Conv frontend with per-module length masking, N bidirectional LSTM layers
-with sequence-wise BatchNorm and summed directions, a BatchNorm + bias-free
-Linear head, and softmax in eval mode. The RNN carry goes in and out per
-layer, so chunked streaming continues the state across calls.
+Conv frontend with per-module length masking, N recurrent layers (LSTM,
+GRU or vanilla tanh RNN; bidirectional with summed directions, or one
+direction followed by the Lookahead convolution) with sequence-wise
+BatchNorm, a BatchNorm + bias-free Linear head, and softmax in eval mode.
+The RNN carry goes in and out per layer, so chunked streaming continues the
+state across calls.
 
 Layouts at the public functions are dsjax's: spectrograms (B, F, T), time
 major (T, B, .) inside the recurrent layers, posteriors (B, T', C). The
@@ -13,11 +15,10 @@ c * F' + f, as in dsjax and the reference.
 Parameters live in float32; ``dtype`` is the compute dtype (bfloat16 for
 ``precision=16``), cast at use as dsjax does. Each recurrent layer projects
 the inputs of all time steps in one matrix product and runs only the
-recurrence in ``dsjax_torch.ops.lstm.lstm_scan``, the CUDA kernel on CUDA
-tensors.
-
-Not ported yet (ROADMAP.md, Queue 1): GRU and vanilla RNN layers, and the
-unidirectional model with Lookahead.
+recurrence: LSTM in ``dsjax_torch.ops.lstm.lstm_scan`` and GRU in
+``dsjax_torch.ops.gru.gru_scan``, CUDA kernels on CUDA tensors. The vanilla
+RNN has no kernel in dsjax (a plain ``lax.scan``, dsjax/model/ds2.py:306-313),
+so here it is a plain per-step loop (``rnn_scan``) on every device.
 """
 
 from __future__ import annotations
@@ -31,12 +32,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from dsjax_torch.config import BiDirectionalConfig, RNNType, SpectConfig, UniDirectionalConfig
-from dsjax_torch.ops.lstm import lstm_scan
+from dsjax_torch.ops.gru import gru_scan
+from dsjax_torch.ops.lstm import _flip, lstm_scan
 
 Tensor = torch.Tensor
-Carry = Tuple[Tensor, Tensor]      # (h, c), each (D, B, H)
+Carry = Tuple[Tensor, ...]         # LSTM (h, c), GRU and RNN (h,), each (D, B, H)
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1: GRU, RNN and Lookahead)"
+GATES = {RNNType.lstm: 4, RNNType.gru: 3, RNNType.rnn: 1}
 
 
 def get_seq_lens(lengths: Tensor) -> Tensor:
@@ -149,23 +151,49 @@ class ConvFrontend(nn.Module):
         return x, out_lengths
 
 
+def rnn_scan(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tensor,
+             reverse: Sequence[bool]) -> Tuple[Tensor, Tensor]:
+    """The vanilla tanh RNN's masked recurrence, in ``lstm_scan``'s layout
+    (xp (D, T, B, H), w_hh (D, H, H), b_hh (D, H), h0 (D, B, H)): a plain
+    per-step loop on every device, in the working dtype as dsjax's
+    ``lax.scan`` step computes it (dsjax/model/ds2.py:306-313); dsjax has no
+    kernel for it. Returns (y (D, T, B, H), h_T (D, B, H))."""
+    ys, hs = [], []
+    m_all = mask.to(xp.dtype)
+    for d, rev in enumerate(reverse):
+        x_d, m_d = _flip(xp[d], rev), _flip(m_all, rev)
+        w_t, b, h = w_hh[d].t(), b_hh[d], h0[d]
+        out = []
+        for t in range(x_d.shape[0]):
+            h_new = torch.tanh(x_d[t] + h @ w_t + b)
+            m = m_d[t][:, None]
+            h = m * h_new + (1 - m) * h
+            out.append(h_new * m)
+        y = torch.stack(out) if out else x_d.new_zeros((0,) + h.shape)
+        ys.append(_flip(y, rev))
+        hs.append(h)
+    return torch.stack(ys), torch.stack(hs)
+
+
 class RecurrentLayer(nn.Module):
-    """One bidirectional LSTM layer with a masked scan.
+    """One recurrent layer (LSTM, GRU or vanilla RNN) with a masked scan,
+    bidirectional (directions summed) or forward only.
 
     Weights are stacked by direction (0 forward, 1 backward) in torch's
-    layout: weight_ih (2, 4H, in), weight_hh (2, 4H, H), gate order
-    i, f, g, o. The directions' outputs are summed. The returned carry holds
-    each direction's (h, c) at each utterance's true end.
+    layout: weight_ih (D, G * H, in), weight_hh (D, G * H, H), gate order
+    i, f, g, o (LSTM) or r, z, n (GRU), G the number of gates. The returned
+    carry holds each direction's (h, c) (LSTM) or (h,) at each utterance's
+    true end.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
-                 rnn_type: RNNType = RNNType.lstm, dtype: torch.dtype = torch.float32):
+                 rnn_type: RNNType = RNNType.lstm, bidirectional: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if rnn_type != RNNType.lstm:
-            raise NotImplementedError(f"rnn_type={rnn_type.value} {_NOT_PORTED}")
         self.input_size, self.hidden_size, self.dtype = input_size, hidden_size, dtype
-        self.reverse = (False, True)
-        d, g = len(self.reverse), 4 * hidden_size
+        self.rnn_type = RNNType(rnn_type)
+        self.reverse = (False, True) if bidirectional else (False,)
+        d, g = len(self.reverse), GATES[self.rnn_type] * hidden_size
         self.weight_ih = nn.Parameter(torch.empty(d, g, input_size))
         self.weight_hh = nn.Parameter(torch.empty(d, g, hidden_size))
         self.bias_ih = nn.Parameter(torch.empty(d, g))
@@ -181,14 +209,33 @@ class RecurrentLayer(nn.Module):
                           self.weight_ih.to(dt).transpose(1, 2))
         xp = (xp + self.bias_ih.to(dt)[:, None, :]).reshape(n_dir, n_t, n_b, -1)
         mask = (torch.arange(n_t, device=x.device)[:, None] < lengths[None, :]).float()
+        n_state = 2 if self.rnn_type == RNNType.lstm else 1
         if carry is None:
-            h0 = torch.zeros((n_dir, n_b, self.hidden_size), dtype=dt, device=x.device)
-            c0 = torch.zeros_like(h0)
+            state = tuple(torch.zeros((n_dir, n_b, self.hidden_size), dtype=dt, device=x.device)
+                          for _ in range(n_state))
         else:
-            h0, c0 = (s.to(dt).contiguous() for s in carry)
-        y, h_t, c_t = lstm_scan(xp, mask, self.weight_hh.to(dt).contiguous(),
-                                self.bias_hh.to(dt).contiguous(), h0, c0, self.reverse)
-        return y[0] + y[1], (h_t, c_t)
+            state = tuple(s.to(dt).contiguous() for s in carry)
+        w_hh, b_hh = self.weight_hh.to(dt).contiguous(), self.bias_hh.to(dt).contiguous()
+        scan = {RNNType.lstm: lstm_scan, RNNType.gru: gru_scan, RNNType.rnn: rnn_scan}
+        y, *state = scan[self.rnn_type](xp, mask, w_hh, b_hh, *state, self.reverse)
+        return (y[0] if n_dir == 1 else y[0] + y[1]), tuple(state)
+
+
+class Lookahead(nn.Module):
+    """Depthwise convolution over future frames (dsjax/model/ds2.py:350-374;
+    Wang et al. 2016): y[t, f] = sum_j w[f, j] * x[t + j, f], right-padded by
+    context - 1, no bias. Input and output (T, B, F). dsjax computes it
+    outside any Pallas kernel, so here it is ``F.conv1d(groups=F)``."""
+
+    def __init__(self, n_features: int, context: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.context, self.dtype = context, dtype
+        self.weight = nn.Parameter(torch.empty(n_features, context))
+
+    def forward(self, x: Tensor) -> Tensor:
+        xt = F.pad(x.to(self.dtype).permute(1, 2, 0), (0, self.context - 1))   # (B, F, T+c-1)
+        y = F.conv1d(xt, self.weight.to(self.dtype)[:, None, :], groups=self.weight.shape[0])
+        return y.permute(2, 0, 1)
 
 
 class Linear(nn.Module):
@@ -210,30 +257,34 @@ class DeepSpeech2(nn.Module):
     ``forward(x, lengths, carry=None)`` takes (B, F, T) spectrograms (or the
     reference's (B, 1, F, T)) and frame lengths and returns
     (out (B, T', C), out_lengths (B,), carry): raw logits in training mode,
-    float32 softmax probabilities in eval mode. ``carry`` is one (h, c) pair
-    per layer, as returned by the previous call.
+    float32 softmax probabilities in eval mode. ``carry`` is one tuple per
+    layer, (h, c) for LSTM and (h,) for GRU and RNN, as returned by the
+    previous call.
 
-    ``rnn_bns[i - 1]`` is the sequence-wise BatchNorm before layer i >= 1.
-    ``generator`` seeds the initial weights; loading a state dict replaces
-    them.
+    A ``UniDirectionalConfig`` builds the streaming model: one direction per
+    layer, then ``lookahead`` (context ``lookahead_context``) and a hardtanh
+    before the head (dsjax/model/ds2.py:428-431). ``rnn_bns[i - 1]`` is the
+    sequence-wise BatchNorm before layer i >= 1. ``generator`` seeds the
+    initial weights; loading a state dict replaces them.
     """
 
     def __init__(self, num_classes: int, spect_cfg: SpectConfig,
                  model_cfg: BiDirectionalConfig, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if isinstance(model_cfg, UniDirectionalConfig):
-            raise NotImplementedError(f"the unidirectional model with Lookahead {_NOT_PORTED}")
         self.num_classes, self.spect_cfg, self.model_cfg = num_classes, spect_cfg, model_cfg
         self.dtype = dtype
+        self.bidirectional = not isinstance(model_cfg, UniDirectionalConfig)
         h, n_layers = model_cfg.hidden_size, model_cfg.hidden_layers
         self.conv = ConvFrontend(dtype)
         self.rnns = nn.ModuleList(
             RecurrentLayer(rnn_input_size(spect_cfg) if i == 0 else h, h,
-                           model_cfg.rnn_type, dtype)
+                           model_cfg.rnn_type, self.bidirectional, dtype)
             for i in range(n_layers))
         self.rnn_bns = nn.ModuleList(
             TorchBatchNorm(h, axes=(0, 1), dtype=dtype) for _ in range(n_layers - 1))
+        self.lookahead = (None if self.bidirectional
+                          else Lookahead(h, model_cfg.lookahead_context, dtype))
         self.fc_bn = TorchBatchNorm(h, axes=(0, 1), dtype=dtype)
         self.fc = Linear(h, num_classes, dtype)
         self.reset_parameters(generator)
@@ -241,8 +292,8 @@ class DeepSpeech2(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """dsjax's initializers: LeCun normal for convs and the head, zero
-        conv bias, U(-1/sqrt(H), 1/sqrt(H)) for the recurrent layers, unit
-        BatchNorm."""
+        conv bias, U(-1/sqrt(H), 1/sqrt(H)) for the recurrent layers, He
+        uniform for the Lookahead, unit BatchNorm."""
         for conv in (self.conv.conv1, self.conv.conv2):
             fan_in = conv.weight[0].numel()
             conv.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
@@ -251,6 +302,10 @@ class DeepSpeech2(nn.Module):
         for rnn in self.rnns:
             for p in (rnn.weight_ih, rnn.weight_hh, rnn.bias_ih, rnn.bias_hh):
                 p.uniform_(-bound, bound, generator=generator)
+        if self.lookahead is not None:
+            # flax's kaiming_uniform on the (H, context) kernel: fan_in H
+            limit = (6.0 / self.model_cfg.hidden_size) ** 0.5
+            self.lookahead.weight.uniform_(-limit, limit, generator=generator)
         self.fc.weight.normal_(0.0, self.model_cfg.hidden_size ** -0.5, generator=generator)
 
     def forward(self, x: Tensor, lengths: Tensor,
@@ -269,6 +324,8 @@ class DeepSpeech2(nn.Module):
                 x = self.rnn_bns[i - 1](x)
             x, c = rnn(x, out_lengths, carry[i] if carry is not None else None)
             new_carry.append(c)
+        if self.lookahead is not None:
+            x = hardtanh_0_20(self.lookahead(x))
         x = self.fc(self.fc_bn(x)).transpose(0, 1)               # (B, T', C)
         if not self.training:
             x = torch.softmax(x.float(), dim=-1)

@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PACKAGE_DIR / "csrc"
@@ -59,40 +59,51 @@ def find_nvcc() -> str:
                        "build dsjax_torch's CUDA kernels")
 
 
+def stamped_build(lib_path: Path, digest: str, make: Callable[[str, str], None],
+                  force: bool = False) -> Path:
+    """Build ``lib_path`` with ``make(work_dir, out_path)`` unless a build
+    stamped with ``digest`` (a SHA-256 of its sources and flags, kept beside
+    it) exists. The library is made in a temporary directory and renamed
+    into place, so a concurrent process never loads a half-written one."""
+    stamp = lib_path.with_name(lib_path.name + ".sha256")
+    if (not force and lib_path.is_file() and stamp.is_file()
+            and stamp.read_text().strip() == digest):
+        return lib_path
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=lib_path.parent) as work:
+        tmp = os.path.join(work, lib_path.name)
+        make(work, tmp)
+        os.replace(tmp, lib_path)
+    stamp.write_text(digest + "\n")
+    return lib_path
+
+
+def run_all(commands: List[List[str]]) -> None:
+    """Run the commands at once; raise with the output of each that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in commands]
+    failed = []
+    for cmd, proc in zip(commands, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(cmd[0])} failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(force: bool = False) -> Path:
     """Compile the sources into LIB_PATH unless an up-to-date build exists."""
-    digest = source_hash()
-    stamp = LIB_PATH.with_name(LIB_PATH.name + ".sha256")
-    if (not force and LIB_PATH.is_file() and stamp.is_file()
-            and stamp.read_text().strip() == digest):
-        return LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = find_nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+
+    def make(work: str, out: str) -> None:
+        nvcc = find_nvcc()
         cu_files = sorted(SRC_DIR.glob("*.cu"))
         objects = [os.path.join(work, p.stem + ".o") for p in cu_files]
-        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                    for obj, src in zip(objects, cu_files)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True) for cmd in compiles]
-        failed = []
-        for cmd, proc in zip(compiles, procs):
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        # link beside the target, then rename: a concurrent process never
-        # loads a half-written library
-        tmp = os.path.join(work, LIB_PATH.name)
-        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, LIB_PATH)
-    stamp.write_text(digest + "\n")
-    return LIB_PATH
+        run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                 for obj, src in zip(objects, cu_files)])
+        run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objects]])
+
+    return stamped_build(LIB_PATH, source_hash(), make, force)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -101,6 +112,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dsjax_torch_lstm_fwd.restype = i
     lib.dsjax_torch_lstm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_lstm_bwd.restype = i
+    lib.dsjax_torch_gru_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsjax_torch_gru_fwd.restype = i
+    lib.dsjax_torch_gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsjax_torch_gru_bwd.restype = i
+    lib.dsjax_torch_mm_chain.argtypes = [p, p, p, p, i, i, i, p]
+    lib.dsjax_torch_mm_chain.restype = i
     lib.dsjax_torch_topk.argtypes = [p, p, p, i, i, i, p]
     lib.dsjax_torch_topk.restype = i
     lib.dsjax_torch_beam_scan.argtypes = [p] * 23 + [i] * 5 + [p]

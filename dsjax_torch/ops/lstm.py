@@ -158,24 +158,27 @@ def lstm_scan_backward_reference(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: 
     return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
-def _check(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tensor,
-           c0: Tensor, reverse: Sequence[bool]) -> None:
+def check_scan(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, carry: Sequence[Tensor],
+               reverse: Sequence[bool], gates: int, op: str) -> None:
+    """Raise on what a scan kernel does not take: xp (D, T, B, G*H) with G
+    ``gates`` columns a unit, w_hh (D, G*H, H), b_hh (D, G*H), each carry
+    (D, B, H), all in one working dtype; mask (T, B) f32; contiguous, on one
+    device, cuda or cpu. Shared by ``lstm_scan`` (G=4) and ``gru_scan`` (G=3)."""
     if xp.dim() != 4:
-        raise ValueError(f"xp must be (D, T, B, 4H), got {tuple(xp.shape)}")
-    n_dir, n_t, n_b, g4 = xp.shape
-    n_h = g4 // 4
+        raise ValueError(f"xp must be (D, T, B, {gates}H), got {tuple(xp.shape)}")
+    n_dir, n_t, n_b, g = xp.shape
+    n_h = g // gates
     if n_dir not in (1, 2) or len(reverse) != n_dir:
         raise ValueError(f"{n_dir} directions with reverse={tuple(reverse)}")
-    if g4 != 4 * n_h or n_h % 8 or n_h > MAX_HIDDEN:
-        raise ValueError(f"hidden size {g4 / 4} must be a multiple of 8 "
+    if g != gates * n_h or n_h % 8 or n_h > MAX_HIDDEN:
+        raise ValueError(f"hidden size {g / gates} must be a multiple of 8 "
                          f"and at most {MAX_HIDDEN}")
     if xp.dtype not in DTYPES:
         raise TypeError(f"xp dtype {xp.dtype} is not one of {DTYPES}")
-    expect = {"w_hh": (w_hh, (n_dir, g4, n_h), xp.dtype),
-              "b_hh": (b_hh, (n_dir, g4), xp.dtype),
-              "h0": (h0, (n_dir, n_b, n_h), xp.dtype),
-              "c0": (c0, (n_dir, n_b, n_h), xp.dtype),
+    expect = {"w_hh": (w_hh, (n_dir, g, n_h), xp.dtype),
+              "b_hh": (b_hh, (n_dir, g), xp.dtype),
               "mask": (mask, (n_t, n_b), torch.float32)}
+    expect.update({f"carry {i}": (c, (n_dir, n_b, n_h), xp.dtype) for i, c in enumerate(carry)})
     for name, (t, shape, dtype) in expect.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
@@ -183,16 +186,15 @@ def _check(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tensor,
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != xp.device:
             raise ValueError(f"{name} is on {t.device}, xp on {xp.device}")
-    for name, t in (("xp", xp), ("mask", mask), ("w_hh", w_hh), ("b_hh", b_hh),
-                    ("h0", h0), ("c0", c0)):
+    for name, (t, _, _) in [("xp", (xp, None, None))] + list(expect.items()):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    # the kernel reads W_hh rows with 16-byte loads; a misaligned one would
+    # the kernels read W_hh rows with 16-byte loads; a misaligned one would
     # fault after the launch returned, where no error check can see it
     if w_hh.data_ptr() % 16:
         raise ValueError("w_hh must start on a 16-byte boundary")
     if xp.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"lstm_scan runs on cuda or cpu tensors, not {xp.device}")
+        raise ValueError(f"{op} runs on cuda or cpu tensors, not {xp.device}")
 
 
 def _reverse_bits(reverse: Sequence[bool]) -> int:
@@ -203,7 +205,7 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
                   c0: Tensor, reverse: Sequence[bool], save_residuals: bool = False
                   ) -> Tuple[Tensor, ...]:
     """The forward scan: K1, or K2 with ``save_residuals`` (then also the
-    gates and the kept carry). Inputs as ``_check`` takes them."""
+    gates and the kept carry). Inputs as ``check_scan`` takes them."""
     global LAUNCHES, STEP_LAUNCHES, RESIDUAL_LAUNCHES
     if xp.device.type == "cpu":
         return lstm_scan_reference(xp, mask, w_hh, b_hh, h0, c0, reverse,
@@ -332,7 +334,7 @@ def lstm_scan(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor,
     docstring for the contract. Differentiable: a call autograd will
     differentiate saves residuals (K2) for the reverse scan (K3); any other
     call (eval, serving) runs K1 and writes none."""
-    _check(xp, mask, w_hh, b_hh, h0, c0, reverse)
+    check_scan(xp, mask, w_hh, b_hh, (h0, c0), reverse, 4, "lstm_scan")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xp, w_hh, b_hh, h0, c0)):
         return LSTMScan.apply(xp, mask, w_hh, b_hh, h0, c0, tuple(reverse))
     return lstm_scan_fwd(xp, mask, w_hh, b_hh, h0, c0, reverse)

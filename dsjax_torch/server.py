@@ -30,8 +30,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from dsjax_torch.audio import native
 from dsjax_torch.audio.features import FeatureExtractor, spectrogram_np
-from dsjax_torch.audio.io import load_audio
+from dsjax_torch.audio.io import load_audio, resample
 from dsjax_torch.config import ServerConfig, compose
 from dsjax_torch.inference import ModelBundle, decode_results, load_decoder, load_model
 
@@ -291,9 +292,7 @@ def make_handler(worker: BatchWorker, cfg: ServerConfig):
                 return
             ext = (filename or "upload.wav").rsplit(".", 1)[-1].lower()
             if ext in COMPRESSED_EXTENSIONS:
-                from dsjax.cpp.audio_binding import can_decode
-
-                if not can_decode(f"x.{ext}"):
+                if not native.can_decode(f"x.{ext}"):
                     self._send(415, {"error": f".{ext}: codec library not "
                                               f"available on this host"})
                     return
@@ -302,10 +301,7 @@ def make_handler(worker: BatchWorker, cfg: ServerConfig):
                 return
             try:
                 if ext in COMPRESSED_EXTENSIONS:
-                    from dsjax.cpp.audio_binding import decode_bytes
-                    from dsjax_torch.audio.io import resample
-
-                    audio, in_sr = decode_bytes(payload)
+                    audio, in_sr = native.decode_bytes(payload)
                     if in_sr != sr:
                         audio = np.ascontiguousarray(resample(audio, in_sr, sr), np.float32)
                 else:

@@ -173,8 +173,8 @@ def restore_file(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, An
     got = {k: tuple(v.shape) for k, v in weights.items()}
     if want != got:
         raise ValueError(f"checkpoint {path} does not match the configured model (set "
-                         f"model.hidden_size/hidden_layers/rnn_type to the checkpoint's): "
-                         f"{got} vs {want}")
+                         f"model.hidden_size/hidden_layers/rnn_type and model=bidirectional "
+                         f"or unidirectional to the checkpoint's): {got} vs {want}")
     state.model.load_state_dict(weights)
     if "optimizer" not in ckpt:
         print(f"warm-started weights from {path} (fresh optimizer state)")

@@ -28,9 +28,10 @@ def _py_distance(a: str, b: str) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _distance_fn() -> Callable[[str, str], int]:
-    """The fastest edit distance available: python-Levenshtein, else
-    dsjax's native one (dsjax/cpp/src/beam.cpp ds_levenshtein, which needs
-    no JAX), else the pure-python DP. All three give the same integers."""
+    """The fastest edit distance available: python-Levenshtein, else the
+    port's native one (``dsjax_torch.audio.native.levenshtein``, a copy of
+    dsjax's ds_levenshtein), else the pure-python DP. All three give the
+    same integers."""
     try:
         import Levenshtein
 
@@ -38,10 +39,11 @@ def _distance_fn() -> Callable[[str, str], int]:
     except ImportError:
         pass
     try:
-        from dsjax.cpp.beam_binding import levenshtein
+        from dsjax_torch.audio.native import levenshtein
 
+        levenshtein([1], [2])
         return lambda a, b: levenshtein([ord(c) for c in a], [ord(c) for c in b])
-    except Exception:  # the native library is absent or fails to load
+    except (OSError, RuntimeError):  # the host library fails to build or load
         return _py_distance
 
 

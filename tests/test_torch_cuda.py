@@ -309,3 +309,164 @@ def test_cuda_decode_without_the_library_raises(full_fp32, monkeypatch):
         monkeypatch.setenv("DSJAX_FUSED_BEAM", fused)
         with pytest.raises(RuntimeError, match="nvcc"):
             dec.decode(lp.exp(), sizes)
+
+
+# ---------------------------------------------------------------------------
+# K4 (the GRU forward, with and without residuals), K5 (its reverse scan)
+# and K8 (the matmul-only chain)
+# ---------------------------------------------------------------------------
+
+
+def gru_problem(shape, dtype, suffix=False, carry=True):
+    """GRU inputs on the card: ragged lengths including 0, 1 and T, a suffix
+    mask when asked, a nonzero carry when asked."""
+    T, B, H, reverse = shape
+    D = len(reverse)
+    rng = np.random.default_rng(T + 100)
+    dev = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda", dt)
+    lengths = rng.integers(0, T + 1, B)
+    lengths[0], lengths[-1] = 1, T
+    mask = np.arange(T)[:, None] < lengths[None, :]
+    mask = dev(mask[::-1] if suffix else mask, torch.float32)
+    return (dev(rng.standard_normal((D, T, B, 3 * H)) * 0.3), mask,
+            dev(rng.standard_normal((D, 3 * H, H)) * 0.1),
+            dev(rng.standard_normal((D, 3 * H)) * 0.1),
+            dev(rng.standard_normal((D, B, H)) * 0.3 * carry))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gru_kernel_matches_plain_version(full_fp32, dtype, shape):
+    """K4: y and h_T, prefix and suffix masks, nonzero carry."""
+    from dsjax_torch.ops import gru
+
+    for suffix in (False, True):
+        args = gru_problem(shape, dtype, suffix)
+        before = (gru.LAUNCHES, gru.STEP_LAUNCHES)
+        out = gru.gru_scan(*args, shape[3])
+        torch.cuda.synchronize()
+        assert (gru.LAUNCHES, gru.STEP_LAUNCHES) == (before[0] + 1, before[1] + shape[0])
+        ref = gru.gru_scan_reference(*args, shape[3])
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o.float(), r.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gru_residual_forward_and_reverse_scan_match_plain_versions(full_fp32, dtype, shape):
+    """K4 with residuals (y, h_T, (r, z, n, hn)) and K5 on the plain
+    forward's residuals with nonzero dh_T: a prefix mask with a nonzero carry
+    and a suffix mask with a zero one."""
+    from dsjax_torch.ops import gru
+    from dsjax_torch.ops.lstm import _carried_h_prev
+
+    T, B, H, reverse = shape
+    for suffix in (False, True):
+        xp, mask, w, b, h0 = gru_problem(shape, dtype, suffix, carry=not suffix)
+        before = (gru.LAUNCHES, gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES)
+        out = gru.gru_scan_fwd(xp, mask, w, b, h0, reverse, save_residuals=True)
+        torch.cuda.synchronize()
+        ref = gru.gru_scan_reference(xp, mask, w, b, h0, reverse, save_residuals=True)
+        assert len(out) == len(ref) == 3
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o.float(), r.float(), **TOL[dtype])
+        y, _, g_seq = ref
+        h_prev = _carried_h_prev(y, mask, h0, reverse)
+        rng = np.random.default_rng(T + 7)
+        dy, dh_t = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+                    for s in (y.shape, h0.shape))
+        got = gru.gru_scan_bwd(g_seq, mask, w, h_prev, dy, dh_t, reverse)
+        torch.cuda.synchronize()
+        assert (gru.LAUNCHES, gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES) == \
+            (before[0], before[1] + 1, before[2] + 1)
+        want = gru.gru_scan_backward_reference(g_seq, mask, w, h_prev, dy, dh_t, reverse)
+        for o, r in zip(got, want):
+            assert o.dtype == dtype and o.shape == r.shape
+            torch.testing.assert_close(o.float(), r.float(), **BWD_TOL[dtype])
+
+
+def test_differentiated_gru_scan_runs_k4_k5_and_matches_autograd(full_fp32):
+    """With inputs that require grad the GRU scan runs K4 with residuals and
+    K5 and its gradients match autograd through the plain loop, including a
+    reverse direction with a nonzero carry (a suffix mask in scan order); a
+    call without grad runs K4 only."""
+    from dsjax_torch.ops import gru
+
+    shape = (20, 12, 128, (False, True))
+    args = [a.requires_grad_(i != 1) for i, a in enumerate(gru_problem(shape, torch.float32))]
+    rng = np.random.default_rng(5)
+    weights = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+               for s in ((2, 20, 12, 128), (2, 12, 128))]
+    counts = (gru.LAUNCHES, gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES)
+    out = gru.gru_scan(*args, shape[3])
+    grads = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(out, weights)),
+                                [args[i] for i in (0, 2, 3, 4)])
+    torch.cuda.synchronize()
+    assert (gru.LAUNCHES, gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES) == \
+        (counts[0], counts[1] + 1, counts[2] + 1)
+    ref = gru.gru_scan_reference(*args, shape[3])
+    want = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(ref, weights)),
+                               [args[i] for i in (0, 2, 3, 4)])
+    for g, w in zip(grads, want):
+        assert g.abs().max() > 0
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        gru.gru_scan(*args, shape[3])
+    assert gru.LAUNCHES == counts[0] + 1
+
+
+@pytest.mark.parametrize("unidirectional", [False, True], ids=["bigru", "unigru_lookahead"])
+def test_gru_model_cuda_forward_and_gradients_match_cpu(full_fp32, unidirectional):
+    """A GRU model's eval forward and its training gradients on the card
+    against the CPU's, with exact K4 / K4-with-residuals / K5 counts."""
+    from dsjax_torch.config import BiDirectionalConfig, RNNType, SpectConfig, UniDirectionalConfig
+    from dsjax_torch.model.ds2 import DeepSpeech2
+    from dsjax_torch.ops import gru
+
+    kw = dict(rnn_type=RNNType.gru, hidden_size=64, hidden_layers=2)
+    cfg = (UniDirectionalConfig(lookahead_context=5, **kw) if unidirectional
+           else BiDirectionalConfig(**kw))
+    cpu = DeepSpeech2(29, SpectConfig(), cfg, generator=torch.Generator().manual_seed(0))
+    gpu = DeepSpeech2(29, SpectConfig(), cfg).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((4, 161, 50)).astype(np.float32))
+    lengths = torch.tensor([50, 31, 12, 1], dtype=torch.int32)
+    with torch.inference_mode():
+        want, _, _ = cpu.eval()(x, lengths)
+        before = gru.LAUNCHES
+        got, _, _ = gpu.eval()(x.cuda(), lengths.cuda())
+        torch.cuda.synchronize()
+    assert gru.LAUNCHES == before + cfg.hidden_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+    before = (gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES)
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        out, _, _ = model.train()(x.to(dev), lengths.to(dev))
+        torch.log_softmax(out.float(), -1)[..., 1].sum().backward()
+    torch.cuda.synchronize()
+    assert (gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES) == \
+        (before[0] + cfg.hidden_layers, before[1] + cfg.hidden_layers)
+    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = float(p.grad.abs().max())
+        torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-4 * scale + 1e-6, rtol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("t,b,h", [(512, 64, 1024), (9, 16, 32), (0, 16, 64)])
+def test_mm_chain_kernel_matches_plain_version(full_fp32, t, b, h):
+    """K8 against its plain loop: h_T and the last step's full product (bf16
+    values of f32 sums; a rounding flipped by the sum order propagates)."""
+    from dsjax_torch.ops import mm_chain
+
+    rng = np.random.default_rng(t + b)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to("cuda", torch.bfloat16)
+    xp = bf(rng.standard_normal((t, b, 4 * h)))
+    w = bf(rng.standard_normal((h, 4 * h)) * 0.01)
+    h0 = bf(rng.standard_normal((b, h)))
+    before = mm_chain.LAUNCHES
+    got = mm_chain.mm_chain(xp, w, h0)
+    torch.cuda.synchronize()
+    assert mm_chain.LAUNCHES == before + 1
+    want = mm_chain.mm_chain_reference(xp, w, h0)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), r.float(), **BWD_TOL[torch.bfloat16])

@@ -246,7 +246,6 @@ def test_checkpoint_handler_keeps_best_k_and_last(tmp_path):
     ("trainer.matmul_precision=float32", ValueError),
     ("trainer.donate_state=false", ValueError),
     ("trainer.deterministic=true", ValueError),
-    ("model.rnn_type=gru", NotImplementedError),
 ])
 def test_unported_settings_raise(override, exc):
     from dsjax_torch.train.loop import Trainer

@@ -243,3 +243,83 @@ def test_beam_transcribe_and_stream_match_dsjax(beam_servers):
     assert got[-1]["transcription"]
     one = post(port, "/stream?session=one&final=1", ys[2])[1]
     assert one["transcription"] == results[2][1]["output"][0]["transcription"]
+
+
+@pytest.fixture(scope="module", params=["bigru", "unigru"])
+def gru_servers(request, tmp_path_factory):
+    """The port's server and dsjax's BatchWorker on one GRU checkpoint:
+    5 x BiGRU or 5 x GRU + Lookahead 20 of tests/golden_gru.py at width 32,
+    the head scaled for decisive frames."""
+    from tests.golden_gru import gru_state
+
+    state = gru_state(request.param, hidden=32, layers=2)
+    state["fc.0.module.1.weight"] *= 400.0
+    path = str(tmp_path_factory.mktemp("gru") / "model.ckpt")
+    model_cfg, _ = convert.infer_architecture(state)
+    convert.save_checkpoint(path, convert.from_reference_state_dict(state), model_cfg,
+                            config.SpectConfig(), DEFAULT_LABELS)
+    cfg = config.compose(config.ServerConfig, [f"model.model_path={path}", "host=127.0.0.1",
+                                               "port=0", "device=cpu"])
+    for k, v in SETTINGS.items():
+        setattr(cfg, k, v)
+    httpd, worker = serve(cfg)
+    jax_bundle = jax_load_model(path)
+    forwards = []
+    jax_forward = jax_bundle.forward
+
+    def recording_forward(spect, lengths, carry=None):
+        out = jax_forward(spect, lengths, carry)
+        forwards.append((np.asarray(lengths), np.asarray(out[0]), np.asarray(out[1])))
+        return out
+
+    jax_bundle.forward = recording_forward
+    jax_worker = JaxBatchWorker(jax_bundle, JaxGreedyDecoder(DEFAULT_LABELS),
+                                jax_config.ServerConfig(**SETTINGS))
+    yield httpd.server_address[1], worker, jax_worker, forwards
+    shutdown(httpd, worker)
+    jax_worker._long_pool.shutdown(wait=True)
+
+
+def test_gru_server_transcribe_stream_and_mp3_match_dsjax(gru_servers):
+    """A GRU checkpoint (bidirectional, or unidirectional with Lookahead,
+    the model users stream with) serves batched and chunked /transcribe, a
+    /stream session carrying (h,) per layer, and an mp3 upload decoded by the
+    port's native library, each equal to dsjax's BatchWorker."""
+    from dsjax.cpp.audio_binding import FMT_MP3, available_formats, decode_bytes
+    from tests import codec_fixtures
+
+    port, worker, jax_worker, forwards = gru_servers
+    assert worker.bundle.model.rnns[0].rnn_type.value == "gru"
+    ys = [audio(30 + i, s) for i, s in enumerate([0.35, 0.6, 0.9])] + [audio(39, 2.4)]
+    results = [None] * len(ys)
+
+    def client(i):
+        results[i] = post(port, "/transcribe", ys[i])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(ys))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert [status for status, _ in results] == [200] * len(ys), results
+    assert [got for _, got in results] == jax_transcribe(jax_worker, ys)
+
+    chunks = [audio(40 + i, 0.45) for i in range(3)]
+    got = [post(port, f"/stream?session=g&final={int(i == 2)}", y)[1]
+           for i, y in enumerate(chunks)]
+    want = [jax_worker.stream_chunk("g", y, final=i == 2) for i, y in enumerate(chunks)]
+    assert got == want and got[-1]["transcription"]
+    assert_decisive(forwards)
+
+    if not available_formats() & FMT_MP3:
+        pytest.skip("libmpg123 unavailable")
+    blob = codec_fixtures.encode_mp3(audio(50, 0.8), SR)
+    if blob is None:
+        pytest.skip("libmp3lame unavailable")
+    body, ctype = multipart("a.mp3", blob)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/transcribe", body=body, headers={"Content-Type": ctype})
+    r = conn.getresponse()
+    assert r.status == 200
+    assert json.loads(r.read()) == jax_transcribe(jax_worker, [decode_bytes(blob)[0]])[0]

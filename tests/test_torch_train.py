@@ -307,3 +307,43 @@ def test_device_feature_step_matches_host_feature_step_and_dsjax(tmp_path):
     _, _, jloss = jtrainer.grad_step(jstate, raw_batch)
     _, loss = trainer.grad_step(state, raw_batch)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+
+
+@pytest.mark.parametrize("model", [["model.rnn_type=gru"],
+                                   ["model=unidirectional", "model.rnn_type=gru",
+                                    "model.lookahead_context=4"]],
+                         ids=["bigru", "unigru_lookahead"])
+def test_gru_training_saves_what_the_server_loads_and_refuses_other_models(tmp_path, model):
+    """``workflows.train`` with model.rnn_type=gru (bidirectional, or
+    model=unidirectional with Lookahead) trains on the CPU and writes a
+    checkpoint that load_model rebuilds as the same model with the trainer's
+    posteriors; restoring it into a trainer of another rnn_type or direction
+    raises."""
+    from dsjax_torch import workflows
+    from dsjax_torch.inference import load_model
+    from dsjax_torch.train.checkpoint import CheckpointHandler, restore_from_path
+    from dsjax_torch.train.loop import Trainer
+
+    train = write_manifest(str(tmp_path), "train", [1.0, 0.8, 1.2, 0.6], seed=11)
+    ckpt = str(tmp_path / "ckpt")
+    base = [f"data.train_path={train}", f"data.val_path={train}", "data.batch_size=2",
+            "data.num_workers=1", "model.hidden_size=16", "model.hidden_layers=2",
+            "trainer.precision=32", "trainer.device=cpu", "trainer.log_dir=''",
+            "trainer.max_epochs=1"]
+    cfg = config.compose(config.TrainConfig, base + model + [f"checkpoint.dirpath={ckpt}"])
+    state = workflows.train(cfg)
+    assert state.step == 2
+    trainer = Trainer(cfg, list(DEFAULT_LABELS))
+    batch = next(iter(workflows._pipelines(cfg, list(DEFAULT_LABELS))[1]))
+    want, want_lens = trainer.eval_step(state, batch)
+    path = CheckpointHandler(ckpt).path()
+    bundle = load_model(path, device="cpu")
+    assert bundle.model.model_cfg == cfg.model
+    got, got_lens, carry = bundle.forward(batch.audio, batch.input_lengths)
+    assert torch.equal(got_lens, want_lens) and len(carry[0]) == 1
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    for other in (["model.rnn_type=lstm"], ["model=unidirectional", "model.rnn_type=gru"]
+                  if "model=unidirectional" not in model else ["model.rnn_type=gru"]):
+        other_cfg = config.compose(config.TrainConfig, base + other)
+        with pytest.raises(ValueError, match="does not match"):
+            restore_from_path(path, Trainer(other_cfg, list(DEFAULT_LABELS)).init_state())
