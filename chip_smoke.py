@@ -74,9 +74,11 @@ Phases, each printing what it measured; any failure exits non-zero:
               its K8 launches counted.
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN,
-torch.topk; the port never calls them) and computes its bound: the larger
-of its operations over the H100's peak for their type and its bytes over
-3.35 TB/s. The parity phases (3, 4, 6, 7, 9, 10, 11, 12's posterior
+torch.topk; the port never calls them), times K2 + K3 and K4 with residuals
++ K5 each as one call beside cuDNN's forward plus backward under autograd
+(the backward rows' with_forward_ms and with_forward_library_ms), and
+computes each kernel's bound: the larger of its operations over the
+H100's peak for their type and its bytes over 3.35 TB/s. The parity phases (3, 4, 6, 7, 9, 10, 11, 12's posterior
 comparison, 14-17 and 20) turn TF32 off (cuDNN convolutions and matmuls in
 full float32); serving, training and evaluation run PyTorch's defaults. The
 last two lines are a JSON object of kernel results and
@@ -447,14 +449,21 @@ def cudnn_rnn(torch, kind, w_hh, b_hh, lengths, t_dim):
 
 def library_times(torch, kind, w_hh, b_hh, lengths, t_dim, reps, train):
     """cuDNN's time for the scan: the forward without grad (inference), or
-    the training forward and, timed alone, its backward."""
+    (the training forward, its backward timed alone, the forward plus the
+    backward under autograd as one figure)."""
     rnn, packed = cudnn_rnn(torch, kind, w_hh, b_hh, lengths, t_dim)
     if not train:
         with torch.no_grad():
-            return cuda_time(lambda: rnn(packed), reps), None
+            return cuda_time(lambda: rnn(packed), reps), None, None
     packed = torch.nn.utils.rnn.PackedSequence(packed.data.detach().requires_grad_(True),
                                                packed.batch_sizes, packed.sorted_indices,
                                                packed.unsorted_indices)
+    wrt = [packed.data] + list(rnn.parameters())
+
+    def fwd_bwd():
+        out = rnn(packed)[0].data
+        return torch.autograd.grad(out, wrt, torch.ones_like(out))
+
     fwd_ms = cuda_time(lambda: rnn(packed), reps)
     times = []
     for _ in range(reps):
@@ -463,11 +472,11 @@ def library_times(torch, kind, w_hh, b_hh, lengths, t_dim, reps, train):
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        torch.autograd.grad(out, [packed.data] + list(rnn.parameters()), grad)
+        torch.autograd.grad(out, wrt, grad)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return fwd_ms, statistics.median(times)
+    return fwd_ms, statistics.median(times), cuda_time(fwd_bwd, reps)
 
 
 def within(got, want, atol, rtol):
@@ -531,7 +540,13 @@ def phase_train_kernels(torch, np):
                   "bwd": least_time(flops, nbytes(g_seq, mask, w, c0, c_seq, *cot, *bwd_out),
                                     name)}
         lib = (library_times(torch, "LSTM", w, b, lengths, TRAIN_T, 5, train=True)
-               if dtype == torch.float32 else (None, None))
+               if dtype == torch.float32 else (None, None, None))
+
+        def k2_k3():
+            res = lstm.lstm_scan_fwd(xp, mask, w, b, h0, c0, reverse, save_residuals=True)
+            return lstm.lstm_scan_bwd(res[3], mask, w, c0, res[4], *cot, reverse)
+
+        pair_ms = cuda_time(k2_k3, 10)
         times = {
             "fwd": (cuda_time(lambda: lstm.lstm_scan_fwd(xp, mask, w, b, h0, c0, reverse,
                                                          save_residuals=True), 10),
@@ -552,6 +567,9 @@ def phase_train_kernels(torch, np):
             result[(key, name)] = {"max_abs_err": err[key], "ms": times[key][0],
                                    "plain_ms": times[key][1], "bound_ms": bounds[key][0],
                                    "bound_by": bounds[key][1], "library_ms": lib[i]}
+        print(f"kernels K2 + K3 {name} as one call: {pair_ms!r} ms; torch.nn.LSTM (cuDNN) "
+              f"forward + backward under autograd {lib[2]!r} ms (median, CUDA events)")
+        result[("bwd", name)].update(with_forward_ms=pair_ms, with_forward_library_ms=lib[2])
     return result
 
 
@@ -1098,7 +1116,14 @@ def phase_gru_train_kernels(torch, np):
         bounds = {"fwd": least_time(flops, nbytes(*args[:5], *fwd_out), name),
                   "bwd": least_time(flops, nbytes(*bwd_args[:6], *bwd_out), name)}
         lib = (library_times(torch, "GRU", w, b, lengths, TRAIN_T, 5, train=True)
-               if dtype == torch.float32 else (None, None))
+               if dtype == torch.float32 else (None, None, None))
+
+        def k4r_k5():
+            y, _, res = gru.gru_scan_fwd(*args, save_residuals=True)
+            return gru.gru_scan_bwd(res, mask, w, _carried_h_prev(y, mask, h0, args[5]),
+                                    *bwd_args[4:])
+
+        pair_ms = cuda_time(k4r_k5, 10)
         times = {
             "fwd": (cuda_time(lambda: gru.gru_scan_fwd(*args, save_residuals=True), 10),
                     cuda_time(lambda: gru.gru_scan_reference(*args, save_residuals=True), 3)),
@@ -1115,6 +1140,10 @@ def phase_gru_train_kernels(torch, np):
             result[(key, name)] = {"max_abs_err": err[key], "ms": times[key][0],
                                    "plain_ms": times[key][1], "bound_ms": bounds[key][0],
                                    "bound_by": bounds[key][1], "library_ms": lib[i]}
+        print(f"kernels K4 with residuals + K5 {name} as one call: {pair_ms!r} ms; "
+              f"torch.nn.GRU (cuDNN) forward + backward under autograd {lib[2]!r} ms (median, "
+              f"CUDA events)")
+        result[("bwd", name)].update(with_forward_ms=pair_ms, with_forward_library_ms=lib[2])
     return result
 
 
@@ -1340,7 +1369,7 @@ def phase_mm_chain(torch, np):
           f"{k_ms!r} ms ({k_ms * 1e3 / TRAIN_T!r} us/step), plain {p_ms!r} ms (median, CUDA "
           f"events); bound {bound_ms!r} ms ({bound_by})")
     reset_counts()
-    bench = tool.run(TRAIN_B, H, TRAIN_T, reps=5, log=lambda line: print(f"microbench: {line}"))
+    bench = tool.run(log=lambda line: print(f"microbench: {line}"))
     torch.cuda.synchronize()
     counts = read_counts()
     check(counts["mm_chain"] == 8, f"microbench: {counts['mm_chain']} mm_chain launches, "
@@ -1426,6 +1455,15 @@ def run(torch, np):
         return {"bf16_max_abs_err": res["max_abs_err"], "bf16_ms": res["ms"],
                 "bf16_plain_ms": res["plain_ms"], "bf16_bound_ms": res["bound_ms"]}
 
+    def pair_extra(key, f32, bf16):
+        # a backward row: its kernel pair (forward with residuals, then the
+        # backward) as one call, and cuDNN's forward plus backward
+        if key == "fwd":
+            return {}
+        return {"with_forward_ms": f32["with_forward_ms"],
+                "with_forward_library_ms": f32["with_forward_library_ms"],
+                "bf16_with_forward_ms": bf16["with_forward_ms"]}
+
     rows = [row("lstm_fwd", "dsjax_torch/csrc/lstm_fwd.cu", "dsjax/ops/lstm_pallas.py:62",
                 launches, kernel["float32"], step_launches=step_launches,
                 launches_in_training=train_launches["lstm_fwd"],
@@ -1438,7 +1476,9 @@ def run(torch, np):
              "dsjax/ops/lstm_pallas.py:225")):
         rows.append(row(name, source, replaces, train_launches[name],
                         train_kernels[(key, "float32")],
-                        **bf16_extra(train_kernels[(key, "bfloat16")])))
+                        **bf16_extra(train_kernels[(key, "bfloat16")]),
+                        **pair_extra(key, train_kernels[(key, "float32")],
+                                     train_kernels[(key, "bfloat16")])))
     first_topk, first_beam = TOPK_SHAPES[0], BEAM_SHAPES[0]
     rows.append(row("topk", "dsjax_torch/csrc/topk.cu", "dsjax/ops/topk_pallas.py:139",
                     eval_runs["beam, scan with K6"]["counts"]["topk"],
@@ -1460,7 +1500,9 @@ def run(torch, np):
             ("bwd", "gru_bwd", "dsjax_torch/csrc/gru_bwd.cu", "dsjax/ops/gru_pallas.py:161")):
         rows.append(row(name, source, replaces,
                         gru_train_launches[name], gru_train_kernels[(key, "float32")],
-                        **bf16_extra(gru_train_kernels[(key, "bfloat16")])))
+                        **bf16_extra(gru_train_kernels[(key, "bfloat16")]),
+                        **pair_extra(key, gru_train_kernels[(key, "float32")],
+                                     gru_train_kernels[(key, "bfloat16")])))
     rows.append(row("mm_chain", "dsjax_torch/csrc/mm_chain.cu", "tools/lstm_microbench.py:100",
                     k8["launches"], k8, microbench=k8["microbench"]))
     print(json.dumps({"kernels": rows}))

@@ -28,8 +28,7 @@ from dsjax_torch.config import DecoderType, LMConfig, SpectConfig, SpectrogramWi
 from dsjax_torch.decode.beam_device import LM_NOT_PORTED, DeviceBeamDecoder
 from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.labels import DEFAULT_LABELS
-from dsjax_torch.model.convert import (from_reference_state_dict, infer_architecture,
-                                       model_cfg_dict)
+from dsjax_torch.model.convert import from_reference_state_dict, infer_architecture
 from dsjax_torch.model.ds2 import DeepSpeech2
 
 
@@ -76,22 +75,15 @@ class ModelBundle:
 
 def load_model(model_path: str, precision: int = 32, device: Any = "cuda") -> ModelBundle:
     """Load a checkpoint written by ``save_checkpoint``: a reference-layout
-    state_dict with labels and spect_cfg among its hyper-parameters."""
+    state_dict with labels and spect_cfg among its hyper-parameters. The
+    weights' shapes decide the architecture (rnn_type, widths, direction,
+    Lookahead context), for the reference's ``.ckpt`` files as for the
+    port's."""
     device = resolve_device(device)
     ckpt = torch.load(model_path, map_location="cpu", weights_only=True)
     state = ckpt.get("state_dict", ckpt)
     hparams = ckpt.get("hyper_parameters", {}) or {}
     model_cfg, num_classes = infer_architecture(state)
-    recorded = hparams.get("model_cfg")
-    if isinstance(recorded, dict):
-        # the weights decide the architecture; what the file records beside
-        # them must agree (save_checkpoint writes model_cfg_dict)
-        inferred = model_cfg_dict(model_cfg)
-        differ = {k: (v, inferred[k]) for k, v in recorded.items()
-                  if k in inferred and v != inferred[k]}
-        if differ:
-            raise ValueError(f"{model_path}: recorded model_cfg disagrees with its weights "
-                             f"(recorded, inferred): {differ}")
     labels = list(hparams.get("labels") or DEFAULT_LABELS)
     spect = SpectConfig()
     sp = hparams.get("spect_cfg")

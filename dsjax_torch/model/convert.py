@@ -154,7 +154,9 @@ def from_dsjax_variables(variables: Mapping[str, Any]) -> Dict[str, Tensor]:
 
 def model_cfg_dict(model_cfg: BiDirectionalConfig) -> Dict[str, Any]:
     """The hyper-parameters ``save_checkpoint`` records beside the weights:
-    rnn_type, widths, direction and (unidirectional) the Lookahead context."""
+    rnn_type, widths, direction and (unidirectional) the Lookahead context.
+    A record for the reader, as in the reference's ``.ckpt`` files: loading
+    reads the architecture from the weights (``infer_architecture``)."""
     out = {"rnn_type": model_cfg.rnn_type.value, "hidden_size": model_cfg.hidden_size,
            "hidden_layers": model_cfg.hidden_layers,
            "bidirectional": not isinstance(model_cfg, UniDirectionalConfig)}

@@ -3,12 +3,11 @@
 the matmul-only chain K8: the counterpart of tools/lstm_microbench.py on one
 CUDA card.
 
-    python tools/torch_lstm_microbench.py [--batch 64] [--hidden 1024] [--steps 512]
-                                          [--reps 5] [--out microbench.json]
+    python tools/torch_lstm_microbench.py [--out microbench.json]
 
-One direction, bf16, every row valid, the training shapes of the flagship
-(B=64, H=1024, T=512) by default. Times with CUDA events (median of
-``--reps`` after one warm-up call) of:
+One direction, bf16, every row valid, at the training shapes of the
+flagship (B=64, H=1024, T=512). Times with CUDA events (median of 5 after
+one warm-up call) of:
   K1                    lstm_scan_fwd (inference);
   K2                    lstm_scan_fwd(save_residuals=True);
   K2 + K3               K2 then lstm_scan_bwd on its residuals;
@@ -35,13 +34,15 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16_PEAK = 989e12
+B, H, T = 64, 1024, 512      # the flagship's training batch, width, scan steps
+REPS = 5
 
 
-def cuda_ms(torch, fn, reps):
-    """Median milliseconds of fn() over reps runs after one warm-up call."""
+def cuda_ms(torch, fn):
+    """Median milliseconds of fn() over REPS runs after one warm-up call."""
     fn()
     times = []
-    for _ in range(reps):
+    for _ in range(REPS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -78,11 +79,11 @@ def device_profile(torch, cases, log):
     return out
 
 
-def run(batch=64, hidden=1024, steps=512, reps=5, log=print):
-    """Time every kernel at (B, H, T) = (batch, hidden, steps); returns
-    {name: {"ms", "us_per_step", "kernel_ms", "kernel_launches", "busy_share"}}
-    plus K8's FLOP count and peak share. Each case runs reps + 3 times: a
-    warm-up, the timed reps, a warm-up and one call under the profiler."""
+def run(log=print):
+    """Time every kernel at (B, H, T); returns {name: {"ms", "us_per_step",
+    "kernel_ms", "kernel_launches", "busy_share"}} plus K8's FLOP count and
+    peak share. Each case runs REPS + 3 times: a warm-up, the timed reps, a
+    warm-up and one call under the profiler."""
     import torch
 
     from dsjax_torch.ops import gru, lstm, mm_chain
@@ -96,16 +97,15 @@ def run(batch=64, hidden=1024, steps=512, reps=5, log=print):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to("cuda", dt)
 
-    n_t, n_b, n_h = steps, batch, hidden
-    mask = torch.ones((n_t, n_b), device="cuda")
-    xp4, w4, b4 = randn(1, n_t, n_b, 4 * n_h), randn(1, 4 * n_h, n_h, scale=0.02), randn(1, 4 * n_h)
-    xp3, w3, b3 = randn(1, n_t, n_b, 3 * n_h), randn(1, 3 * n_h, n_h, scale=0.02), randn(1, 3 * n_h)
-    h0 = torch.zeros((1, n_b, n_h), device="cuda", dtype=dt)
-    dy, dh = randn(1, n_t, n_b, n_h), randn(1, n_b, n_h)
+    mask = torch.ones((T, B), device="cuda")
+    xp4, w4, b4 = randn(1, T, B, 4 * H), randn(1, 4 * H, H, scale=0.02), randn(1, 4 * H)
+    xp3, w3, b3 = randn(1, T, B, 3 * H), randn(1, 3 * H, H, scale=0.02), randn(1, 3 * H)
+    h0 = torch.zeros((1, B, H), device="cuda", dtype=dt)
+    dy, dh = randn(1, T, B, H), randn(1, B, H)
     y4, _, _, g4, c_seq = lstm.lstm_scan_fwd(xp4, mask, w4, b4, h0, h0, rev, save_residuals=True)
     y3, _, g3 = gru.gru_scan_fwd(xp3, mask, w3, b3, h0, rev, save_residuals=True)
     h_prev = _carried_h_prev(y3, mask, h0, rev)
-    xp_chain, w_chain = xp4[0], randn(n_h, 4 * n_h, scale=0.01)
+    xp_chain, w_chain = xp4[0], randn(H, 4 * H, scale=0.01)
 
     def k2_k3():
         _, _, _, g, c = lstm.lstm_scan_fwd(xp4, mask, w4, b4, h0, h0, rev, save_residuals=True)
@@ -128,14 +128,14 @@ def run(batch=64, hidden=1024, steps=512, reps=5, log=print):
     }
     del y4, g4, c_seq, g3
     out = {}
-    log(f"B={n_b} H={n_h} T={n_t} bf16, one direction, all rows valid; "
+    log(f"B={B} H={H} T={T} bf16, one direction, all rows valid; "
         f"{torch.cuda.get_device_name(0)}")
     for name, fn in cases.items():
-        ms = cuda_ms(torch, fn, reps)
-        out[name] = {"ms": ms, "us_per_step": ms * 1e3 / n_t}
-        log(f"{name:28s} {ms:10.3f} ms  {ms * 1e3 / n_t:9.3f} us/step")
-    step_flops = 2 * n_b * n_h * 4 * n_h
-    floor_s = out["K8 mm_chain"]["ms"] / 1e3 / n_t
+        ms = cuda_ms(torch, fn)
+        out[name] = {"ms": ms, "us_per_step": ms * 1e3 / T}
+        log(f"{name:28s} {ms:10.3f} ms  {ms * 1e3 / T:9.3f} us/step")
+    step_flops = 2 * B * H * 4 * H
+    floor_s = out["K8 mm_chain"]["ms"] / 1e3 / T
     share = step_flops / BF16_PEAK / floor_s
     out["K8 step_flops"] = step_flops
     out["K8 bf16_peak_share"] = share
@@ -151,17 +151,13 @@ def run(batch=64, hidden=1024, steps=512, reps=5, log=print):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--hidden", type=int, default=1024)
-    ap.add_argument("--steps", type=int, default=512)
-    ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip())
-    out = run(args.batch, args.hidden, args.steps, args.reps)
+    out = run()
     out["card"] = smi.stdout.strip()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
