@@ -19,7 +19,8 @@ Phases, each printing what it measured; any failure exits non-zero:
               scan) against their plain versions at the training shapes
               (T=512, B=64, H=1024, both directions, ragged lengths, a
               suffix mask, nonzero carry), f32 and bf16, with max errors
-              and CUDA-event median times of both;
+              and CUDA-event median times of both, and K3's step kernel
+              as built (hidden units, registers and shared memory a CTA);
   7. gradients  the differentiated lstm_scan (K2 + K3) against autograd
               through the plain loop, both on the card;
   8. training  ``dsjax_torch.workflows.train`` on a synthetic corpus of
@@ -73,8 +74,9 @@ Phases, each printing what it measured; any failure exits non-zero:
               H=1024, bf16, then tools/torch_lstm_microbench.py's run with
               its K8 launches counted.
 Every kernel phase also times the kernel's library counterpart where one
-PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN,
-torch.topk; the port never calls them), times K2 + K3 and K4 with residuals
+PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
+f32, and for K2 and K3 in bf16 as well; torch.topk; the port never calls
+them), times K2 + K3 and K4 with residuals
 + K5 each as one call beside cuDNN's forward plus backward under autograd
 (the backward rows' with_forward_ms and with_forward_library_ms), and
 computes each kernel's bound: the larger of its operations over the
@@ -539,8 +541,8 @@ def phase_train_kernels(torch, np):
         bounds = {"fwd": least_time(flops, nbytes(xp, mask, w, b, h0, c0, *fwd_out), name),
                   "bwd": least_time(flops, nbytes(g_seq, mask, w, c0, c_seq, *cot, *bwd_out),
                                     name)}
-        lib = (library_times(torch, "LSTM", w, b, lengths, TRAIN_T, 5, train=True)
-               if dtype == torch.float32 else (None, None, None))
+        # cuDNN in the working dtype: the bf16 pair is held to cuDNN in bf16
+        lib = library_times(torch, "LSTM", w, b, lengths, TRAIN_T, 5, train=True)
 
         def k2_k3():
             res = lstm.lstm_scan_fwd(xp, mask, w, b, h0, c0, reverse, save_residuals=True)
@@ -569,7 +571,14 @@ def phase_train_kernels(torch, np):
                                    "bound_by": bounds[key][1], "library_ms": lib[i]}
         print(f"kernels K2 + K3 {name} as one call: {pair_ms!r} ms; torch.nn.LSTM (cuDNN) "
               f"forward + backward under autograd {lib[2]!r} ms (median, CUDA events)")
-        result[("bwd", name)].update(with_forward_ms=pair_ms, with_forward_library_ms=lib[2])
+        attrs = lstm.bwd_kernel_attributes(dtype)
+        print(f"kernel lstm_bwd (K3) {name} step kernel: {attrs['units']} hidden units a CTA, "
+              f"{attrs['registers']} registers a thread, "
+              f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} bytes of shared "
+              f"memory a CTA, {attrs['local_bytes']} bytes of local memory a thread "
+              f"(cudaFuncGetAttributes)")
+        result[("bwd", name)].update(with_forward_ms=pair_ms, with_forward_library_ms=lib[2],
+                                     kernel_attributes=attrs)
     return result
 
 
@@ -1453,7 +1462,8 @@ def run(torch, np):
 
     def bf16_extra(res):
         return {"bf16_max_abs_err": res["max_abs_err"], "bf16_ms": res["ms"],
-                "bf16_plain_ms": res["plain_ms"], "bf16_bound_ms": res["bound_ms"]}
+                "bf16_plain_ms": res["plain_ms"], "bf16_bound_ms": res["bound_ms"],
+                "bf16_library_ms": res["library_ms"]}
 
     def pair_extra(key, f32, bf16):
         # a backward row: its kernel pair (forward with residuals, then the
@@ -1462,7 +1472,8 @@ def run(torch, np):
             return {}
         return {"with_forward_ms": f32["with_forward_ms"],
                 "with_forward_library_ms": f32["with_forward_library_ms"],
-                "bf16_with_forward_ms": bf16["with_forward_ms"]}
+                "bf16_with_forward_ms": bf16["with_forward_ms"],
+                "bf16_with_forward_library_ms": bf16["with_forward_library_ms"]}
 
     rows = [row("lstm_fwd", "dsjax_torch/csrc/lstm_fwd.cu", "dsjax/ops/lstm_pallas.py:62",
                 launches, kernel["float32"], step_launches=step_launches,
@@ -1474,11 +1485,15 @@ def run(torch, np):
              "dsjax/ops/lstm_pallas.py:381"),
             ("bwd", "lstm_bwd", "dsjax_torch/csrc/lstm_bwd.cu",
              "dsjax/ops/lstm_pallas.py:225")):
+        # K3's step kernel as built: registers, shared memory and units a CTA
+        attrs = ({"kernel_attributes": {n: train_kernels[(key, n)]["kernel_attributes"]
+                                        for n in ("float32", "bfloat16")}}
+                 if key == "bwd" else {})
         rows.append(row(name, source, replaces, train_launches[name],
                         train_kernels[(key, "float32")],
                         **bf16_extra(train_kernels[(key, "bfloat16")]),
                         **pair_extra(key, train_kernels[(key, "float32")],
-                                     train_kernels[(key, "bfloat16")])))
+                                     train_kernels[(key, "bfloat16")]), **attrs))
     first_topk, first_beam = TOPK_SHAPES[0], BEAM_SHAPES[0]
     rows.append(row("topk", "dsjax_torch/csrc/topk.cu", "dsjax/ops/topk_pallas.py:139",
                     eval_runs["beam, scan with K6"]["counts"]["topk"],

@@ -3,12 +3,13 @@ transcription.
 
 Counterpart of dsjax/inference.py on one torch device. ``load_model`` reads a
 ``.pt``/``.ckpt`` file holding a reference-layout state_dict and the
-hyper-parameters beside it, as ``dsjax_torch.model.convert.save_checkpoint``
-writes them. ``ModelBundle.forward`` takes (B, F, T) features, or (B, L_pad)
-raw audio with the STFT on the device before the model. ``load_decoder``
-gives the greedy decoder or the device beam search (without an LM). The
-device defaults to ``cuda``; without a CUDA card the caller must ask for
-``device="cpu"``.
+hyper-parameters beside it: the reference's Lightning checkpoints, or what
+``dsjax_torch.model.convert.save_checkpoint`` writes (both through
+``convert.load_checkpoint``). ``ModelBundle.forward`` takes (B, F, T)
+features, or (B, L_pad) raw audio with the STFT on the device before the
+model. ``load_decoder`` gives the greedy decoder or the device beam search
+(without an LM). The device defaults to ``cuda``; without a CUDA card the
+caller must ask for ``device="cpu"``.
 
 Not ported yet (ROADMAP.md, Queue 1): decoding with an n-gram LM (a set
 ``lm.lm_path`` raises), dsjax checkpoint directories, multi-device.
@@ -28,7 +29,8 @@ from dsjax_torch.config import DecoderType, LMConfig, SpectConfig, SpectrogramWi
 from dsjax_torch.decode.beam_device import LM_NOT_PORTED, DeviceBeamDecoder
 from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.labels import DEFAULT_LABELS
-from dsjax_torch.model.convert import from_reference_state_dict, infer_architecture
+from dsjax_torch.model.convert import (from_reference_state_dict, infer_architecture,
+                                       load_checkpoint, plain_hparams)
 from dsjax_torch.model.ds2 import DeepSpeech2
 
 
@@ -74,17 +76,19 @@ class ModelBundle:
 
 
 def load_model(model_path: str, precision: int = 32, device: Any = "cuda") -> ModelBundle:
-    """Load a checkpoint written by ``save_checkpoint``: a reference-layout
-    state_dict with labels and spect_cfg among its hyper-parameters. The
-    weights' shapes decide the architecture (rnn_type, widths, direction,
-    Lookahead context), for the reference's ``.ckpt`` files as for the
-    port's."""
+    """Load a checkpoint written by ``save_checkpoint`` or a reference
+    Lightning ``.ckpt``: a reference-layout state_dict with labels and
+    spect_cfg among its hyper-parameters (plain data, or omegaconf objects
+    read through ``load_checkpoint``'s stubs). The weights' shapes decide the
+    architecture (rnn_type, widths, direction, Lookahead context)."""
     device = resolve_device(device)
-    ckpt = torch.load(model_path, map_location="cpu", weights_only=True)
+    ckpt = load_checkpoint(model_path)
     state = ckpt.get("state_dict", ckpt)
-    hparams = ckpt.get("hyper_parameters", {}) or {}
+    hparams = plain_hparams(ckpt.get("hyper_parameters")) or {}
     model_cfg, num_classes = infer_architecture(state)
-    labels = list(hparams.get("labels") or DEFAULT_LABELS)
+    labels = hparams.get("labels")
+    if not (isinstance(labels, list) and labels and all(isinstance(c, str) for c in labels)):
+        labels = list(DEFAULT_LABELS)
     spect = SpectConfig()
     sp = hparams.get("spect_cfg")
     if isinstance(sp, dict):

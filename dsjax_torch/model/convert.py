@@ -20,6 +20,8 @@ weight, bias, running_mean and running_var.
 
 from __future__ import annotations
 
+import functools
+import pickle
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -185,3 +187,95 @@ def save_checkpoint(path: str, state_dict: Mapping[str, Tensor],
             "model_cfg": model_cfg_dict(model_cfg),
         },
     }, path)
+
+
+class _Stub:
+    """Stands in for a class that ``load_checkpoint`` does not resolve
+    (omegaconf's DictConfig and ListConfig and their value nodes, enums,
+    Lightning's internals). It takes its state as dsjax's stub does
+    (dsjax/model/torch_import.py:36-47), keyword arguments and a pickled
+    state dict as attributes, and keeps its positional arguments (an enum's
+    value)."""
+
+    def __init__(self, *args, **kwargs):
+        self.__dict__.update(kwargs)
+        self._args = args
+
+    def __setstate__(self, state):
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+
+
+@functools.lru_cache(maxsize=None)
+def _allowed_globals() -> Dict[Tuple[str, str], Any]:
+    """What a tensor state needs, by (module, name): torch's tensor rebuild
+    functions, collections.OrderedDict, and the builtins that protocol 2
+    pickles by name (sets, complex numbers, bytes through _codecs.encode).
+    Storage classes never reach the unpickler: torch.load resolves them."""
+    import _codecs
+    import builtins
+    import collections
+
+    allowed: Dict[Tuple[str, str], Any] = {
+        ("collections", "OrderedDict"): collections.OrderedDict,
+        ("_codecs", "encode"): _codecs.encode,
+    }
+    for name in ("_rebuild_tensor", "_rebuild_tensor_v2", "_rebuild_parameter",
+                 "_rebuild_parameter_with_state"):
+        allowed[("torch._utils", name)] = getattr(torch._utils, name)
+    for name in ("bytearray", "complex", "frozenset", "range", "set", "slice"):
+        allowed[("builtins", name)] = getattr(builtins, name)
+    return allowed
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    """Resolves only ``_allowed_globals()``; any other (module, name) becomes
+    a subclass of ``_Stub`` without its module being imported, so a
+    checkpoint can neither import nor call anything else."""
+
+    def find_class(self, module, name):
+        found = _allowed_globals().get((module, name))
+        if found is not None:
+            return found
+        return type(str(name), (_Stub,), {"__module__": str(module)})
+
+
+class _RestrictedPickle:
+    """The ``pickle_module`` that ``load_checkpoint`` gives ``torch.load``."""
+
+    Unpickler = _RestrictedUnpickler
+
+    @staticmethod
+    def load(f, **kwargs):
+        return _RestrictedUnpickler(f, **kwargs).load()
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The object a checkpoint file holds, on the CPU: the port's own files
+    (``save_checkpoint``, the trainer's) and the reference's Lightning
+    ``.ckpt`` files, whose hyper-parameters hold omegaconf objects. Tensors
+    and plain data load as they are; every other class or function the
+    pickle names becomes a ``_Stub`` (``_RestrictedUnpickler``)."""
+    return torch.load(path, map_location="cpu", pickle_module=_RestrictedPickle,
+                      weights_only=False)
+
+
+def plain_hparams(x: Any) -> Any:
+    """Hyper-parameters as plain data: a stubbed omegaconf container as its
+    ``_content`` (as dsjax reads ``spect_cfg``, torch_import.py:279-298), a
+    value node as its ``_val``, an enum as its value; dicts and lists as
+    they are."""
+    if isinstance(x, _Stub):
+        state = vars(x)
+        for key in ("_content", "_val"):
+            if key in state:
+                return plain_hparams(state[key])
+        args = state.get("_args", ())
+        if len(args) == 1:
+            return plain_hparams(args[0])
+        return {k: plain_hparams(v) for k, v in state.items()}
+    if isinstance(x, dict):
+        return {k: plain_hparams(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [plain_hparams(v) for v in x]
+    return x

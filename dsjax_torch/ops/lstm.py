@@ -42,6 +42,7 @@ run the plain versions ``lstm_scan_reference`` and
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Optional, Sequence, Tuple
 
@@ -179,22 +180,29 @@ def check_scan(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, carry: Sequ
               "b_hh": (b_hh, (n_dir, g), xp.dtype),
               "mask": (mask, (n_t, n_b), torch.float32)}
     expect.update({f"carry {i}": (c, (n_dir, n_b, n_h), xp.dtype) for i, c in enumerate(carry)})
+    _check_like("xp", xp, expect, op)
+    # the kernels read W_hh rows with 16-byte loads; a misaligned one would
+    # fault after the launch returned, where no error check can see it
+    if w_hh.data_ptr() % 16:
+        raise ValueError("w_hh must start on a 16-byte boundary")
+
+
+def _check_like(first_name: str, first: Tensor, expect: dict, op: str) -> None:
+    """Raise unless each ``expect`` entry, name -> (tensor, shape, dtype),
+    has that shape and dtype and lies on ``first``'s device, every tensor is
+    contiguous, and the device is cuda or cpu."""
     for name, (t, shape, dtype) in expect.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.device != xp.device:
-            raise ValueError(f"{name} is on {t.device}, xp on {xp.device}")
-    for name, (t, _, _) in [("xp", (xp, None, None))] + list(expect.items()):
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, {first_name} on {first.device}")
+    for name, (t, _, _) in [(first_name, (first, None, None))] + list(expect.items()):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    # the kernels read W_hh rows with 16-byte loads; a misaligned one would
-    # fault after the launch returned, where no error check can see it
-    if w_hh.data_ptr() % 16:
-        raise ValueError("w_hh must start on a 16-byte boundary")
-    if xp.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{op} runs on cuda or cpu tensors, not {xp.device}")
+    if first.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{op} runs on cuda or cpu tensors, not {first.device}")
 
 
 def _reverse_bits(reverse: Sequence[bool]) -> int:
@@ -243,19 +251,56 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
     return out + (g_seq, c_seq) if save_residuals else out
 
 
+def check_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: Tensor,
+                   cotangents: Sequence[Tensor], reverse: Sequence[bool]) -> None:
+    """Raise on what K3 does not take: g_seq (D, T, B, 4H) with H a multiple
+    of 8, mask (T, B) f32, w_hh (D, 4H, H), c0 (D, B, H), c_seq (D, T, B, H)
+    and the cotangents dy, dh_T, dc_T in g_seq's dtype; contiguous, on one
+    device; g_seq, c0, c_seq and the cotangents starting on a boundary of two
+    elements (the kernel reads and writes a pair of neighbouring units at a
+    time)."""
+    if g_seq.dim() != 4:
+        raise ValueError(f"g_seq must be (D, T, B, 4H), got {tuple(g_seq.shape)}")
+    n_dir, n_t, n_b, g4 = g_seq.shape
+    n_h = g4 // 4
+    if n_dir not in (1, 2) or len(reverse) != n_dir:
+        raise ValueError(f"{n_dir} directions with reverse={tuple(reverse)}")
+    if g4 != 4 * n_h or n_h % 8:
+        raise ValueError(f"hidden size {g4 / 4} must be a multiple of 8: the reverse scan "
+                         f"stages rows of 4H columns in 16-byte copies")
+    if g_seq.dtype not in DTYPES:
+        raise TypeError(f"g_seq dtype {g_seq.dtype} is not one of {DTYPES}")
+    dy, dh_t, dc_t = cotangents
+    seq, state, dtype = (n_dir, n_t, n_b, n_h), (n_dir, n_b, n_h), g_seq.dtype
+    paired = {"c0": (c0, state, dtype), "c_seq": (c_seq, seq, dtype), "dy": (dy, seq, dtype),
+              "dh_T": (dh_t, state, dtype), "dc_T": (dc_t, state, dtype)}
+    _check_like("g_seq", g_seq, {"mask": (mask, (n_t, n_b), torch.float32),
+                                 "w_hh": (w_hh, (n_dir, g4, n_h), dtype), **paired},
+                "lstm_scan_bwd")
+    for name, t in [("g_seq", g_seq)] + [(k, v[0]) for k, v in paired.items()]:
+        if t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"{name} must start on a boundary of two elements "
+                             f"({2 * t.element_size()} bytes)")
+
+
 def lstm_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: Tensor,
                   dy: Tensor, dh_t: Tensor, dc_t: Tensor, reverse: Sequence[bool]
                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """The reverse scan, K3: the contract of ``lstm_scan_backward_reference``.
     The residuals come from ``lstm_scan_fwd(save_residuals=True)``; the
-    cotangents are cast to the working dtype and made contiguous here."""
+    cotangents are cast to the working dtype and made contiguous here.
+
+    What the kernel requires, checked by ``check_scan_bwd`` on every device:
+    H a multiple of 8, so that each row of 4H columns of dgates and of
+    W_hh^T is whole 16-byte ``cp.async`` copies, and the inputs contiguous,
+    in one dtype, each starting on a boundary of two elements. The two
+    operands of its step product, W_hh^T and dgates, must start on 16-byte
+    boundaries: they are tensors this wrapper allocates, which the
+    allocator aligns further."""
     global BWD_LAUNCHES
     dtype = g_seq.dtype
     dy, dh_t, dc_t = (a.to(dtype).contiguous() for a in (dy, dh_t, dc_t))
-    for name, a, like in (("dy", dy, c_seq), ("dh_T", dh_t, c0), ("dc_T", dc_t, c0)):
-        if a.shape != like.shape or a.device != like.device:
-            raise ValueError(f"{name} is {tuple(a.shape)} on {a.device}, "
-                             f"expected {tuple(like.shape)} on {like.device}")
+    check_scan_bwd(g_seq, mask, w_hh, c0, c_seq, (dy, dh_t, dc_t), reverse)
     if g_seq.device.type == "cpu":
         return lstm_scan_backward_reference(g_seq, mask, w_hh, c0, c_seq, dy, dh_t, dc_t,
                                             reverse)
@@ -278,6 +323,18 @@ def lstm_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: 
     with _launch_lock:
         BWD_LAUNCHES += 1
     return dg, dh0, dc0
+
+
+def bwd_kernel_attributes(dtype: torch.dtype) -> dict:
+    """K3's step kernel for ``dtype`` as built (needs the card): registers a
+    thread, static and dynamic shared memory a CTA, local memory (spills) a
+    thread, and the hidden units a CTA owns."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, lib.dsjax_torch_lstm_bwd_attributes(int(dtype == torch.bfloat16), out),
+                 "lstm_bwd attributes")
+    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                     "local_bytes", "units"), out))
 
 
 def _carried_h_prev(y: Tensor, mask: Tensor, h0: Tensor, reverse: Sequence[bool]) -> Tensor:

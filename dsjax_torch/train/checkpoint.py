@@ -27,9 +27,7 @@ import json
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
-import torch
-
-from dsjax_torch.model.convert import from_reference_state_dict, save_checkpoint
+from dsjax_torch.model.convert import from_reference_state_dict, load_checkpoint, save_checkpoint
 from dsjax_torch.train.state import TrainState
 
 
@@ -158,7 +156,7 @@ class CheckpointHandler:
             path = self.path()
         except FileNotFoundError:
             return {}
-        return dict(torch.load(path, map_location="cpu", weights_only=True).get("extra") or {})
+        return dict(load_checkpoint(path).get("extra") or {})
 
 
 def restore_file(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, Any]]:
@@ -167,7 +165,7 @@ def restore_file(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, An
     reference-layout state_dict (a ``save_checkpoint`` model, a reference
     ``.ckpt``) warm-starts the weights with a fresh optimizer. Returns the
     state and the host-side extras."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = load_checkpoint(path)
     weights = from_reference_state_dict(ckpt.get("state_dict", ckpt))
     want = {k: tuple(v.shape) for k, v in state.model.state_dict().items()}
     got = {k: tuple(v.shape) for k, v in weights.items()}

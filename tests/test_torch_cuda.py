@@ -31,6 +31,10 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=3e-2
 # flipped rounding propagates back through the steps
 BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
 SHAPES = [(12, 8, 128, (False, True)), (7, 3, 64, (False,)), (33, 20, 256, (True, False))]
+# K3's tiling: two 64-row blocks, the second ragged (B=80); one row (B=1);
+# a unit edge inside a CTA's 16 units (H=40); the flagship's width
+BWD_SHAPES = [(9, 80, 128, (False, True)), (10, 1, 64, (True,)), (11, 5, 40, (False, True)),
+              (64, 64, 1024, (False, True))]
 
 
 @pytest.fixture
@@ -54,8 +58,13 @@ def problem(shape, dtype, suffix=False):
     lengths[0], lengths[-1] = 1, T
     mask = np.arange(T)[:, None] < lengths[None, :]
     mask = dev(mask[::-1] if suffix else mask, torch.float32)
+    # W_hh at 0.1 makes the reverse recurrence at H=1024 grow about 6x a
+    # step, and any sum order's rounding with it: the flagship's width takes
+    # chip_smoke.py's 0.03, about 1/sqrt(H)
+    w_scale = 0.1 if H < 1024 else 0.03
     return (dev(rng.standard_normal((D, T, B, 4 * H)) * 0.3), mask,
-            dev(rng.standard_normal((D, 4 * H, H)) * 0.1), dev(rng.standard_normal((D, 4 * H)) * 0.1),
+            dev(rng.standard_normal((D, 4 * H, H)) * w_scale),
+            dev(rng.standard_normal((D, 4 * H)) * 0.1),
             dev(rng.standard_normal((D, B, H)) * 0.1), dev(rng.standard_normal((D, B, H)) * 0.1))
 
 
@@ -108,7 +117,7 @@ def test_residual_forward_matches_plain_version(full_fp32, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + BWD_SHAPES)
 def test_reverse_scan_matches_plain_version(full_fp32, dtype, shape):
     """K3 on the residuals of the plain forward, with nonzero dh_T, dc_T."""
     T, B, H, reverse = shape
@@ -127,6 +136,16 @@ def test_reverse_scan_matches_plain_version(full_fp32, dtype, shape):
         for o, r in zip(out, ref):
             assert o.dtype == dtype and o.shape == r.shape
             torch.testing.assert_close(o.float(), r.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_reverse_scan_kernel_fits_one_cta_an_sm(full_fp32, dtype):
+    """K3's step kernel as built: 16 units a CTA, its shared memory within
+    the 227 KB a CTA may take, registers within 255 a thread."""
+    attrs = lstm.bwd_kernel_attributes(dtype)
+    assert attrs["units"] == 16
+    assert attrs["static_smem_bytes"] + attrs["dynamic_smem_bytes"] <= 232448
+    assert 0 < attrs["registers"] <= 255
 
 
 def test_differentiated_scan_runs_k2_k3_and_matches_autograd(full_fp32):

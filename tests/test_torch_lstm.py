@@ -133,6 +133,44 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         lstm.lstm_scan(*meta, reverse=(False,))
 
 
+def test_reverse_scan_wrapper_rejects_what_the_kernel_does_not_take():
+    """lstm_scan_bwd checks K3's inputs on every device, so the messages
+    show here: H not a multiple of 8, shapes, dtypes, contiguity, and an
+    input off a two-element boundary."""
+    rng = np.random.default_rng(6)
+
+    def args(H=16, T=3, B=2, D=2):
+        r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        return [r(D, T, B, 4 * H), torch.ones(T, B), r(D, 4 * H, H), r(D, B, H),
+                r(D, T, B, H), r(D, T, B, H), r(D, B, H), r(D, B, H)]
+
+    def offset(a):
+        """a contiguous copy of a, one element into its storage"""
+        return torch.empty(a.numel() + 1).narrow(0, 1, a.numel()).view_as(a).copy_(a)
+
+    good = args()
+    lstm.lstm_scan_bwd(*good, (False, True))
+    bad = {
+        "multiple of 8": (None, args(H=12), ValueError),
+        "g_seq must start on a boundary of two elements": (0, offset(good[0]), ValueError),
+        "c_seq must start on a boundary": (4, offset(good[4]), ValueError),
+        "dy must start on a boundary": (5, offset(good[5]), ValueError),
+        "w_hh must be": (2, good[2][:, :, :8], ValueError),
+        "c0 must be torch.float32": (3, good[3].double(), TypeError),
+        "c_seq must be contiguous": (4, good[4].transpose(2, 3).contiguous().transpose(2, 3),
+                                     ValueError),
+    }
+    for match, (i, value, exc) in bad.items():
+        a = value if i is None else good[:i] + [value] + good[i + 1:]
+        with pytest.raises(exc, match=match):
+            lstm.lstm_scan_bwd(*a, (False, True))
+    with pytest.raises(ValueError, match="directions"):
+        lstm.lstm_scan_bwd(*good, (False,))
+    meta = [a.to("meta") for a in good]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        lstm.lstm_scan_bwd(*meta, (False, True))
+
+
 def test_cpu_path_counts_no_launch_and_import_loads_nothing():
     xp, mask, w, b, h0, c0 = problem(5, T=3, B=2, H=16)
     before = lstm.LAUNCHES

@@ -11,6 +11,8 @@ one warm-up call) of:
   K1                    lstm_scan_fwd (inference);
   K2                    lstm_scan_fwd(save_residuals=True);
   K2 + K3               K2 then lstm_scan_bwd on its residuals;
+  K3, 2 directions      lstm_scan_bwd alone on K2's residuals, both directions of
+                        a layer in one call (the second scans them backwards);
   K4                    gru_scan_fwd (inference);
   K4 with residuals     gru_scan_fwd(save_residuals=True);
   K4 with residuals + K5  that, then gru_scan_bwd (h_prev computed once,
@@ -106,6 +108,7 @@ def run(log=print):
     y3, _, g3 = gru.gru_scan_fwd(xp3, mask, w3, b3, h0, rev, save_residuals=True)
     h_prev = _carried_h_prev(y3, mask, h0, rev)
     xp_chain, w_chain = xp4[0], randn(H, 4 * H, scale=0.01)
+    g2, w2, z2, c2, dy2, dh2 = (torch.cat([a, a]) for a in (g4, w4, h0, c_seq, dy, dh))
 
     def k2_k3():
         _, _, _, g, c = lstm.lstm_scan_fwd(xp4, mask, w4, b4, h0, h0, rev, save_residuals=True)
@@ -120,6 +123,10 @@ def run(log=print):
         "K2 lstm_fwd_residuals": lambda: lstm.lstm_scan_fwd(xp4, mask, w4, b4, h0, h0, rev,
                                                             save_residuals=True),
         "K2 + K3 lstm_bwd": k2_k3,
+        # both directions in one call, as a bidirectional layer runs it (the
+        # second direction scans the same residuals backwards in time)
+        "K3 lstm_bwd, 2 directions": lambda: lstm.lstm_scan_bwd(g2, mask, w2, z2, c2, dy2, dh2,
+                                                                  dh2, (False, True)),
         "K4 gru_fwd": lambda: gru.gru_scan_fwd(xp3, mask, w3, b3, h0, rev),
         "K4 gru_fwd_residuals": lambda: gru.gru_scan_fwd(xp3, mask, w3, b3, h0, rev,
                                                          save_residuals=True),
