@@ -31,10 +31,13 @@ Phases, each printing what it measured; any failure exits non-zero:
               loads it giving the trainer's eval posteriors;
   9. step parity  one training step of a small model (H=256, 2 layers, f32)
               on the card against the same step on the CPU;
- 10. top-k kernel  K6 against its plain version (a stable sort) at the beam
-              pool's shapes (16, 3840) -> 128 and (20, 300) -> 10, at
-              (64, 7680) -> 256, and on a tie-heavy pool: values and indices
-              exactly equal; CUDA-event median times of both;
+ 10. top-k kernel  K6 against its plain version (a stable sort of the
+              total-order keys) at the beam pool's shapes (16, 3840) -> 128
+              and (20, 300) -> 10, at (64, 7680) -> 256, on a tie-heavy pool
+              and on a pool of signed zeros, subnormals, -inf and -1e30:
+              values (bit for bit) and indices exactly equal; CUDA-event
+              median times of both, and the kernel's own device time under
+              torch.profiler;
  11. beam kernel  K7 against the plain scan at (B, T, W, C) = (16, 500, 128,
               29) and (20, 500, 10, 29), log-softmax posteriors with ragged
               sizes including 0, 1 and T: backptr, emit, h1, h2 and the
@@ -58,7 +61,8 @@ Phases, each printing what it measured; any failure exits non-zero:
               f32 and bf16;
  15. GRU train kernels  K4 with residuals and K5 (the GRU reverse scan) at
               T=512, B=64: ragged lengths, a prefix mask with a nonzero carry
-              and a suffix mask with a zero one, f32 and bf16;
+              and a suffix mask with a zero one, f32 and bf16, and K5's step
+              kernel as built;
  16. GRU gradients  the differentiated gru_scan against autograd through
               the plain loop;
  17. GRU parity  5 x BiGRU-1024 and 5 x GRU-1024 + Lookahead 20
@@ -75,8 +79,8 @@ Phases, each printing what it measured; any failure exits non-zero:
               its K8 launches counted.
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
-f32, and for K2 and K3 in bf16 as well; torch.topk; the port never calls
-them), times K2 + K3 and K4 with residuals
+f32, and for K2, K3, K4 with residuals and K5 in bf16 as well; torch.topk;
+the port never calls them), times K2 + K3 and K4 with residuals
 + K5 each as one call beside cuDNN's forward plus backward under autograd
 (the backward rows' with_forward_ms and with_forward_library_ms), and
 computes each kernel's bound: the larger of its operations over the
@@ -739,6 +743,29 @@ def phase_step_parity(torch, np):
           f"{results['cuda'][1]!r} vs {results['cpu'][1]!r} (relative {loss_err!r})")
 
 
+def kernel_device_ms(torch, fn, name, reps):
+    """The mean device time in ms of the kernels whose name holds ``name``
+    over ``reps`` calls of fn under torch.profiler: the kernel's own time,
+    without the wrapper's host work. None (not measured) when the profiler
+    sees none of them."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or name not in evt.key:
+            continue
+        us += next((float(getattr(evt, a)) for a in ("self_device_time_total",
+                                                     "self_cuda_time_total")
+                    if hasattr(evt, a)), 0.0)
+        count += evt.count
+    return us / 1e3 / count if count and us > 0 else None
+
+
 def phase_topk(torch, np):
     """K6: dsjax/ops/topk_pallas.py:_topk_kernel -> dsjax_torch/csrc/topk.cu."""
     from dsjax_torch.ops import topk
@@ -752,23 +779,32 @@ def phase_topk(torch, np):
     ties[:, 1::6] = np.float32(-3.25)                    # repeated scores
     ties[0] = np.float32(-1e30)
     cases.append(("tie-heavy (16, 3840) -> 128", ties, 128))
+    # jax.lax.top_k's total order: -0.0 below +0.0, subnormals kept
+    edge = np.array([0.0, -0.0, 5e-45, -5e-45, 1e-40, -1e-40, -np.inf, -1e30, 1.0, -1.0],
+                    np.float32)
+    cases.append(("signed zeros, subnormals, -inf, -1e30 (16, 3840) -> 128",
+                  rng.choice(edge, (16, 3840)).astype(np.float32), 128))
     for name, s_np, k in cases:
         s = torch.from_numpy(s_np).cuda()
         got = topk.topk(s, k)
         want = topk.topk_reference(s, k)
         torch.cuda.synchronize()
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              f"K6 {name}: differs from the stable sort")
+        # values bit for bit: torch.equal takes -0.0 for +0.0
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+              and torch.equal(got[1], want[1]), f"K6 {name}: differs from the plain version")
         k_ms = cuda_time(lambda: topk.topk(s, k), 50)
+        dev_ms = kernel_device_ms(torch, lambda: topk.topk(s, k), "topk_kernel", 50)
         p_ms = cuda_time(lambda: topk.topk_reference(s, k), 50)
         lib_ms = cuda_time(lambda: torch.topk(s, k, dim=-1), 50)
         # a selection reads each score at least once: one operation per score
         bound_ms, bound_by = least_time(s.numel(), nbytes(s, *got), "float32")
-        print(f"kernel topk {name}: values and indices equal to the plain version (max_abs_err "
-              f"0.0); kernel {k_ms!r} ms, plain {p_ms!r} ms, torch.topk {lib_ms!r} ms (median, "
-              f"CUDA events; its tie order differs); bound {bound_ms!r} ms ({bound_by})")
-        result[name] = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms}
+        print(f"kernel topk {name}: values (bit for bit) and indices equal to the plain version "
+              f"(max_abs_err 0.0); kernel {k_ms!r} ms (wrapper call, CUDA events), {dev_ms!r} "
+              f"ms (the kernel's device time, torch.profiler), plain {p_ms!r} ms, torch.topk "
+              f"{lib_ms!r} ms (median, CUDA events; its tie order differs); bound {bound_ms!r} ms "
+              f"({bound_by})")
+        result[name] = {"max_abs_err": 0.0, "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
     return result
 
 
@@ -1124,8 +1160,8 @@ def phase_gru_train_kernels(torch, np):
         flops = scan_flops(mask, 2, 3, H)
         bounds = {"fwd": least_time(flops, nbytes(*args[:5], *fwd_out), name),
                   "bwd": least_time(flops, nbytes(*bwd_args[:6], *bwd_out), name)}
-        lib = (library_times(torch, "GRU", w, b, lengths, TRAIN_T, 5, train=True)
-               if dtype == torch.float32 else (None, None, None))
+        # cuDNN in the working dtype: the bf16 pair is held to cuDNN in bf16
+        lib = library_times(torch, "GRU", w, b, lengths, TRAIN_T, 5, train=True)
 
         def k4r_k5():
             y, _, res = gru.gru_scan_fwd(*args, save_residuals=True)
@@ -1152,7 +1188,14 @@ def phase_gru_train_kernels(torch, np):
         print(f"kernels K4 with residuals + K5 {name} as one call: {pair_ms!r} ms; "
               f"torch.nn.GRU (cuDNN) forward + backward under autograd {lib[2]!r} ms (median, "
               f"CUDA events)")
-        result[("bwd", name)].update(with_forward_ms=pair_ms, with_forward_library_ms=lib[2])
+        attrs = gru.bwd_kernel_attributes(dtype)
+        print(f"kernel gru_bwd (K5) {name} step kernel: {attrs['units']} hidden units a CTA, "
+              f"{attrs['registers']} registers a thread, "
+              f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} bytes of shared "
+              f"memory a CTA, {attrs['local_bytes']} bytes of local memory a thread "
+              f"(cudaFuncGetAttributes)")
+        result[("bwd", name)].update(with_forward_ms=pair_ms, with_forward_library_ms=lib[2],
+                                     kernel_attributes=attrs)
     return result
 
 
@@ -1475,6 +1518,14 @@ def run(torch, np):
                 "bf16_with_forward_ms": bf16["with_forward_ms"],
                 "bf16_with_forward_library_ms": bf16["with_forward_library_ms"]}
 
+    def attributes(key, res):
+        # a reverse scan's step kernel as built: registers, shared memory and
+        # units a CTA
+        if key == "fwd":
+            return {}
+        return {"kernel_attributes": {n: res[(key, n)]["kernel_attributes"]
+                                      for n in ("float32", "bfloat16")}}
+
     rows = [row("lstm_fwd", "dsjax_torch/csrc/lstm_fwd.cu", "dsjax/ops/lstm_pallas.py:62",
                 launches, kernel["float32"], step_launches=step_launches,
                 launches_in_training=train_launches["lstm_fwd"],
@@ -1485,20 +1536,18 @@ def run(torch, np):
              "dsjax/ops/lstm_pallas.py:381"),
             ("bwd", "lstm_bwd", "dsjax_torch/csrc/lstm_bwd.cu",
              "dsjax/ops/lstm_pallas.py:225")):
-        # K3's step kernel as built: registers, shared memory and units a CTA
-        attrs = ({"kernel_attributes": {n: train_kernels[(key, n)]["kernel_attributes"]
-                                        for n in ("float32", "bfloat16")}}
-                 if key == "bwd" else {})
         rows.append(row(name, source, replaces, train_launches[name],
                         train_kernels[(key, "float32")],
                         **bf16_extra(train_kernels[(key, "bfloat16")]),
                         **pair_extra(key, train_kernels[(key, "float32")],
-                                     train_kernels[(key, "bfloat16")]), **attrs))
+                                     train_kernels[(key, "bfloat16")]),
+                        **attributes(key, train_kernels)))
     first_topk, first_beam = TOPK_SHAPES[0], BEAM_SHAPES[0]
     rows.append(row("topk", "dsjax_torch/csrc/topk.cu", "dsjax/ops/topk_pallas.py:139",
                     eval_runs["beam, scan with K6"]["counts"]["topk"],
                     topk_res[f"({first_topk[0]}, {first_topk[1]}) -> {first_topk[2]}"],
-                    shapes=topk_res))
+                    device_ms=topk_res[f"({first_topk[0]}, {first_topk[1]}) -> {first_topk[2]}"]
+                    ["device_ms"], shapes=topk_res))
     b, t, w, c = first_beam
     rows.append(row("beam_scan", "dsjax_torch/csrc/beam_scan.cu", "dsjax/ops/beam_pallas.py:121",
                     eval_runs["beam, K7"]["counts"]["beam_scan"],
@@ -1517,7 +1566,8 @@ def run(torch, np):
                         gru_train_launches[name], gru_train_kernels[(key, "float32")],
                         **bf16_extra(gru_train_kernels[(key, "bfloat16")]),
                         **pair_extra(key, gru_train_kernels[(key, "float32")],
-                                     gru_train_kernels[(key, "bfloat16")])))
+                                     gru_train_kernels[(key, "bfloat16")]),
+                        **attributes(key, gru_train_kernels)))
     rows.append(row("mm_chain", "dsjax_torch/csrc/mm_chain.cu", "tools/lstm_microbench.py:100",
                     k8["launches"], k8, microbench=k8["microbench"]))
     print(json.dumps({"kernels": rows}))

@@ -48,7 +48,7 @@
 // the scan's elementwise ops. Every frame's state lives in shared memory
 // (43 KB at W = 128); the join runs one thread per stay r scanning the W
 // parents with broadcast shared reads; the sort is the block-wide bitonic
-// network of K6 (bitonic.cuh). With 16 utterances a decode fills 16 of
+// network of bitonic.cuh. With 16 utterances a decode fills 16 of
 // the 132 SMs: more CTAs per utterance (a split sort) is later work.
 
 #include <cuda_runtime.h>

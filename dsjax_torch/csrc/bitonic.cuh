@@ -1,11 +1,13 @@
 // Block-wide bitonic sort of (score, index) pairs in shared memory, in the
-// total order of jax.lax.top_k: score descending, ties to the lower index
-// (dsjax/ops/topk_pallas.py:81-84). Shared by the exact top-k (K6,
-// topk.cu) and the fused beam scan (K7, beam_scan.cu).
+// order of dsjax's Pallas top-k: score descending, ties to the lower index
+// (dsjax/ops/topk_pallas.py:81-84). The fused beam scan (K7, beam_scan.cu)
+// sorts its candidates with it, as dsjax's fused scan does.
 //
-// The comparator assumes no NaN, as dsjax's does. Indices are distinct, so
-// the order is total and the result unique under any number of equal
-// scores.
+// The comparator compares the floats, as dsjax's does: it assumes no NaN,
+// and -0.0 ties with +0.0 (the exact top-k, K6 in topk.cu, follows
+// jax.lax.top_k's total order instead, where -0.0 ranks below +0.0).
+// Indices are distinct, so the order is total and the result unique under
+// any number of equal scores.
 
 #pragma once
 

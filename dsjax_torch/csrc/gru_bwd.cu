@@ -19,46 +19,89 @@
 // follows the correct semantics, which agree with dsjax's kernel wherever
 // that one is right.
 //
-// What bounds it on this card. The elementwise part is unit-local, but
+// Structure, as K3's (lstm_bwd.cu). The elementwise part is unit-local, but
 // dh[b, j] = sum_k dG[b, k] W_hh[k, j] needs all 3H h-side gradients of a
-// row, which every CTA writes: the step's result crosses CTAs. Per step and
-// direction the product does 2 * B * 3H * H FLOP (0.8 GFLOP for both
-// directions at B = 64, H = 1024) on CUDA cores and reads W_hh (6 MB bf16,
-// 12 MB f32, from L2 after the first step) once per kRows batch rows, plus
-// every row of dG once per CTA. Steps are dependent, so it is bound by those
-// FLOPs, the L2 reads and the per-step latency, as the LSTM's (lstm_bwd.cu).
+// row, which every CTA writes: the step's result crosses CTAs. dG is the
+// exchange between CTAs, and the launch boundary is the barrier: launch k
+// first finishes the product for the step that launch k - 1 ran, then runs
+// the elementwise part of its own step and writes that step's dxp and dG
+// columns. dG cannot be rebuilt from dxp (in bf16, round(dn_pre * r) is not
+// round(round(dn_pre) * r)), so it has a buffer of its own, (2, D, B, 3H),
+// double-buffered by the launch's parity so that no CTA overwrites what
+// another still reads. A last launch (k = T) only finishes the product and
+// writes dh0: T + 1 launches a layer, both directions in one grid
+// (ceil(H / kUnits), directions). The f32 dh carry of a CTA's units stays
+// in device memory that only that CTA touches.
 //
-// What the design does about it. K3's design. dG is the exchange between
-// CTAs, and the launch boundary is the barrier: launch k first finishes the
-// product for the step that launch k - 1 ran, then runs the elementwise part
-// of its own step and writes that step's dxp and dG columns. dG cannot be
-// rebuilt from dxp (in bf16, round(dn_pre * r) is not round(round(dn_pre) *
-// r)), so it has a buffer of its own, (2, D, B, 3H), double-buffered by the
-// launch's parity so that no CTA overwrites what another still reads. A last
-// launch (k = T) only finishes the product and writes dh0: T + 1 launches a
-// layer, both directions in one grid (H / kUnits, directions). Each CTA owns
-// kUnits hidden units; the f32 dh carry of its units stays in device memory
-// that only its own threads touch. W_hh comes in transposed, (D, H, 3H), so
-// unit j's 3H weights are one contiguous row for 16-byte loads; a warp owns
-// kUnitsPerWarp such rows and multiplies them against the previous step's
-// dG, which the CTA stages in shared memory in f32, kChunk columns at a time.
+// The step product. A CTA owns kUnits = 16 hidden units and computes
+// Z[rows, 16] = dG[rows, 0:3H] . W_hh^T[16 units, 0:3H]^T for every batch
+// row at once, in blocks of 64 rows (scan_mma.cuh, the product K3 runs with
+// a K width of 4H): one pass over its W_hh rows a step at B <= 64. W_hh
+// comes in transposed, (D, H, 3H), so unit j's 3H weights are one
+// contiguous row; the previous step's dG and the CTA's W_hh^T rows are
+// staged with 16-byte cp.async in the working type. In bf16 the product runs
+// on tensor cores (mma.sync m16n8k16, f32 accumulators), in f32 on CUDA
+// cores from the same tiles (no TF32: its rounding of the sums would pass
+// the reverse scan's tolerance). The epilogue's inputs of step s (r, z, n,
+// hn, h_prev, dy, mask and the carry) do not depend on the product and are
+// loaded before it; a thread then finishes a pair of neighbouring units of
+// two rows, with 2-wide loads and stores, and writes 3 dxp and 3 dG
+// columns a unit.
+//
+// What bounds it. Each step's 2 * B * 3H * H FLOP a direction (0.8 GFLOP
+// for both directions at B = 64, H = 1024) are a few microseconds of the
+// tensor cores; what remains is the dG block (384 KB in bf16 at B = 64)
+// that every CTA re-reads from L2 each step beside its own 96 KB of W_hh^T,
+// and the latency of one launch a step. Next, as for K3: multicast the dG
+// tile to a cluster of CTAs, then the persistent form (ROADMAP Queue 2).
 
 #include "lstm_common.cuh"
+#include "scan_mma.cuh"
 
 namespace {
 
 using namespace dsjax_torch;
+namespace sm = dsjax_torch::scan_mma;
 
-constexpr int kUnits = 8;                            // hidden units per CTA
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kUnitsPerWarp = kUnits / kWarps;       // 2
-constexpr int kRows = 8;                             // batch rows per pass over W_hh
-constexpr int kChunk = 1024;                         // dG columns staged at a time
+constexpr int kUnits = 16;                           // hidden units per CTA
+constexpr int kThreads = sm::kThreads;
+constexpr int kPairs = kUnits / 2;                   // a thread's units are a pair
+constexpr int kRowsPerPass = kThreads / kPairs;      // 32
+constexpr int kPasses = sm::kRows / kRowsPerPass;    // rows of a block per thread: 2
 
-static_assert(kUnits % kWarps == 0, "units must split evenly over warps");
-static_assert(kRows * kUnits <= kThreads, "one thread per (row, unit)");
-static_assert(kChunk % (32 * 8) == 0, "a chunk is whole 16-byte loads of every lane");
+static_assert(kThreads % kPairs == 0 && sm::kRows % kRowsPerPass == 0,
+              "threads cover a row block in whole passes");
+
+// The epilogue's inputs for one row and a unit pair, as 2-vectors (x: unit
+// j, y: unit j + 1).
+struct Item {
+  bool valid;
+  float m;
+  float2 dh, r, z, n, hn, h_prev, dy;
+};
+
+// One unit of the elementwise step: its 3 dxp columns, its 3 dG columns
+// and the carry handed to the step before it, less the product.
+__device__ __forceinline__ void cell(float dh, float r_g, float z_g, float n_g, float hn,
+                                     float h_prev, float dy, float m, float (&dx)[3],
+                                     float (&dg)[3], float& dh_rest) {
+  const float dh_a = dh + dy * m;
+  const float dh_n = dh_a * m;
+  const float dz = dh_n * (h_prev - n_g);
+  const float dn_pre = dh_n * (1.f - z_g) * (1.f - n_g * n_g);
+  const float dr_pre = (dn_pre * hn) * r_g * (1.f - r_g);
+  const float dz_pre = dz * z_g * (1.f - z_g);
+  dx[0] = dg[0] = dr_pre;
+  dx[1] = dg[1] = dz_pre;
+  dx[2] = dn_pre;
+  dg[2] = dn_pre * r_g;
+  dh_rest = dh_n * z_g + dh_a * (1.f - m);
+}
+
+template <typename T>
+constexpr int smem_bytes() {
+  return sm::Shape<T, kUnits>::kSmemBytes + sm::kRows * kUnits * static_cast<int>(sizeof(float));
+}
 
 // Launch `launch` of the reverse scan of every direction.
 //   gates   (D, T, B, 4H)  (r, z, n, hn) from the forward
@@ -72,23 +115,19 @@ static_assert(kChunk % (32 * 8) == 0, "a chunk is whole 16-byte loads of every l
 //                          on entry to launch 0, dh_T
 //   dh0     (D, B, H)      written by the last launch
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 gru_bwd_step_kernel(const T* __restrict__ gates, const float* __restrict__ mask,
                     const T* __restrict__ w_t, const T* __restrict__ h_prev,
                     const T* __restrict__ dy, T* __restrict__ dxp, T* __restrict__ dg,
                     float* __restrict__ dh_rest, T* __restrict__ dh0, int n_t, int n_b,
                     int n_h, int launch, int reverse_bits) {
-  constexpr int V = Vec<T>::N;
-  extern __shared__ float smem[];
-  float* g_s = smem;                        // (kRows, kChunk): dG in f32
-  float* z_s = smem + kRows * kChunk;       // (kUnits, kRows): dG . W_hh
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* z_s = reinterpret_cast<float*>(smem + sm::Shape<T, kUnits>::kSmemBytes);  // (64, kUnits)
 
   const int d = blockIdx.y;
   const int n_dir = gridDim.y;
   const bool rev = (reverse_bits >> d) & 1;
   const int j0 = blockIdx.x * kUnits;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   const int g3 = 3 * n_h;
   // this launch runs scan step s (none at the last launch, s = -1) and
   // finishes the product of step s + 1, which the previous launch ran
@@ -97,104 +136,70 @@ gru_bwd_step_kernel(const T* __restrict__ gates, const float* __restrict__ mask,
   const int t = s >= 0 ? time_of(s, n_t, rev) : 0;
   const T* dg_in = dg + (static_cast<size_t>((launch + 1) & 1) * n_dir + d) * n_b * g3;
   T* dg_out = dg + (static_cast<size_t>(launch & 1) * n_dir + d) * n_b * g3;
-
-  const T* w_rows[kUnitsPerWarp];
-#pragma unroll
-  for (int c = 0; c < kUnitsPerWarp; ++c) {
-    const int j = j0 + warp * kUnitsPerWarp + c;
-    w_rows[c] = w_t + (static_cast<size_t>(d) * n_h + j) * g3;
-  }
+  const int u = 2 * (threadIdx.x % kPairs);
+  const int j = j0 + u;
   const size_t state_d = static_cast<size_t>(d) * n_b * n_h;
+  const T* w_rows = w_t + (static_cast<size_t>(d) * n_h + j0) * g3;
 
-  for (int b0 = 0; b0 < n_b; b0 += kRows) {
-    const int nb = min(kRows, n_b - b0);
-    if (has_prev) {
-      const T* dg_rows = dg_in + static_cast<size_t>(b0) * g3;
-      float acc[kUnitsPerWarp][kRows];
+  for (int b0 = 0; b0 < n_b; b0 += sm::kRows) {
+    const int nb = min(sm::kRows, n_b - b0);
+    // the epilogue's inputs first: none depends on the product
+    Item in[kPasses];
 #pragma unroll
-      for (int c = 0; c < kUnitsPerWarp; ++c) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[c][r] = 0.f;
-      }
-      for (int k0 = 0; k0 < g3; k0 += kChunk) {
-        const int nk = min(kChunk, g3 - k0);
-        for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
-          const int r = i / kChunk;
-          const int k = i % kChunk;
-          g_s[i] = (r < nb && k < nk) ? to_f32(dg_rows[static_cast<size_t>(r) * g3 + k0 + k])
-                                      : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 2
-        for (int k = lane * V; k < nk; k += 32 * V) {
-          float w[kUnitsPerWarp][V];
-#pragma unroll
-          for (int c = 0; c < kUnitsPerWarp; ++c) load16(w_rows[c] + k0 + k, w[c]);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            float gv[V];
-#pragma unroll
-            for (int q = 0; q < V; q += 4) {
-              const float4 v = *reinterpret_cast<const float4*>(g_s + r * kChunk + k + q);
-              gv[q] = v.x; gv[q + 1] = v.y; gv[q + 2] = v.z; gv[q + 3] = v.w;
-            }
-#pragma unroll
-            for (int c = 0; c < kUnitsPerWarp; ++c) {
-#pragma unroll
-              for (int q = 0; q < V; ++q) acc[c][r] = fmaf(w[c][q], gv[q], acc[c][r]);
-            }
-          }
-        }
-        __syncthreads();              // the chunk is read before the next overwrites it
-      }
-#pragma unroll
-      for (int c = 0; c < kUnitsPerWarp; ++c) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float v = acc[c][r];
-#pragma unroll
-          for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-          if (lane == 0) z_s[(warp * kUnitsPerWarp + c) * kRows + r] = v;
-        }
-      }
-      __syncthreads();
+    for (int p = 0; p < kPasses; ++p) {
+      const int r = threadIdx.x / kPairs + p * kRowsPerPass;
+      const int b = b0 + r;
+      Item& it = in[p];
+      it.valid = r < nb && j < n_h;
+      if (!it.valid) continue;
+      it.dh = load2(dh_rest + state_d + static_cast<size_t>(b) * n_h + j);
+      if (s < 0) continue;
+      const size_t row = (static_cast<size_t>(d) * n_t + t) * n_b + b;
+      const T* g_row = gates + row * 4 * static_cast<size_t>(n_h) + j;
+      it.r = load2(g_row);
+      it.z = load2(g_row + n_h);
+      it.n = load2(g_row + 2 * n_h);
+      it.hn = load2(g_row + 3 * n_h);
+      it.h_prev = load2(h_prev + row * n_h + j);
+      it.dy = load2(dy + row * n_h + j);
+      it.m = mask[static_cast<size_t>(t) * n_b + b];
     }
 
-    if (threadIdx.x < nb * kUnits) {
-      const int r = threadIdx.x / kUnits;
-      const int u = threadIdx.x % kUnits;
-      const int j = j0 + u;
+    if (has_prev) {
+      sm::product<T, kUnits>(dg_in + static_cast<size_t>(b0) * g3, g3, nb, w_rows, g3,
+                             min(kUnits, n_h - j0), g3, smem, z_s);
+    }
+
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const Item& it = in[p];
+      if (!it.valid) continue;
+      const int r = threadIdx.x / kPairs + p * kRowsPerPass;
       const int b = b0 + r;
       const size_t st = state_d + static_cast<size_t>(b) * n_h + j;
-      const float dh = dh_rest[st] + (has_prev ? z_s[u * kRows + r] : 0.f);
+      const float2 z = has_prev ? make_float2(z_s[r * kUnits + u], z_s[r * kUnits + u + 1])
+                                : make_float2(0.f, 0.f);
+      const float dh_x = it.dh.x + z.x;
+      const float dh_y = it.dh.y + z.y;
       if (s < 0) {
-        dh0[st] = from_f32<T>(dh);
-      } else {
-        const size_t row = (static_cast<size_t>(d) * n_t + t) * n_b + b;
-        const T* g_row = gates + row * 4 * static_cast<size_t>(n_h);
-        const float r_g = to_f32(g_row[j]);
-        const float z_g = to_f32(g_row[n_h + j]);
-        const float n_g = to_f32(g_row[2 * n_h + j]);
-        const float hn = to_f32(g_row[3 * n_h + j]);
-        const float m = mask[static_cast<size_t>(t) * n_b + b];
-        const float dh_a = dh + to_f32(dy[row * n_h + j]) * m;
-        const float dh_n = dh_a * m;
-        const float dz = dh_n * (to_f32(h_prev[row * n_h + j]) - n_g);
-        const float dn_pre = dh_n * (1.f - z_g) * (1.f - n_g * n_g);
-        const float dr_pre = (dn_pre * hn) * r_g * (1.f - r_g);
-        const float dz_pre = dz * z_g * (1.f - z_g);
-        T* x_row = dxp + row * g3;
-        x_row[j] = from_f32<T>(dr_pre);
-        x_row[n_h + j] = from_f32<T>(dz_pre);
-        x_row[2 * n_h + j] = from_f32<T>(dn_pre);
-        T* e_row = dg_out + static_cast<size_t>(b) * g3;
-        e_row[j] = from_f32<T>(dr_pre);
-        e_row[n_h + j] = from_f32<T>(dz_pre);
-        e_row[2 * n_h + j] = from_f32<T>(dn_pre * r_g);
-        dh_rest[st] = dh_n * z_g + dh_a * (1.f - m);
+        store2(dh0 + st, dh_x, dh_y);
+        continue;
       }
+      float dx_x[3], dx_y[3], dg_x[3], dg_y[3];
+      float rest_x, rest_y;
+      cell(dh_x, it.r.x, it.z.x, it.n.x, it.hn.x, it.h_prev.x, it.dy.x, it.m, dx_x, dg_x,
+           rest_x);
+      cell(dh_y, it.r.y, it.z.y, it.n.y, it.hn.y, it.h_prev.y, it.dy.y, it.m, dx_y, dg_y,
+           rest_y);
+      T* x_row = dxp + ((static_cast<size_t>(d) * n_t + t) * n_b + b) * g3 + j;
+      T* e_row = dg_out + static_cast<size_t>(b) * g3 + j;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        store2(x_row + q * n_h, dx_x[q], dx_y[q]);
+        store2(e_row + q * n_h, dg_x[q], dg_y[q]);
+      }
+      store2(dh_rest + st, rest_x, rest_y);
     }
-    __syncthreads();
   }
 }
 
@@ -202,14 +207,13 @@ template <typename T>
 int run_bwd(const void* gates, const void* mask, const void* w_t, const void* h_prev,
             const void* dy, void* dxp, void* dg, void* dh_rest, void* dh0, int n_dir, int n_t,
             int n_b, int n_h, int reverse_bits, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kRows * kChunk + kUnits * kRows) * sizeof(float);
   auto kernel = gru_bwd_step_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>());
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_h / kUnits, n_dir);
+  const dim3 grid((n_h + kUnits - 1) / kUnits, n_dir);
   for (int k = 0; k <= n_t; ++k) {
-    kernel<<<grid, kThreads, smem, stream>>>(
+    kernel<<<grid, kThreads, smem_bytes<T>(), stream>>>(
         static_cast<const T*>(gates), static_cast<const float*>(mask),
         static_cast<const T*>(w_t), static_cast<const T*>(h_prev), static_cast<const T*>(dy),
         static_cast<T*>(dxp), static_cast<T*>(dg), static_cast<float*>(dh_rest),
@@ -224,13 +228,15 @@ int run_bwd(const void* gates, const void* mask, const void* w_t, const void* h_
 
 // Runs the reverse scan of one layer (n_t + 1 launches) on `stream`. dg is
 // (2, D, B, 3H) scratch in the working type; dh_rest is f32 (D, B, H) scratch
-// that must hold dh_T on entry and is overwritten. Requires n_h % 8 == 0.
-// Returns a cudaError_t: the first error any launch reported, or cudaSuccess.
+// that must hold dh_T on entry and is overwritten. Requires n_h % 8 == 0
+// (every row of 3H columns is whole 16-byte copies), w_t and dg on 16-byte
+// boundaries, and gates, h_prev, dy on boundaries of two elements. Returns
+// a cudaError_t: the first error any launch reported, or cudaSuccess.
 extern "C" int dsjax_torch_gru_bwd(const void* gates, const void* mask, const void* w_t,
                                    const void* h_prev, const void* dy, void* dxp, void* dg,
                                    void* dh_rest, void* dh0, int n_dir, int n_t, int n_b,
                                    int n_h, int reverse_bits, int is_bf16, void* stream) {
-  if (n_h % kUnits != 0 || n_h % Vec<__nv_bfloat16>::N != 0) return cudaErrorInvalidValue;
+  if (n_h % 8 != 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return run_bwd<__nv_bfloat16>(gates, mask, w_t, h_prev, dy, dxp, dg, dh_rest, dh0, n_dir,
@@ -238,4 +244,22 @@ extern "C" int dsjax_torch_gru_bwd(const void* gates, const void* mask, const vo
   }
   return run_bwd<float>(gates, mask, w_t, h_prev, dy, dxp, dg, dh_rest, dh0, n_dir, n_t, n_b,
                         n_h, reverse_bits, s);
+}
+
+// The step kernel's resources for the working type: out[0] registers a
+// thread, out[1] static and out[2] dynamic shared memory a CTA in bytes,
+// out[3] local memory a thread in bytes (spills), out[4] hidden units a
+// CTA. Returns a cudaError_t.
+extern "C" int dsjax_torch_gru_bwd_attributes(int is_bf16, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      is_bf16 ? cudaFuncGetAttributes(&attr, gru_bwd_step_kernel<__nv_bfloat16>)
+              : cudaFuncGetAttributes(&attr, gru_bwd_step_kernel<float>);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = is_bf16 ? smem_bytes<__nv_bfloat16>() : smem_bytes<float>();
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = kUnits;
+  return cudaSuccess;
 }

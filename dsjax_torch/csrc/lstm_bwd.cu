@@ -76,19 +76,6 @@ constexpr int kPasses = sm::kRows / kRowsPerPass;    // rows of a block per thre
 static_assert(kThreads % kPairs == 0 && sm::kRows % kRowsPerPass == 0,
               "threads cover a row block in whole passes");
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
 // The epilogue's inputs for one row and a unit pair, as 2-vectors (x: unit
 // j, y: unit j + 1).
 struct Item {

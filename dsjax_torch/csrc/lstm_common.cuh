@@ -1,6 +1,7 @@
-// Helpers shared by the LSTM scan kernels (lstm_fwd.cu, lstm_bwd.cu): the
-// working types float and bfloat16 with float32 arithmetic, and 16-byte
-// loads of a working-type row into float32 registers.
+// Helpers shared by the scan kernels (lstm_*.cu, gru_*.cu): the working
+// types float and bfloat16 with float32 arithmetic, 16-byte loads of a
+// working-type row into float32 registers, and the 2-wide loads and stores
+// of a unit pair that the reverse scans' epilogues make.
 
 #pragma once
 
@@ -47,6 +48,20 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&out)[8]) 
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// Two neighbouring elements, from or to a boundary of two elements.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }

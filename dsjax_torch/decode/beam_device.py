@@ -17,7 +17,9 @@ Two routes run the scan, both on the card for CUDA tensors:
     by K6 (``ops.topk.topk``, ``csrc/topk.cu``), which breaks ties to the
     lower pool index as ``lax.top_k`` does;
   * K7 (``ops.beam.fused_beam_scan``, ``csrc/beam_scan.cu``): the whole
-    no-LM, no-pruning scan in one kernel, bit for bit the same outputs.
+    no-LM, no-pruning scan in one kernel, bit for bit the same outputs
+    (K7 compares the floats, as dsjax's fused scan does, so the two
+    routes could part only where a -0.0 and a +0.0 score tie).
     ``DeviceBeamDecoder`` takes it when ``DSJAX_FUSED_BEAM=1`` (re-read on
     every decode) and the decode can run there (``_fused_ok``). Both routes
     return a carry of the same structure, so a stream may switch between
@@ -105,8 +107,8 @@ def _beam_scan(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
     chunk by chunk is exactly the one-shot decode of the concatenated
     posteriors). ``fused`` sends a decode K7 can take (``_fusable``) to it.
     ``top_k`` replaces the selection function
-    (default ``ops.topk.topk``; the plain version of K7 passes the plain
-    top-k)."""
+    (default ``ops.topk.topk``; the plain version of K7 passes K7's own
+    float-order selection)."""
     b_dim, t_dim, c_dim = log_probs.shape
     w = beam_width
     sizes = torch.as_tensor(sizes, dtype=torch.int32, device=log_probs.device)

@@ -118,6 +118,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dsjax_torch_gru_fwd.restype = i
     lib.dsjax_torch_gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_gru_bwd.restype = i
+    lib.dsjax_torch_gru_bwd_attributes.argtypes = [i, p]
+    lib.dsjax_torch_gru_bwd_attributes.restype = i
     lib.dsjax_torch_mm_chain.argtypes = [p, p, p, p, i, i, i, p]
     lib.dsjax_torch_mm_chain.restype = i
     lib.dsjax_torch_topk.argtypes = [p, p, p, i, i, i, p]
@@ -137,6 +139,17 @@ def load_library() -> ctypes.CDLL:
             _declare(lib)
             _lib = lib
         return _lib
+
+
+def kernel_attributes(entry: str, is_bf16: bool) -> dict:
+    """A step kernel's resources as built (needs the card), from the C entry
+    point ``entry``: registers a thread, static and dynamic shared memory a
+    CTA, local memory (spills) a thread, and the hidden units a CTA owns."""
+    lib = load_library()
+    out = (ctypes.c_int * 5)()
+    check(lib, getattr(lib, entry)(int(is_bf16), out), entry)
+    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                     "local_bytes", "units"), out))
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

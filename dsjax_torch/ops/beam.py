@@ -43,16 +43,24 @@ MAX_WIDTH = 128
 MAX_CLASSES = 30
 
 
+def _float_order_top_k(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """K7's selection: a stable descending sort of the floats themselves,
+    cut to k. It compares as K7 and dsjax's fused scan do
+    (csrc/bitonic.cuh:topk_before, dsjax/ops/topk_pallas.py:_before), so
+    -0.0 ties with +0.0, where K6 follows jax.lax.top_k's total order."""
+    values, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[:, :k], idx[:, :k].to(torch.int32)
+
+
 def fused_beam_scan_reference(log_probs: Tensor, sizes: Tensor, w: int, blank: int,
                               carry0: Optional[Tuple[Tensor, ...]] = None):
-    """Plain PyTorch version of K7: the scan with the plain top-k, and the
-    final beams ranked by the plain top-k."""
+    """Plain PyTorch version of K7: the scan with K7's selection, and the
+    final beams ranked by it."""
     from dsjax_torch.decode.beam_device import _beam_scan
-    from dsjax_torch.ops.topk import topk_reference
 
     backptr, emit, hists, totals, carry = _beam_scan(log_probs, sizes, w, blank,
-                                                     carry0=carry0, top_k=topk_reference)
-    return backptr, emit, hists, totals, carry, topk_reference(totals, w)
+                                                     carry0=carry0, top_k=_float_order_top_k)
+    return backptr, emit, hists, totals, carry, _float_order_top_k(totals, w)
 
 
 def _check(log_probs: Tensor, sizes: Tensor, w: int, blank: int, carry0) -> None:

@@ -26,7 +26,8 @@ Three kernels, as in dsjax:
       training, which also writes (r, z, n, hn) (D, T, B, 4H) at natural
       time t (csrc/gru_fwd.cu);
   K5  ``gru_scan_bwd``                 the reverse scan: dxp (D, T, B, 3H),
-      dh0 (csrc/gru_bwd.cu).
+      dh0 (csrc/gru_bwd.cu, on the step product of csrc/scan_mma.cuh that
+      K3 runs too).
 ``gru_scan`` takes the autograd Function ``GRUScan`` only when autograd will
 differentiate the call; it runs K4 with residuals, then K5, and reduces dW
 and db outside the kernel from dhp = [dxp_rz, dxp_n * r] in float32, as
@@ -50,7 +51,8 @@ from typing import Sequence, Tuple
 import torch
 
 from dsjax_torch.ops import _build
-from dsjax_torch.ops.lstm import _carried_h_prev, _flip, _reverse_bits, check_scan
+from dsjax_torch.ops.lstm import (_carried_h_prev, _flip, _reverse_bits, check_reverse_scan,
+                                  check_scan)
 
 Tensor = torch.Tensor
 
@@ -185,24 +187,33 @@ def gru_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tenso
     return out + (g_seq,) if save_residuals else out
 
 
+def check_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, h_prev: Tensor,
+                   cotangents: Sequence[Tensor], reverse: Sequence[bool]) -> None:
+    """Raise on what K5 does not take (``ops.lstm.check_reverse_scan``):
+    w_hh (D, 3H, H), h_prev (D, T, B, H) and the cotangents dy, dh_T beside
+    g_seq."""
+    dy, dh_t = cotangents
+    check_reverse_scan("gru_scan_bwd", g_seq, mask, w_hh, 3, reverse,
+                       {"h_prev": h_prev, "dy": dy}, {"dh_T": dh_t})
+
+
 def gru_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, h_prev: Tensor, dy: Tensor,
                  dh_t: Tensor, reverse: Sequence[bool]) -> Tuple[Tensor, Tensor]:
     """The reverse scan, K5: the contract of ``gru_scan_backward_reference``.
     The residuals come from ``gru_scan_fwd(save_residuals=True)``; the
-    cotangents are cast to the working dtype and made contiguous here."""
+    cotangents and h_prev are cast to the working dtype and made contiguous
+    here, then ``check_scan_bwd`` checks K5's inputs on every device. The
+    two operands of its step product, W_hh^T and the exchanged dG, must
+    start on 16-byte boundaries: they are tensors this wrapper allocates,
+    which the allocator aligns further."""
     global BWD_LAUNCHES
     dtype = g_seq.dtype
     dy, dh_t, h_prev = (a.to(dtype).contiguous() for a in (dy, dh_t, h_prev))
-    n_dir, n_t, n_b, g4 = g_seq.shape
-    n_h = g4 // 4
-    seq = (n_dir, n_t, n_b, n_h)
-    for name, a, shape in (("dy", dy, seq), ("h_prev", h_prev, seq),
-                           ("dh_T", dh_t, (n_dir, n_b, n_h))):
-        if tuple(a.shape) != shape or a.device != g_seq.device:
-            raise ValueError(f"{name} is {tuple(a.shape)} on {a.device}, "
-                             f"expected {shape} on {g_seq.device}")
+    check_scan_bwd(g_seq, mask, w_hh, h_prev, (dy, dh_t), reverse)
     if g_seq.device.type == "cpu":
         return gru_scan_backward_reference(g_seq, mask, w_hh, h_prev, dy, dh_t, reverse)
+    n_dir, n_t, n_b, g4 = g_seq.shape
+    n_h = g4 // 4
     w_t = w_hh.transpose(1, 2).contiguous()          # (D, H, 3H): a unit's weights per row
     dxp = torch.empty((n_dir, n_t, n_b, 3 * n_h), dtype=dtype, device=g_seq.device)
     # the h-side gradients (dr_pre, dz_pre, dn_pre * r) that steps exchange,
@@ -222,6 +233,13 @@ def gru_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, h_prev: Tensor, dy: 
     with _launch_lock:
         BWD_LAUNCHES += 1
     return dxp, dh0
+
+
+def bwd_kernel_attributes(dtype: torch.dtype) -> dict:
+    """K5's step kernel for ``dtype`` as built (needs the card): registers a
+    thread, static and dynamic shared memory a CTA, local memory (spills) a
+    thread, and the hidden units a CTA owns."""
+    return _build.kernel_attributes("dsjax_torch_gru_bwd_attributes", dtype == torch.bfloat16)
 
 
 def gru_param_grads(dxp: Tensor, g_seq: Tensor, h_prev: Tensor) -> Tuple[Tensor, Tensor]:

@@ -42,7 +42,6 @@ run the plain versions ``lstm_scan_reference`` and
 
 from __future__ import annotations
 
-import ctypes
 import threading
 from typing import Optional, Sequence, Tuple
 
@@ -251,14 +250,14 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
     return out + (g_seq, c_seq) if save_residuals else out
 
 
-def check_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: Tensor,
-                   cotangents: Sequence[Tensor], reverse: Sequence[bool]) -> None:
-    """Raise on what K3 does not take: g_seq (D, T, B, 4H) with H a multiple
-    of 8, mask (T, B) f32, w_hh (D, 4H, H), c0 (D, B, H), c_seq (D, T, B, H)
-    and the cotangents dy, dh_T, dc_T in g_seq's dtype; contiguous, on one
-    device; g_seq, c0, c_seq and the cotangents starting on a boundary of two
-    elements (the kernel reads and writes a pair of neighbouring units at a
-    time)."""
+def check_reverse_scan(op: str, g_seq: Tensor, mask: Tensor, w_hh: Tensor, gates: int,
+                       reverse: Sequence[bool], seq: dict, state: dict) -> None:
+    """Raise on what a reverse scan kernel (K3, K5) does not take: g_seq
+    (D, T, B, 4H) with H a multiple of 8, mask (T, B) f32, w_hh
+    (D, gates * H, H), the ``seq`` tensors (D, T, B, H) and the ``state``
+    tensors (D, B, H), name -> tensor, in g_seq's dtype; contiguous, on one
+    device; g_seq, seq and state starting on a boundary of two elements
+    (the kernels read and write a pair of neighbouring units at a time)."""
     if g_seq.dim() != 4:
         raise ValueError(f"g_seq must be (D, T, B, 4H), got {tuple(g_seq.shape)}")
     n_dir, n_t, n_b, g4 = g_seq.shape
@@ -267,20 +266,28 @@ def check_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq:
         raise ValueError(f"{n_dir} directions with reverse={tuple(reverse)}")
     if g4 != 4 * n_h or n_h % 8:
         raise ValueError(f"hidden size {g4 / 4} must be a multiple of 8: the reverse scan "
-                         f"stages rows of 4H columns in 16-byte copies")
+                         f"stages rows of {gates}H columns in 16-byte copies")
     if g_seq.dtype not in DTYPES:
         raise TypeError(f"g_seq dtype {g_seq.dtype} is not one of {DTYPES}")
-    dy, dh_t, dc_t = cotangents
-    seq, state, dtype = (n_dir, n_t, n_b, n_h), (n_dir, n_b, n_h), g_seq.dtype
-    paired = {"c0": (c0, state, dtype), "c_seq": (c_seq, seq, dtype), "dy": (dy, seq, dtype),
-              "dh_T": (dh_t, state, dtype), "dc_T": (dc_t, state, dtype)}
+    dtype = g_seq.dtype
+    paired = {**{k: (t, (n_dir, n_t, n_b, n_h), dtype) for k, t in seq.items()},
+              **{k: (t, (n_dir, n_b, n_h), dtype) for k, t in state.items()}}
     _check_like("g_seq", g_seq, {"mask": (mask, (n_t, n_b), torch.float32),
-                                 "w_hh": (w_hh, (n_dir, g4, n_h), dtype), **paired},
-                "lstm_scan_bwd")
+                                 "w_hh": (w_hh, (n_dir, gates * n_h, n_h), dtype), **paired},
+                op)
     for name, t in [("g_seq", g_seq)] + [(k, v[0]) for k, v in paired.items()]:
         if t.data_ptr() % (2 * t.element_size()):
             raise ValueError(f"{name} must start on a boundary of two elements "
                              f"({2 * t.element_size()} bytes)")
+
+
+def check_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: Tensor,
+                   cotangents: Sequence[Tensor], reverse: Sequence[bool]) -> None:
+    """Raise on what K3 does not take (``check_reverse_scan``): c0 (D, B, H),
+    c_seq (D, T, B, H) and the cotangents dy, dh_T, dc_T beside g_seq."""
+    dy, dh_t, dc_t = cotangents
+    check_reverse_scan("lstm_scan_bwd", g_seq, mask, w_hh, 4, reverse,
+                       {"c_seq": c_seq, "dy": dy}, {"c0": c0, "dh_T": dh_t, "dc_T": dc_t})
 
 
 def lstm_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: Tensor,
@@ -329,12 +336,7 @@ def bwd_kernel_attributes(dtype: torch.dtype) -> dict:
     """K3's step kernel for ``dtype`` as built (needs the card): registers a
     thread, static and dynamic shared memory a CTA, local memory (spills) a
     thread, and the hidden units a CTA owns."""
-    lib = _build.load_library()
-    out = (ctypes.c_int * 5)()
-    _build.check(lib, lib.dsjax_torch_lstm_bwd_attributes(int(dtype == torch.bfloat16), out),
-                 "lstm_bwd attributes")
-    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
-                     "local_bytes", "units"), out))
+    return _build.kernel_attributes("dsjax_torch_lstm_bwd_attributes", dtype == torch.bfloat16)
 
 
 def _carried_h_prev(y: Tensor, mask: Tensor, h0: Tensor, reverse: Sequence[bool]) -> Tensor:

@@ -2,22 +2,27 @@
 
 Counterpart of dsjax/ops/topk_pallas.py:topk_pallas. ``topk(scores, k)``
 takes (B, N) float32 scores and returns (values (B, k) float32, indices
-(B, k) int32) in the total order that ``jax.lax.top_k`` gives: score
-descending, ties to the lower index. The device beam search selects its
-top-W from a candidate pool full of equal -1e30 dead slots on every step,
-so the tie order decides which slots survive; ``torch.topk`` does not
-promise one, so neither the kernel nor its plain version uses it.
+(B, k) int32) in the order that ``jax.lax.top_k`` gives: the IEEE total
+order of the scores, descending, ties to the lower index. So -0.0 ranks
+below +0.0, subnormals keep their order, and the values are the scores bit
+for bit (-0.0 stays -0.0). The device beam search selects its top-W from a
+candidate pool full of equal -1e30 dead slots on every step, so the tie
+order decides which slots survive; ``torch.topk`` does not promise one, so
+neither the kernel nor its plain version uses it. A NaN score is
+unspecified, as in dsjax.
 
-The comparator assumes no NaN, as dsjax's does: a NaN score breaks the
-total order and the result is then unspecified. -0.0 and +0.0 compare
-equal, so their order is by index.
+dsjax's Pallas kernel compares the floats themselves (-0.0 equal to +0.0)
+and, as XLA runs it on the CPU, flushes subnormals to zero, so on rows of
+signed zeros or subnormals it differs from ``jax.lax.top_k``; the port
+follows ``jax.lax.top_k``, which dsjax uses wherever it is not on one TPU.
+The fused beam scan (K7, ``ops.beam``) keeps the float comparison of the
+kernel it ports.
 
 On CUDA tensors ``topk`` launches ``csrc/topk.cu`` (one CTA per row, a
-bitonic sort of the padded row in shared memory) or raises; on CPU tensors
-it runs the plain version ``topk_reference``. Any k <= N works, for rows of
-up to ``MAX_N`` scores (the kernel holds a row of (score, index) pairs,
-padded to a power of two, in dynamic shared memory: 16384 pairs are 128 KB
-of the 227 KB a CTA may use).
+radix select of the k-th key, then only the k survivors ordered) or raises;
+on CPU tensors it runs the plain version ``topk_reference``. Any k <= N
+works, for rows of up to ``MAX_N`` scores (the kernel holds a thread's
+strip of the row in registers, at most 16 scores a thread of 1024).
 """
 
 from __future__ import annotations
@@ -38,11 +43,20 @@ _launch_lock = threading.Lock()
 MAX_N = 16384
 
 
+def _order_key(scores: Tensor) -> Tensor:
+    """int32 keys of float32 scores whose integer order is the IEEE total
+    order: the bits of a score of sign 0, else the bits with all but the
+    sign flipped."""
+    bits = scores.view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
 def topk_reference(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
-    """Plain PyTorch version of K6: a stable descending sort, cut to k, so
-    equal scores keep their index order."""
-    values, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return values[:, :k], idx[:, :k].to(torch.int32)
+    """Plain PyTorch version of K6: a stable descending sort of the
+    total-order keys, cut to k, so equal scores keep their index order; the
+    values are gathered from the scores themselves."""
+    idx = torch.sort(_order_key(scores), dim=-1, descending=True, stable=True).indices[:, :k]
+    return torch.gather(scores, 1, idx), idx.to(torch.int32)
 
 
 def _check(scores: Tensor, k: int) -> None:

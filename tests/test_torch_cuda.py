@@ -14,7 +14,9 @@ with TF32 off. K6 (the exact top-k) and K7 (the fused beam scan) are held
 against their plain versions exactly, K7's float totals and carry to atol
 1e-5 (logaddexp sums the same floats in the same order on both sides), with
 their launch counts per decode route and the raise when the kernel library
-cannot load.
+cannot load; K6 also on signed zeros and subnormals, values compared bit
+for bit. K5 (the GRU reverse scan) runs at K3's tiling edges, and both
+reverse scans' step kernels are checked to fit one CTA an SM.
 """
 
 import numpy as np
@@ -218,19 +220,49 @@ def tie_heavy(rng, b, n):
     return s
 
 
-@pytest.mark.parametrize("b,n,k", [(16, 3840, 128), (20, 300, 10), (64, 7680, 256), (3, 1, 1),
-                                   (2, 16384, 300), (5, 129, 129)])
-def test_topk_kernel_matches_plain_version(full_fp32, b, n, k):
+EDGE_POOL = np.array([0.0, -0.0, 5e-45, -5e-45, 1e-40, -1e-40, 1e-38, -1e-38, -np.inf, -1e30,
+                      1.0, -1.0], np.float32)
+
+
+def kth_key_ties(rng, b, n, k):
+    """Rows whose k-th key ties across hundreds of positions: k // 2 scores
+    above 1, 700 at 0.25, the rest below -1."""
+    s = -1.0 - rng.random((b, n)).astype(np.float32)
+    for row in s:
+        pos = rng.permutation(n)
+        row[pos[:k // 2]] = 1.0 + rng.random(k // 2).astype(np.float32)
+        row[pos[k // 2:k // 2 + 700]] = 0.25
+    return s
+
+
+# the beam pools; k = N on both ordering routes (ranked up to k = 256,
+# sorted above); k = 1; the largest row; signed zeros, subnormals, -inf and
+# -1e30; rows whose k-th key ties across hundreds of positions
+@pytest.mark.parametrize("scores,b,n,k", [
+    ("tie-heavy", 16, 3840, 128), ("tie-heavy", 20, 300, 10), ("tie-heavy", 64, 7680, 256),
+    ("tie-heavy", 3, 1, 1), ("tie-heavy", 2, 16384, 300), ("tie-heavy", 5, 129, 129),
+    ("tie-heavy", 4, 5000, 5000), ("tie-heavy", 16, 3840, 1), ("tie-heavy", 2, 16384, 16384),
+    ("signed zeros", 8, 300, 1), ("signed zeros", 8, 300, 64), ("signed zeros", 4, 3840, 128),
+    ("signed zeros", 4, 3840, 3840), ("k-th key ties", 16, 3840, 128),
+    ("k-th key ties", 4, 7680, 1000)])
+def test_topk_kernel_matches_plain_version(full_fp32, scores, b, n, k):
+    """Indices equal, values equal bit for bit (torch.equal takes -0.0 for
+    +0.0)."""
     from dsjax_torch.ops import topk
 
-    s = torch.from_numpy(tie_heavy(np.random.default_rng(n), b, n)).cuda()
+    rng = np.random.default_rng(n + k)
+    s_np = {"tie-heavy": lambda: tie_heavy(np.random.default_rng(n), b, n),
+            "signed zeros": lambda: rng.choice(EDGE_POOL, (b, n)).astype(np.float32),
+            "k-th key ties": lambda: kth_key_ties(rng, b, n, k)}[scores]()
+    s = torch.from_numpy(s_np).cuda()
     before = topk.LAUNCHES
     values, idx = topk.topk(s, k)
     torch.cuda.synchronize()
     assert topk.LAUNCHES == before + 1
     want_v, want_i = topk.topk_reference(s, k)
     assert idx.dtype == want_i.dtype == torch.int32
-    assert torch.equal(values, want_v) and torch.equal(idx, want_i)
+    assert torch.equal(idx, want_i)
+    assert torch.equal(values.view(torch.int32), want_v.view(torch.int32))
 
 
 def test_topk_kernel_refuses_rows_over_its_limit(full_fp32):
@@ -347,8 +379,9 @@ def gru_problem(shape, dtype, suffix=False, carry=True):
     lengths[0], lengths[-1] = 1, T
     mask = np.arange(T)[:, None] < lengths[None, :]
     mask = dev(mask[::-1] if suffix else mask, torch.float32)
+    w_scale = 0.1 if H < 1024 else 0.03              # as problem() takes it
     return (dev(rng.standard_normal((D, T, B, 3 * H)) * 0.3), mask,
-            dev(rng.standard_normal((D, 3 * H, H)) * 0.1),
+            dev(rng.standard_normal((D, 3 * H, H)) * w_scale),
             dev(rng.standard_normal((D, 3 * H)) * 0.1),
             dev(rng.standard_normal((D, B, H)) * 0.3 * carry))
 
@@ -402,6 +435,46 @@ def test_gru_residual_forward_and_reverse_scan_match_plain_versions(full_fp32, d
         for o, r in zip(got, want):
             assert o.dtype == dtype and o.shape == r.shape
             torch.testing.assert_close(o.float(), r.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_gru_reverse_scan_matches_plain_version_at_the_tiling_edges(full_fp32, dtype, shape):
+    """K5 at K3's tiling edges (B=80 crosses the 64-row block, B=1, H=40
+    ends inside a CTA's 16 units, and the flagship's width) on the plain
+    forward's residuals with nonzero dh_T: a prefix mask with a nonzero carry
+    and a suffix mask with a zero one."""
+    from dsjax_torch.ops import gru
+    from dsjax_torch.ops.lstm import _carried_h_prev
+
+    T, B, H, reverse = shape
+    for suffix in (False, True):
+        xp, mask, w, b, h0 = gru_problem(shape, dtype, suffix, carry=not suffix)
+        y, _, g_seq = gru.gru_scan_reference(xp, mask, w, b, h0, reverse, save_residuals=True)
+        h_prev = _carried_h_prev(y, mask, h0, reverse)
+        rng = np.random.default_rng(T + 9)
+        dy, dh_t = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+                    for s in (y.shape, h0.shape))
+        before = gru.BWD_LAUNCHES
+        got = gru.gru_scan_bwd(g_seq, mask, w, h_prev, dy, dh_t, reverse)
+        torch.cuda.synchronize()
+        assert gru.BWD_LAUNCHES == before + 1
+        want = gru.gru_scan_backward_reference(g_seq, mask, w, h_prev, dy, dh_t, reverse)
+        for o, r in zip(got, want):
+            assert o.dtype == dtype and o.shape == r.shape
+            torch.testing.assert_close(o.float(), r.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_gru_reverse_scan_kernel_fits_one_cta_an_sm(full_fp32, dtype):
+    """K5's step kernel as built: 16 units a CTA, its shared memory within
+    the 227 KB a CTA may take, registers within 255 a thread."""
+    from dsjax_torch.ops import gru
+
+    attrs = gru.bwd_kernel_attributes(dtype)
+    assert attrs["units"] == 16
+    assert attrs["static_smem_bytes"] + attrs["dynamic_smem_bytes"] <= 232448
+    assert 0 < attrs["registers"] <= 255
 
 
 def test_differentiated_gru_scan_runs_k4_k5_and_matches_autograd(full_fp32):

@@ -161,6 +161,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         gru.gru_scan(*[a.to("meta") for a in args], reverse=(False,))
 
 
+def test_reverse_scan_wrapper_rejects_what_the_kernel_does_not_take():
+    """gru_scan_bwd checks K5's inputs on every device, so the messages
+    show here: H not a multiple of 8, shapes, dtypes, contiguity, and an
+    input off a two-element boundary."""
+    rng = np.random.default_rng(8)
+
+    def args(H=16, T=3, B=2, D=2):
+        r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        return [r(D, T, B, 4 * H), torch.ones(T, B), r(D, 3 * H, H), r(D, T, B, H),
+                r(D, T, B, H), r(D, B, H)]
+
+    def offset(a):
+        """a contiguous copy of a, one element into its storage"""
+        return torch.empty(a.numel() + 1).narrow(0, 1, a.numel()).view_as(a).copy_(a)
+
+    good = args()
+    dxp, dh0 = gru.gru_scan_bwd(*good, (False, True))
+    assert dxp.shape == (2, 3, 2, 48) and dh0.shape == (2, 2, 16)
+    bad = {
+        "multiple of 8": (None, args(H=12), ValueError),
+        "g_seq must start on a boundary of two elements": (0, offset(good[0]), ValueError),
+        "h_prev must start on a boundary": (3, offset(good[3]), ValueError),
+        "dy must start on a boundary": (4, offset(good[4]), ValueError),
+        "w_hh must be": (2, good[2][:, :, :8], ValueError),
+        "mask must be torch.float32": (1, good[1].double(), TypeError),
+        "g_seq dtype": (0, good[0].double(), TypeError),
+        r"dh_T must be \(2, 2, 16\)": (5, good[5][:, :1], ValueError),
+        "g_seq must be contiguous": (0, good[0].transpose(2, 3).contiguous().transpose(2, 3),
+                                     ValueError),
+    }
+    for match, (i, value, exc) in bad.items():
+        a = value if i is None else good[:i] + [value] + good[i + 1:]
+        with pytest.raises(exc, match=match):
+            gru.gru_scan_bwd(*a, (False, True))
+    with pytest.raises(ValueError, match="directions"):
+        gru.gru_scan_bwd(*good, (False,))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gru.gru_scan_bwd(*[a.to("meta") for a in good], (False, True))
+
+
 def test_cpu_path_counts_no_launch_and_import_loads_nothing():
     xp, mask, w, b, h0 = problem(6, T=3, B=2, H=16)
     before = (gru.LAUNCHES, gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES)

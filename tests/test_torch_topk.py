@@ -1,10 +1,13 @@
 """dsjax_torch's exact top-k (K6) on CPU tensors against dsjax's.
 
 On the CPU ``ops.topk.topk`` runs its plain version (a stable descending
-sort cut to k); it must give exactly what ``jax.lax.top_k`` gives and what
-dsjax's Pallas kernel gives in interpret mode (as tests/test_topk_pallas.py
-runs it): the same values and the same indices, ties to the lower index,
-for k up to and beyond 128. The kernel itself is held against this plain
+sort of the scores' total-order keys, cut to k); it must give exactly what
+``jax.lax.top_k`` gives: the same values, bit for bit, and the same
+indices, ties to the lower index, for k up to and beyond 128, with -0.0
+below +0.0 and subnormals in their order. dsjax's Pallas kernel in
+interpret mode (as tests/test_topk_pallas.py runs it) gives the same on
+ordinary scores, and differs on signed zeros and subnormals, where the port
+follows ``jax.lax.top_k``. The kernel itself is held against this plain
 version on the card (tests/test_torch_cuda.py).
 """
 
@@ -75,3 +78,39 @@ def test_bad_arguments_raise():
         topk.topk(s.double(), 3)
     with pytest.raises(ValueError, match=r"\(B, N\)"):
         topk.topk(torch.zeros(10), 3)
+
+
+# signed zeros, subnormals, -inf and the beam pool's dead-slot score, where
+# jax.lax.top_k's total order and a comparison of floats part
+EDGE_ROW = [0.0, -0.0, 0.0, -0.0, 1.0, -np.inf, -1e30, 5e-45, -5e-45]
+EDGE_POOL = np.array([0.0, -0.0, 5e-45, -5e-45, 1e-40, -1e-40, 1e-38, -1e-38, -np.inf, -1e30,
+                      1.0, -1.0], np.float32)
+
+
+def edge_rows(seed, b, n):
+    return np.random.default_rng(seed).choice(EDGE_POOL, (b, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name,k", [("row", 9), ("row", 4), ("pool", 1), ("pool", 64),
+                                    ("pool", 300), ("wide pool", 128)])
+def test_signed_zeros_and_subnormals_follow_lax_top_k(name, k):
+    """Indices equal and values equal bit for bit (-0.0 is not +0.0 here)."""
+    s = {"row": np.array([EDGE_ROW] * 3, np.float32), "pool": edge_rows(k, 8, 300),
+         "wide pool": edge_rows(7, 4, 3840)}[name]
+    got_v, got_i = topk.topk(torch.from_numpy(s), k)
+    want_v, want_i = jax.lax.top_k(jnp.asarray(s), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy().view(np.int32), np.asarray(want_v).view(np.int32))
+
+
+def test_pallas_top_k_differs_from_lax_top_k_on_signed_zeros():
+    """The standing note: dsjax's Pallas top-k ties -0.0 with +0.0 and
+    flushes subnormals, so it parts from jax.lax.top_k on EDGE_ROW
+    (ROADMAP Queue 3); dsjax stays as it is and the port follows lax."""
+    s = jnp.asarray(np.array([EDGE_ROW], np.float32))
+    _, lax_i = jax.lax.top_k(s, len(EDGE_ROW))
+    _, pallas_i = topk_pallas(s, len(EDGE_ROW), interpret=True)
+    np.testing.assert_array_equal(np.asarray(lax_i)[0], [4, 7, 0, 2, 1, 3, 8, 6, 5])
+    np.testing.assert_array_equal(np.asarray(pallas_i)[0], [4, 0, 1, 2, 3, 7, 8, 6, 5])
+    _, port_i = topk.topk(torch.from_numpy(np.asarray(s)), len(EDGE_ROW))
+    np.testing.assert_array_equal(port_i.numpy(), np.asarray(lax_i))

@@ -17,6 +17,8 @@ one warm-up call) of:
   K4 with residuals     gru_scan_fwd(save_residuals=True);
   K4 with residuals + K5  that, then gru_scan_bwd (h_prev computed once,
                         outside the timing);
+  K5, 2 directions      gru_scan_bwd alone on K4's residuals, both directions
+                        of a layer in one call, as K3's row;
   K8                    mm_chain, h <- (h . W + xp[t])[:, :H] over 4H columns.
 Prints each in ms and us per step, and K8's share of the bf16 tensor-core
 peak (989 TFLOP/s, H100 SXM), as the JAX tool prints the MXU's. Then one
@@ -109,6 +111,7 @@ def run(log=print):
     h_prev = _carried_h_prev(y3, mask, h0, rev)
     xp_chain, w_chain = xp4[0], randn(H, 4 * H, scale=0.01)
     g2, w2, z2, c2, dy2, dh2 = (torch.cat([a, a]) for a in (g4, w4, h0, c_seq, dy, dh))
+    gg2, gw2, gh2 = (torch.cat([a, a]) for a in (g3, w3, h_prev))
 
     def k2_k3():
         _, _, _, g, c = lstm.lstm_scan_fwd(xp4, mask, w4, b4, h0, h0, rev, save_residuals=True)
@@ -131,6 +134,8 @@ def run(log=print):
         "K4 gru_fwd_residuals": lambda: gru.gru_scan_fwd(xp3, mask, w3, b3, h0, rev,
                                                          save_residuals=True),
         "K4 residuals + K5 gru_bwd": k4r_k5,
+        "K5 gru_bwd, 2 directions": lambda: gru.gru_scan_bwd(gg2, mask, gw2, gh2, dy2, dh2,
+                                                              (False, True)),
         "K8 mm_chain": lambda: mm_chain.mm_chain(xp_chain, w_chain, h0[0]),
     }
     del y4, g4, c_seq, g3
