@@ -19,8 +19,9 @@ Phases, each printing what it measured; any failure exits non-zero:
               scan) against their plain versions at the training shapes
               (T=512, B=64, H=1024, both directions, ragged lengths, a
               suffix mask, nonzero carry), f32 and bf16, with max errors
-              and CUDA-event median times of both, and K3's step kernel
-              as built (hidden units, registers and shared memory a CTA);
+              and CUDA-event median times of both, and K2's and K3's step
+              kernels as built (hidden units, registers and shared memory
+              a CTA; K2 with no local memory);
   7. gradients  the differentiated lstm_scan (K2 + K3) against autograd
               through the plain loop, both on the card;
   8. training  ``dsjax_torch.workflows.train`` on a synthetic corpus of
@@ -61,8 +62,9 @@ Phases, each printing what it measured; any failure exits non-zero:
               f32 and bf16;
  15. GRU train kernels  K4 with residuals and K5 (the GRU reverse scan) at
               T=512, B=64: ragged lengths, a prefix mask with a nonzero carry
-              and a suffix mask with a zero one, f32 and bf16, and K5's step
-              kernel as built;
+              and a suffix mask with a zero one, f32 and bf16, and the step
+              kernels of both as built (K4 with residuals' with no local
+              memory);
  16. GRU gradients  the differentiated gru_scan against autograd through
               the plain loop;
  17. GRU parity  5 x BiGRU-1024 and 5 x GRU-1024 + Lookahead 20
@@ -491,6 +493,18 @@ def within(got, want, atol, rtol):
     return e.max().item(), bool((e <= atol + rtol * want.float().abs()).all())
 
 
+def step_kernel_attributes(fn, dtype, label):
+    """A scan's step kernel as built (``fn``, an ops module's
+    *_kernel_attributes), printed: units, registers, shared and local memory."""
+    attrs = fn(dtype)
+    print(f"kernel {label} {str(dtype).split('.')[1]} step kernel: {attrs['units']} hidden "
+          f"units a CTA, {attrs['registers']} registers a thread, "
+          f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} bytes of shared memory "
+          f"a CTA, {attrs['local_bytes']} bytes of local memory a thread "
+          f"(cudaFuncGetAttributes)")
+    return attrs
+
+
 def phase_train_kernels(torch, np):
     """K2: lstm_pallas.py:_fwd_kernel (save_residuals) -> csrc/lstm_fwd.cu;
     K3: lstm_pallas.py:_bwd_kernel -> csrc/lstm_bwd.cu."""
@@ -575,14 +589,14 @@ def phase_train_kernels(torch, np):
                                    "bound_by": bounds[key][1], "library_ms": lib[i]}
         print(f"kernels K2 + K3 {name} as one call: {pair_ms!r} ms; torch.nn.LSTM (cuDNN) "
               f"forward + backward under autograd {lib[2]!r} ms (median, CUDA events)")
-        attrs = lstm.bwd_kernel_attributes(dtype)
-        print(f"kernel lstm_bwd (K3) {name} step kernel: {attrs['units']} hidden units a CTA, "
-              f"{attrs['registers']} registers a thread, "
-              f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} bytes of shared "
-              f"memory a CTA, {attrs['local_bytes']} bytes of local memory a thread "
-              f"(cudaFuncGetAttributes)")
+        attrs = {key: step_kernel_attributes(fn, dtype, label) for key, fn, label in (
+            ("fwd", lstm.fwd_kernel_attributes, "lstm_fwd_residuals (K2)"),
+            ("bwd", lstm.bwd_kernel_attributes, "lstm_bwd (K3)"))}
+        check(attrs["fwd"]["local_bytes"] == 0, f"K2 {name}: the step kernel spills "
+                                                f"{attrs['fwd']['local_bytes']} bytes a thread")
+        result[("fwd", name)].update(kernel_attributes=attrs["fwd"])
         result[("bwd", name)].update(with_forward_ms=pair_ms, with_forward_library_ms=lib[2],
-                                     kernel_attributes=attrs)
+                                     kernel_attributes=attrs["bwd"])
     return result
 
 
@@ -1188,14 +1202,14 @@ def phase_gru_train_kernels(torch, np):
         print(f"kernels K4 with residuals + K5 {name} as one call: {pair_ms!r} ms; "
               f"torch.nn.GRU (cuDNN) forward + backward under autograd {lib[2]!r} ms (median, "
               f"CUDA events)")
-        attrs = gru.bwd_kernel_attributes(dtype)
-        print(f"kernel gru_bwd (K5) {name} step kernel: {attrs['units']} hidden units a CTA, "
-              f"{attrs['registers']} registers a thread, "
-              f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} bytes of shared "
-              f"memory a CTA, {attrs['local_bytes']} bytes of local memory a thread "
-              f"(cudaFuncGetAttributes)")
+        attrs = {key: step_kernel_attributes(fn, dtype, label) for key, fn, label in (
+            ("fwd", gru.fwd_kernel_attributes, "gru_fwd_residuals (K4 with residuals)"),
+            ("bwd", gru.bwd_kernel_attributes, "gru_bwd (K5)"))}
+        check(attrs["fwd"]["local_bytes"] == 0, f"K4 residuals {name}: the step kernel spills "
+                                                f"{attrs['fwd']['local_bytes']} bytes a thread")
+        result[("fwd", name)].update(kernel_attributes=attrs["fwd"])
         result[("bwd", name)].update(with_forward_ms=pair_ms, with_forward_library_ms=lib[2],
-                                     kernel_attributes=attrs)
+                                     kernel_attributes=attrs["bwd"])
     return result
 
 
@@ -1519,10 +1533,8 @@ def run(torch, np):
                 "bf16_with_forward_library_ms": bf16["with_forward_library_ms"]}
 
     def attributes(key, res):
-        # a reverse scan's step kernel as built: registers, shared memory and
-        # units a CTA
-        if key == "fwd":
-            return {}
+        # a training scan's step kernel as built: registers, shared memory
+        # and units a CTA
         return {"kernel_attributes": {n: res[(key, n)]["kernel_attributes"]
                                       for n in ("float32", "bfloat16")}}
 

@@ -1,5 +1,5 @@
 // Masked GRU forward recurrence for Hopper, sm_90a: inference (K4) and the
-// residual-saving forward of training (K4 with residuals).
+// residual-saving forward of training (K4 with residuals, K4r).
 //
 // Replaces dsjax/ops/gru_pallas.py:_fwd_kernel (_gru_fwd_pallas): with
 // save_residuals=False, the primal of gru_scan (K4), and with
@@ -18,32 +18,66 @@
 // (gru_pallas.py:101-104). The reverse scan (gru_bwd.cu) reads them back
 // instead of recomputing h_{t-1} . W_hh^T.
 //
-// What bounds it on this card. As for the LSTM (lstm_fwd.cu): each step of a
-// direction reads all of W_hh (12 MB in f32, 6 MB in bf16 at H = 1024) and
-// does 2 * B * H * 3H FLOP with it (50 MFLOP at B = 8), and the steps are
-// dependent, so at serving shapes the kernel is bound by the rate at which
-// W_hh streams from L2 (both directions' 24 MB fit in the 50 MB L2) and by
-// each step's latency, not by the arithmetic units. At the training batch
-// (B = 64) the 403 MFLOP per step and direction on CUDA cores bound it.
+// Both kernels run one launch per time step for every direction, grid
+// (units / units a CTA, directions); a CTA owns a set of hidden units and
+// computes their r, z and n columns for every batch row, so it finishes the
+// update itself and nothing crosses CTAs within a step. The launch boundary
+// is the barrier between steps, so h is double-buffered in device memory.
 //
-// What the design does about it. The LSTM kernel's design, with three gate
-// columns per unit instead of four: one launch per time step covers both
-// directions, grid (H / kUnits, directions), 256 CTAs at H = 1024. Each CTA
-// owns kUnits hidden units and computes their r, z and n columns for every
-// batch row, so it can finish the update itself: nothing crosses CTAs within
-// a step. A warp takes kColsPerWarp rows of W_hh (stored (3H, H), so a gate
-// column is one contiguous row) with 16-byte loads and multiplies them
-// against h_{t-1}, which the CTA stages in shared memory in f32. The launch
-// boundary is the barrier between steps, so h is double-buffered in device
-// memory. The residual writes are a template flag. W_hh resident in shared
-// memory across steps, and wgmma, are later work.
+// K4r, the training forward (gru_residual_step_kernel), is lstm_fwd.cu's
+// K2 with three gate columns a unit. What bounds it: at B = 64, H = 1024 a
+// step of a direction is 2 * B * 3H * H = 403 MFLOP, about 0.4 us of the
+// tensor cores; what remains in bf16 is the bytes every CTA takes in from
+// L2 each step (the 64-row h_{t-1} block and its own 48 W_hh rows: 128 +
+// 96 KB) and the latency of one launch a step, 12.4 us a launch for both
+// directions (H100 80GB HBM3 at 700 W, tools/torch_lstm_microbench.py). In
+// f32 the FMA pipes bound it (20.4 ms a layer call at T = 512,
+// chip_smoke.py). The first form of K4r (K4's kernel with the writes) ran
+// the product on CUDA cores from an f32 copy of 8 rows of h, 8 passes over
+// its W_hh rows a step at B = 64 with a warp-wide reduction for every
+// (column, row) pair: 67.4 us a launch, 35.3 ms a layer call in bf16
+// against 7.1 now (the microbench, in turns in one call).
+//
+// What the design does about it: a CTA owns kResUnits = 16 hidden units,
+// 48 gate columns (64 CTAs a direction at H = 1024, one wave for both
+// directions), and computes
+//   Z[64 rows, 48 cols] = h_{t-1}[rows, 0:H] . W_hh[cols, 0:H]^T
+// for every batch row of a 64-row block in one pass over its W_hh rows
+// (scan_mma.cuh, the product of K3 and K5 with the operands swapped):
+// h_{t-1} in the working type straight from the carry (dsjax multiplies h
+// in W's dtype with f32 sums, gru_pallas.py:73) and gate g's 16 rows at
+// W_hh + (g * H + j0) * H, staged with 16-byte cp.async 3 stages deep;
+// bf16 on tensor cores (mma.sync m16n8k16, f32 accumulators), f32 on
+// register-blocked FMA (no TF32). b_hn stays inside r * (hn + b_hn). The
+// epilogue's inputs (xp's 48 columns, b_hh, h_{t-1}, the mask) are loaded
+// before the product: K4r keeps them across it without spilling (246
+// registers in bf16, 255 in f32). A thread then finishes a pair of
+// neighbouring units of two rows with 2-wide loads and stores, with the
+// first form's roundings. At H % 16 != 0 the copy zero-fills the last
+// CTA's missing W_hh rows. Tried and dropped: K3's product as it is at 48
+// columns (an 8-way K split, 96 accumulators a thread) spilled 56 bytes a
+// thread in bf16 and took 7.6 ms a layer call in bf16. Later forms: those
+// of K2 (lstm_fwd.cu).
+//
+// K4, inference (gru_step_kernel), keeps its CUDA-core form, as K1 does: at
+// serving shapes (B = 8) each step of a direction reads all of W_hh (12 MB in
+// f32, 6 MB in bf16 at H = 1024) for 2 * B * H * 3H = 50 MFLOP, so it is bound
+// by the rate at which W_hh streams from L2 (both directions' 24 MB fit in the
+// 50 MB L2) and by each step's latency; 8 rows fill half an m16 tile, and it
+// already beats cuDNN 1.5x in f32 (PERF.md). A CTA owns kUnits = 8 units, 256
+// CTAs at H = 1024; a warp takes kColsPerWarp rows of W_hh with 16-byte loads
+// and multiplies them against h_{t-1}, which the CTA stages in shared memory
+// in f32.
 
 #include "lstm_common.cuh"
+#include "scan_mma.cuh"
 
 namespace {
 
 using namespace dsjax_torch;
+namespace sm = dsjax_torch::scan_mma;
 
+// K4
 constexpr int kUnits = 8;                      // hidden units per CTA
 constexpr int kCols = 3 * kUnits;              // their r, z, n columns
 constexpr int kWarps = 8;
@@ -54,20 +88,30 @@ constexpr int kRows = 8;                       // batch rows per pass over W_hh
 static_assert(kCols % kWarps == 0, "columns must split evenly over warps");
 static_assert(kRows * kUnits <= kThreads, "one thread per (row, unit)");
 
-// One time step of every direction.
+// K4r
+constexpr int kResUnits = 16;                          // hidden units per CTA
+constexpr int kResCols = 3 * kResUnits;                // their r, z, n columns
+constexpr int kResStages = 3;
+constexpr int kPairs = kResUnits / 2;                  // a thread's units are a pair
+constexpr int kRowsPerPass = sm::kThreads / kPairs;    // 32
+constexpr int kPasses = sm::kRows / kRowsPerPass;      // rows of a block per thread: 2
+
+static_assert(sm::kThreads % kPairs == 0 && sm::kRows % kRowsPerPass == 0,
+              "threads cover a row block in whole passes");
+
+// One time step of every direction, without residuals (K4).
 //   xp    (D, T, B, 3H)   input projections, b_ih included
 //   mask  (T, B) f32      1 where t < length
 //   w_hh  (D, 3H, H)      recurrent weights, rows in gate order r, z, n
 //   b_hh  (D, 3H)
 //   h_in  (D, B, H)       carry entering the step; h_out leaving it
 //   y     (D, T, B, H)
-//   gates (D, T, B, 4H)   (r, z, n, hn), written only when kSave
-template <typename T, bool kSave>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gru_step_kernel(const T* __restrict__ xp, const float* __restrict__ mask,
                 const T* __restrict__ w_hh, const T* __restrict__ b_hh,
                 const T* __restrict__ h_in, T* __restrict__ h_out, T* __restrict__ y,
-                T* __restrict__ gates, int n_t, int n_b, int n_h, int step, int reverse_bits) {
+                int n_t, int n_b, int n_h, int step, int reverse_bits) {
   constexpr int V = Vec<T>::N;
   extern __shared__ float smem[];
   float* h_s = smem;                    // (kRows, H): h_{t-1} in f32
@@ -161,24 +205,139 @@ gru_step_kernel(const T* __restrict__ xp, const float* __restrict__ mask,
       const float m = mask[static_cast<size_t>(t) * n_b + b];
       h_out[s] = from_f32<T>(m * h_new + (1.f - m) * h_prev);
       y[row * n_h + j] = from_f32<T>(h_new * m);
-      if constexpr (kSave) {
-        T* g_row = gates + row * 4 * static_cast<size_t>(n_h);
-        g_row[j] = from_f32<T>(r_g);
-        g_row[n_h + j] = from_f32<T>(z_g);
-        g_row[2 * n_h + j] = from_f32<T>(n_g);
-        g_row[3 * n_h + j] = from_f32<T>(hp[2]);
-      }
     }
     __syncthreads();
   }
 }
 
-template <typename T, bool kSave>
+template <typename T>
+constexpr int residual_smem_bytes() {
+  return sm::Shape<T, kResCols, kResStages>::kSmemBytes +
+         sm::kRows * kResCols * static_cast<int>(sizeof(float));
+}
+
+// The epilogue's inputs for one row and a unit pair, in the working type
+// (x: unit j, y: unit j + 1).
+template <typename T>
+struct Item {
+  bool valid;
+  float m;
+  typename Pair<T>::type xp[3], h;
+};
+
+// One unit of the update, as gru_step_kernel rounds it, from the product's
+// z[3] (without b_hh) and the pair's inputs.
+struct Cell {
+  float h_keep, y, r, z, n, hn;
+};
+
+__device__ __forceinline__ Cell gru_cell(const float (&zp)[3], const float (&bias)[3],
+                                         const float (&xg)[3], float h_prev, float m) {
+  Cell out;
+  const float hr = zp[0] + bias[0];
+  const float hz = zp[1] + bias[1];
+  out.hn = zp[2] + bias[2];
+  out.r = sigmoid(xg[0] + hr);
+  out.z = sigmoid(xg[1] + hz);
+  out.n = tanhf(xg[2] + out.r * out.hn);
+  const float h_new = (1.f - out.z) * out.n + out.z * h_prev;
+  out.h_keep = m * h_new + (1.f - m) * h_prev;
+  out.y = h_new * m;
+  return out;
+}
+
+// One time step of every direction, saving residuals (K4r). Arguments as
+// gru_step_kernel's, and
+//   gates (D, T, B, 4H)   (r, z, n, hn)
+template <typename T>
+__global__ void __launch_bounds__(sm::kThreads, 1)
+gru_residual_step_kernel(const T* __restrict__ xp, const float* __restrict__ mask,
+                         const T* __restrict__ w_hh, const T* __restrict__ b_hh,
+                         const T* __restrict__ h_in, T* __restrict__ h_out, T* __restrict__ y,
+                         T* __restrict__ gates, int n_t, int n_b, int n_h, int step,
+                         int reverse_bits) {
+  using S = sm::Shape<T, kResCols, kResStages>;
+  extern __shared__ __align__(16) unsigned char stages[];
+  float* z_s = reinterpret_cast<float*>(stages + S::kSmemBytes);  // (64, kResCols)
+
+  const int d = blockIdx.y;
+  const int j0 = blockIdx.x * kResUnits;
+  const int t = time_of(step, n_t, (reverse_bits >> d) & 1);
+  const int u = 2 * (threadIdx.x % kPairs);
+  const int j = j0 + u;
+  const bool has_unit = j < n_h;   // H % 8 == 0: a pair is whole or past the edge
+  const size_t g3 = 3 * static_cast<size_t>(n_h);
+  const size_t g4 = 4 * static_cast<size_t>(n_h);
+  const size_t state_d = static_cast<size_t>(d) * n_b * n_h;
+  // gate g's rows of this CTA's units: w_rows + g * H * H, 16 rows of H
+  const T* w_rows = w_hh + (d * g3 + j0) * n_h;
+  float bx[3], by[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    const float2 v = has_unit ? load2(b_hh + d * g3 + g * n_h + j) : make_float2(0.f, 0.f);
+    bx[g] = v.x;
+    by[g] = v.y;
+  }
+
+  for (int b0 = 0; b0 < n_b; b0 += sm::kRows) {
+    const int nb = min(sm::kRows, n_b - b0);
+    // the epilogue's inputs first: none depends on the product
+    Item<T> in[kPasses];
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const int r = threadIdx.x / kPairs + p * kRowsPerPass;
+      const int b = b0 + r;
+      Item<T>& it = in[p];
+      it.valid = r < nb && has_unit;
+      if (!it.valid) continue;
+      const size_t row = (static_cast<size_t>(d) * n_t + t) * n_b + b;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) it.xp[g] = load2_raw(xp + row * g3 + g * n_h + j);
+      it.h = load2_raw(h_in + state_d + static_cast<size_t>(b) * n_h + j);
+      it.m = mask[static_cast<size_t>(t) * n_b + b];
+    }
+
+    sm::product<T, kResCols, kResStages>(h_in + state_d + static_cast<size_t>(b0) * n_h, n_h,
+                                         nb, w_rows, n_h, min(kResUnits, n_h - j0), n_h,
+                                         stages, z_s, static_cast<size_t>(n_h) * n_h);
+
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const Item<T>& it = in[p];
+      if (!it.valid) continue;
+      const int r = threadIdx.x / kPairs + p * kRowsPerPass;
+      const int b = b0 + r;
+      const size_t row = (static_cast<size_t>(d) * n_t + t) * n_b + b;
+      float zx[3], zy[3], xx[3], xy[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float2 x = to_f32x2(it.xp[g]);
+        const float2 zp = *reinterpret_cast<const float2*>(z_s + r * kResCols + g * kResUnits + u);
+        zx[g] = zp.x;
+        zy[g] = zp.y;
+        xx[g] = x.x;
+        xy[g] = x.y;
+      }
+      const float2 h_prev = to_f32x2(it.h);
+      const Cell cx = gru_cell(zx, bx, xx, h_prev.x, it.m);
+      const Cell cy = gru_cell(zy, by, xy, h_prev.y, it.m);
+      store2(h_out + state_d + static_cast<size_t>(b) * n_h + j, cx.h_keep, cy.h_keep);
+      store2(y + row * n_h + j, cx.y, cy.y);
+      T* g_row = gates + row * g4 + j;
+      store2(g_row, cx.r, cy.r);
+      store2(g_row + n_h, cx.z, cy.z);
+      store2(g_row + 2 * n_h, cx.n, cy.n);
+      store2(g_row + 3 * n_h, cx.hn, cy.hn);
+    }
+  }
+}
+
+template <typename T>
 int run_scan(const void* xp, const void* mask, const void* w_hh, const void* b_hh,
-             void* h_buf, void* y, void* gates, int n_dir, int n_t, int n_b, int n_h,
-             int reverse_bits, cudaStream_t stream) {
+             void* h_buf, void* y, int n_dir, int n_t, int n_b, int n_h, int reverse_bits,
+             cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kRows * n_h + kCols * kRows) * sizeof(float);
-  auto kernel = gru_step_kernel<T, kSave>;
+  auto kernel = gru_step_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -189,6 +348,30 @@ int run_scan(const void* xp, const void* mask, const void* w_hh, const void* b_h
     const size_t in = (s & 1) * state;
     const size_t out = ((s + 1) & 1) * state;
     kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(xp), static_cast<const float*>(mask),
+        static_cast<const T*>(w_hh), static_cast<const T*>(b_hh), h + in, h + out,
+        static_cast<T*>(y), n_t, n_b, n_h, s, reverse_bits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+int run_residual_scan(const void* xp, const void* mask, const void* w_hh, const void* b_hh,
+                      void* h_buf, void* y, void* gates, int n_dir, int n_t, int n_b, int n_h,
+                      int reverse_bits, cudaStream_t stream) {
+  auto kernel = gru_residual_step_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         residual_smem_bytes<T>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_h + kResUnits - 1) / kResUnits, n_dir);
+  const size_t state = static_cast<size_t>(n_dir) * n_b * n_h;
+  T* h = static_cast<T*>(h_buf);
+  for (int s = 0; s < n_t; ++s) {
+    const size_t in = (s & 1) * state;
+    const size_t out = ((s + 1) & 1) * state;
+    kernel<<<grid, sm::kThreads, residual_smem_bytes<T>(), stream>>>(
         static_cast<const T*>(xp), static_cast<const float*>(mask),
         static_cast<const T*>(w_hh), static_cast<const T*>(b_hh), h + in, h + out,
         static_cast<T*>(y), static_cast<T*>(gates), n_t, n_b, n_h, s, reverse_bits);
@@ -203,11 +386,11 @@ int dispatch_scan(const void* xp, const void* mask, const void* w_hh, const void
                   void* h_buf, void* y, void* gates, int n_dir, int n_t, int n_b, int n_h,
                   int reverse_bits, cudaStream_t stream) {
   if (gates != nullptr) {
-    return run_scan<T, true>(xp, mask, w_hh, b_hh, h_buf, y, gates, n_dir, n_t, n_b, n_h,
-                             reverse_bits, stream);
+    return run_residual_scan<T>(xp, mask, w_hh, b_hh, h_buf, y, gates, n_dir, n_t, n_b, n_h,
+                                reverse_bits, stream);
   }
-  return run_scan<T, false>(xp, mask, w_hh, b_hh, h_buf, y, nullptr, n_dir, n_t, n_b, n_h,
-                            reverse_bits, stream);
+  return run_scan<T>(xp, mask, w_hh, b_hh, h_buf, y, n_dir, n_t, n_b, n_h, reverse_bits,
+                     stream);
 }
 
 }  // namespace
@@ -215,8 +398,10 @@ int dispatch_scan(const void* xp, const void* mask, const void* w_hh, const void
 // Runs all n_t steps of one layer on `stream`. h_buf is (2, D, B, H): slot 0
 // holds the initial carry, and the final carry is left in slot n_t % 2.
 // gates (D, T, B, 4H) is null for inference (K4) or set for the
-// residual-saving forward. Requires n_h % 8 == 0. Returns a cudaError_t: the
-// first error any launch reported, or cudaSuccess.
+// residual-saving forward (K4r). Requires n_h % 8 == 0 and w_hh and h_buf
+// on 16-byte boundaries; K4r also xp and b_hh on a boundary of two
+// elements (it reads unit pairs). Returns a cudaError_t: the first error
+// any launch reported, or cudaSuccess.
 extern "C" int dsjax_torch_gru_fwd(const void* xp, const void* mask, const void* w_hh,
                                    const void* b_hh, void* h_buf, void* y, void* gates,
                                    int n_dir, int n_t, int n_b, int n_h, int reverse_bits,
@@ -229,4 +414,22 @@ extern "C" int dsjax_torch_gru_fwd(const void* xp, const void* mask, const void*
   }
   return dispatch_scan<float>(xp, mask, w_hh, b_hh, h_buf, y, gates, n_dir, n_t, n_b, n_h,
                               reverse_bits, s);
+}
+
+// K4r's step kernel for the working type: out[0] registers a thread, out[1]
+// static and out[2] dynamic shared memory a CTA in bytes, out[3] local
+// memory a thread in bytes (spills), out[4] hidden units a CTA. Returns a
+// cudaError_t.
+extern "C" int dsjax_torch_gru_fwd_attributes(int is_bf16, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      is_bf16 ? cudaFuncGetAttributes(&attr, gru_residual_step_kernel<__nv_bfloat16>)
+              : cudaFuncGetAttributes(&attr, gru_residual_step_kernel<float>);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = is_bf16 ? residual_smem_bytes<__nv_bfloat16>() : residual_smem_bytes<float>();
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = kResUnits;
+  return cudaSuccess;
 }

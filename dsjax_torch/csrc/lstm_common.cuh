@@ -1,7 +1,7 @@
 // Helpers shared by the scan kernels (lstm_*.cu, gru_*.cu): the working
 // types float and bfloat16 with float32 arithmetic, 16-byte loads of a
 // working-type row into float32 registers, and the 2-wide loads and stores
-// of a unit pair that the reverse scans' epilogues make.
+// of a unit pair that the tensor-core scans' epilogues make.
 
 #pragma once
 
@@ -57,6 +57,24 @@ __device__ __forceinline__ float2 load2(const float* p) {
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+// A unit pair as it lies in the working type, held across a step product
+// (a bfloat16 pair takes one register), then widened by to_f32x2.
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> { using type = float2; };
+template <>
+struct Pair<__nv_bfloat16> { using type = __nv_bfloat162; };
+
+__device__ __forceinline__ float2 load2_raw(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ __nv_bfloat162 load2_raw(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const __nv_bfloat162*>(p);
+}
+__device__ __forceinline__ float2 to_f32x2(float2 v) { return v; }
+__device__ __forceinline__ float2 to_f32x2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }

@@ -110,12 +110,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dsjax_torch_lstm_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_lstm_fwd.restype = i
+    lib.dsjax_torch_lstm_fwd_attributes.argtypes = [i, p]
+    lib.dsjax_torch_lstm_fwd_attributes.restype = i
     lib.dsjax_torch_lstm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_lstm_bwd.restype = i
     lib.dsjax_torch_lstm_bwd_attributes.argtypes = [i, p]
     lib.dsjax_torch_lstm_bwd_attributes.restype = i
     lib.dsjax_torch_gru_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_gru_fwd.restype = i
+    lib.dsjax_torch_gru_fwd_attributes.argtypes = [i, p]
+    lib.dsjax_torch_gru_fwd_attributes.restype = i
     lib.dsjax_torch_gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_gru_bwd.restype = i
     lib.dsjax_torch_gru_bwd_attributes.argtypes = [i, p]

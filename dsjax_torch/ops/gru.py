@@ -24,7 +24,7 @@ Three kernels, as in dsjax:
   K4  ``gru_scan_fwd``                 forward without residuals (inference);
   K4 with residuals  ``gru_scan_fwd(save_residuals=True)``, the forward of
       training, which also writes (r, z, n, hn) (D, T, B, 4H) at natural
-      time t (csrc/gru_fwd.cu);
+      time t (csrc/gru_fwd.cu, on the step product of csrc/scan_mma.cuh);
   K5  ``gru_scan_bwd``                 the reverse scan: dxp (D, T, B, 3H),
       dh0 (csrc/gru_bwd.cu, on the step product of csrc/scan_mma.cuh that
       K3 runs too).
@@ -51,8 +51,8 @@ from typing import Sequence, Tuple
 import torch
 
 from dsjax_torch.ops import _build
-from dsjax_torch.ops.lstm import (_carried_h_prev, _flip, _reverse_bits, check_reverse_scan,
-                                  check_scan)
+from dsjax_torch.ops.lstm import (_carried_h_prev, _flip, _reverse_bits, check_pairs,
+                                  check_reverse_scan, check_scan)
 
 Tensor = torch.Tensor
 
@@ -156,8 +156,12 @@ def gru_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tenso
                  reverse: Sequence[bool], save_residuals: bool = False
                  ) -> Tuple[Tensor, ...]:
     """The forward scan: K4, or K4 with residuals (then also (r, z, n, hn)).
-    Inputs as ``ops.lstm.check_scan`` takes them."""
+    Inputs as ``ops.lstm.check_scan`` takes them; with residuals also xp and
+    b_hh on a boundary of two elements (``ops.lstm.check_pairs``, on every
+    device)."""
     global LAUNCHES, STEP_LAUNCHES, RESIDUAL_LAUNCHES
+    if save_residuals:
+        check_pairs({"xp": xp, "b_hh": b_hh})
     if xp.device.type == "cpu":
         return gru_scan_reference(xp, mask, w_hh, b_hh, h0, reverse,
                                   save_residuals=save_residuals)
@@ -233,6 +237,13 @@ def gru_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, h_prev: Tensor, dy: 
     with _launch_lock:
         BWD_LAUNCHES += 1
     return dxp, dh0
+
+
+def fwd_kernel_attributes(dtype: torch.dtype) -> dict:
+    """K4 with residuals' step kernel for ``dtype`` as built (needs the
+    card): registers a thread, static and dynamic shared memory a CTA, local
+    memory (spills) a thread, and the hidden units a CTA owns."""
+    return _build.kernel_attributes("dsjax_torch_gru_fwd_attributes", dtype == torch.bfloat16)
 
 
 def bwd_kernel_attributes(dtype: torch.dtype) -> dict:

@@ -28,7 +28,8 @@ Three kernels, as in dsjax:
   K1  ``lstm_scan_fwd``       forward without residuals (inference);
   K2  ``lstm_scan_fwd(save_residuals=True)``  the forward of training, which
       also writes the post-activation gates (D, T, B, 4H) and the kept carry
-      c (D, T, B, H), both at natural time t (csrc/lstm_fwd.cu);
+      c (D, T, B, H), both at natural time t (csrc/lstm_fwd.cu, on the step
+      product of csrc/scan_mma.cuh that K3 runs too);
   K3  ``lstm_scan_bwd``       the reverse scan: dgates (= dxp), dh0, dc0
       (csrc/lstm_bwd.cu).
 ``lstm_scan`` is the op: a call that autograd will differentiate (grad mode
@@ -61,8 +62,8 @@ RESIDUAL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-# the kernels stage (8, H) f32 rows of h in shared memory and load 16 bytes
-# at a time, so H must be a multiple of 8 and the stage must fit a CTA
+# the kernels load 16 bytes at a time, so H must be a multiple of 8, and K1
+# and K4 stage (8, H) f32 rows of h in shared memory, which must fit a CTA
 MAX_HIDDEN = 4096
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -204,6 +205,16 @@ def _check_like(first_name: str, first: Tensor, expect: dict, op: str) -> None:
         raise ValueError(f"{op} runs on cuda or cpu tensors, not {first.device}")
 
 
+def check_pairs(tensors: dict) -> None:
+    """Raise unless each tensor, name -> tensor, starts on a boundary of two
+    elements: the tensor-core scans (K2, K3, K4r, K5) read and write a pair
+    of neighbouring units at a time."""
+    for name, t in tensors.items():
+        if t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"{name} must start on a boundary of two elements "
+                             f"({2 * t.element_size()} bytes)")
+
+
 def _reverse_bits(reverse: Sequence[bool]) -> int:
     return sum(1 << d for d, rev in enumerate(reverse) if rev)
 
@@ -212,8 +223,12 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
                   c0: Tensor, reverse: Sequence[bool], save_residuals: bool = False
                   ) -> Tuple[Tensor, ...]:
     """The forward scan: K1, or K2 with ``save_residuals`` (then also the
-    gates and the kept carry). Inputs as ``check_scan`` takes them."""
+    gates and the kept carry). Inputs as ``check_scan`` takes them; K2 also
+    needs xp and b_hh on a boundary of two elements (``check_pairs``, on
+    every device)."""
     global LAUNCHES, STEP_LAUNCHES, RESIDUAL_LAUNCHES
+    if save_residuals:
+        check_pairs({"xp": xp, "b_hh": b_hh})
     if xp.device.type == "cpu":
         return lstm_scan_reference(xp, mask, w_hh, b_hh, h0, c0, reverse,
                                    save_residuals=save_residuals)
@@ -275,10 +290,7 @@ def check_reverse_scan(op: str, g_seq: Tensor, mask: Tensor, w_hh: Tensor, gates
     _check_like("g_seq", g_seq, {"mask": (mask, (n_t, n_b), torch.float32),
                                  "w_hh": (w_hh, (n_dir, gates * n_h, n_h), dtype), **paired},
                 op)
-    for name, t in [("g_seq", g_seq)] + [(k, v[0]) for k, v in paired.items()]:
-        if t.data_ptr() % (2 * t.element_size()):
-            raise ValueError(f"{name} must start on a boundary of two elements "
-                             f"({2 * t.element_size()} bytes)")
+    check_pairs({"g_seq": g_seq, **{k: v[0] for k, v in paired.items()}})
 
 
 def check_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: Tensor,
@@ -330,6 +342,13 @@ def lstm_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: 
     with _launch_lock:
         BWD_LAUNCHES += 1
     return dg, dh0, dc0
+
+
+def fwd_kernel_attributes(dtype: torch.dtype) -> dict:
+    """K2's step kernel for ``dtype`` as built (needs the card): registers a
+    thread, static and dynamic shared memory a CTA, local memory (spills) a
+    thread, and the hidden units a CTA owns."""
+    return _build.kernel_attributes("dsjax_torch_lstm_fwd_attributes", dtype == torch.bfloat16)
 
 
 def bwd_kernel_attributes(dtype: torch.dtype) -> dict:

@@ -15,8 +15,10 @@ against their plain versions exactly, K7's float totals and carry to atol
 1e-5 (logaddexp sums the same floats in the same order on both sides), with
 their launch counts per decode route and the raise when the kernel library
 cannot load; K6 also on signed zeros and subnormals, values compared bit
-for bit. K5 (the GRU reverse scan) runs at K3's tiling edges, and both
-reverse scans' step kernels are checked to fit one CTA an SM.
+for bit. K5 (the GRU reverse scan) runs at K3's tiling edges, as K2 and
+K4 with residuals (the forwards on the same step product) do; the step
+kernels of all four are checked to fit one CTA an SM, the forwards' also
+to spill nothing.
 """
 
 import numpy as np
@@ -49,15 +51,18 @@ def full_fp32():
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def problem(shape, dtype, suffix=False):
+def problem(shape, dtype, suffix=False, empty_row=False):
     """Inputs on the card: ragged lengths including 1 and T (a suffix mask
-    when asked, as a time-flipped padded stream has), nonzero carry."""
+    when asked, as a time-flipped padded stream has), and 0 in row 1 when
+    asked and B > 2; nonzero carry."""
     T, B, H, reverse = shape
     D = len(reverse)
     rng = np.random.default_rng(T)
     dev = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda", dt)
     lengths = rng.integers(1, T + 1, B)
     lengths[0], lengths[-1] = 1, T
+    if empty_row and B > 2:
+        lengths[1] = 0
     mask = np.arange(T)[:, None] < lengths[None, :]
     mask = dev(mask[::-1] if suffix else mask, torch.float32)
     # W_hh at 0.1 makes the reverse recurrence at H=1024 grow about 6x a
@@ -103,11 +108,14 @@ def test_model_cuda_forward_matches_cpu(full_fp32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + BWD_SHAPES)
 def test_residual_forward_matches_plain_version(full_fp32, dtype, shape):
-    """K2: y, h_T, c_T, the gates and the kept carry c."""
+    """K2: y, h_T, c_T, the gates and the kept carry c, prefix and suffix
+    masks with a zero-length row, at its tiling edges too (BWD_SHAPES: the
+    64-row block crossed, one row, a unit edge inside a CTA's 16 units, the
+    flagship's width)."""
     for suffix in (False, True):
-        args = problem(shape, dtype, suffix)
+        args = problem(shape, dtype, suffix, empty_row=True)
         before = (lstm.LAUNCHES, lstm.RESIDUAL_LAUNCHES)
         out = lstm.lstm_scan_fwd(*args, shape[3], save_residuals=True)
         torch.cuda.synchronize()
@@ -138,6 +146,22 @@ def test_reverse_scan_matches_plain_version(full_fp32, dtype, shape):
         for o, r in zip(out, ref):
             assert o.dtype == dtype and o.shape == r.shape
             torch.testing.assert_close(o.float(), r.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("rnn", ["lstm", "gru"])
+def test_residual_forward_kernel_fits_one_cta_an_sm(full_fp32, rnn, dtype):
+    """K2's and K4 with residuals' step kernels as built: 16 units a CTA,
+    their shared memory within the 227 KB a CTA may take, registers within
+    255 a thread, and no local memory (the bf16 product holds 128 f32
+    accumulators a thread in K2)."""
+    from dsjax_torch.ops import gru
+
+    attrs = {"lstm": lstm, "gru": gru}[rnn].fwd_kernel_attributes(dtype)
+    assert attrs["units"] == 16
+    assert attrs["static_smem_bytes"] + attrs["dynamic_smem_bytes"] <= 232448
+    assert 0 < attrs["registers"] <= 255
+    assert attrs["local_bytes"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
@@ -368,15 +392,18 @@ def test_cuda_decode_without_the_library_raises(full_fp32, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def gru_problem(shape, dtype, suffix=False, carry=True):
-    """GRU inputs on the card: ragged lengths including 0, 1 and T, a suffix
-    mask when asked, a nonzero carry when asked."""
+def gru_problem(shape, dtype, suffix=False, carry=True, empty_row=False):
+    """GRU inputs on the card: ragged lengths including 1 and T (and 0 in
+    row 1 when asked and B > 2), a suffix mask when asked, a nonzero carry
+    when asked."""
     T, B, H, reverse = shape
     D = len(reverse)
     rng = np.random.default_rng(T + 100)
     dev = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda", dt)
     lengths = rng.integers(0, T + 1, B)
     lengths[0], lengths[-1] = 1, T
+    if empty_row and B > 2:
+        lengths[1] = 0
     mask = np.arange(T)[:, None] < lengths[None, :]
     mask = dev(mask[::-1] if suffix else mask, torch.float32)
     w_scale = 0.1 if H < 1024 else 0.03              # as problem() takes it
@@ -404,17 +431,18 @@ def test_gru_kernel_matches_plain_version(full_fp32, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + BWD_SHAPES)
 def test_gru_residual_forward_and_reverse_scan_match_plain_versions(full_fp32, dtype, shape):
     """K4 with residuals (y, h_T, (r, z, n, hn)) and K5 on the plain
     forward's residuals with nonzero dh_T: a prefix mask with a nonzero carry
-    and a suffix mask with a zero one."""
+    and a suffix mask with a zero one, each with a zero-length row, at the
+    tiling edges of their step product too (BWD_SHAPES)."""
     from dsjax_torch.ops import gru
     from dsjax_torch.ops.lstm import _carried_h_prev
 
     T, B, H, reverse = shape
     for suffix in (False, True):
-        xp, mask, w, b, h0 = gru_problem(shape, dtype, suffix, carry=not suffix)
+        xp, mask, w, b, h0 = gru_problem(shape, dtype, suffix, carry=not suffix, empty_row=True)
         before = (gru.LAUNCHES, gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES)
         out = gru.gru_scan_fwd(xp, mask, w, b, h0, reverse, save_residuals=True)
         torch.cuda.synchronize()

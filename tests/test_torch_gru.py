@@ -201,6 +201,29 @@ def test_reverse_scan_wrapper_rejects_what_the_kernel_does_not_take():
         gru.gru_scan_bwd(*[a.to("meta") for a in good], (False, True))
 
 
+def test_residual_forward_wrapper_rejects_inputs_off_a_pair_boundary():
+    """K4 with residuals reads xp and b_hh a unit pair at a time, so
+    gru_scan_fwd with residuals, and the differentiated gru_scan through it,
+    check both on every device; K4, which reads them one element at a time,
+    takes them."""
+    xp, mask, w, b, h0 = problem(9, T=3, B=2, H=16)
+    args = list(to_port(torch.float32, xp, mask, w, b, h0))
+
+    def offset(a):
+        """a contiguous copy of a, one element into its storage"""
+        return torch.empty(a.numel() + 1).narrow(0, 1, a.numel()).view_as(a).copy_(a)
+
+    for i, name in ((0, "xp"), (3, "b_hh")):
+        a = args[:i] + [offset(args[i])] + args[i + 1:]
+        with pytest.raises(ValueError, match=f"{name} must start on a boundary of two elements"):
+            gru.gru_scan_fwd(*a, (False,), save_residuals=True)
+        with pytest.raises(ValueError, match=f"{name} must start on a boundary"):
+            gru.gru_scan(*[t.requires_grad_(k == 0) for k, t in enumerate(a)], (False,))
+        want = gru.gru_scan_fwd(*args, (False,))
+        for got, ref in zip(gru.gru_scan_fwd(*a, (False,)), want):
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
 def test_cpu_path_counts_no_launch_and_import_loads_nothing():
     xp, mask, w, b, h0 = problem(6, T=3, B=2, H=16)
     before = (gru.LAUNCHES, gru.RESIDUAL_LAUNCHES, gru.BWD_LAUNCHES)

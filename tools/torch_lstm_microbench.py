@@ -10,11 +10,14 @@ flagship (B=64, H=1024, T=512). Times with CUDA events (median of 5 after
 one warm-up call) of:
   K1                    lstm_scan_fwd (inference);
   K2                    lstm_scan_fwd(save_residuals=True);
+  K2, 2 directions      the same, both directions of a layer in one call (the
+                        second scans backwards), as chip_smoke.py times it;
   K2 + K3               K2 then lstm_scan_bwd on its residuals;
   K3, 2 directions      lstm_scan_bwd alone on K2's residuals, both directions of
                         a layer in one call (the second scans them backwards);
   K4                    gru_scan_fwd (inference);
   K4 with residuals     gru_scan_fwd(save_residuals=True);
+  K4 with residuals, 2 directions  as K2's row;
   K4 with residuals + K5  that, then gru_scan_bwd (h_prev computed once,
                         outside the timing);
   K5, 2 directions      gru_scan_bwd alone on K4's residuals, both directions
@@ -112,6 +115,7 @@ def run(log=print):
     xp_chain, w_chain = xp4[0], randn(H, 4 * H, scale=0.01)
     g2, w2, z2, c2, dy2, dh2 = (torch.cat([a, a]) for a in (g4, w4, h0, c_seq, dy, dh))
     gg2, gw2, gh2 = (torch.cat([a, a]) for a in (g3, w3, h_prev))
+    xp4_2, b4_2, xp3_2, b3_2 = (torch.cat([a, a]) for a in (xp4, b4, xp3, b3))
 
     def k2_k3():
         _, _, _, g, c = lstm.lstm_scan_fwd(xp4, mask, w4, b4, h0, h0, rev, save_residuals=True)
@@ -125,6 +129,8 @@ def run(log=print):
         "K1 lstm_fwd": lambda: lstm.lstm_scan_fwd(xp4, mask, w4, b4, h0, h0, rev),
         "K2 lstm_fwd_residuals": lambda: lstm.lstm_scan_fwd(xp4, mask, w4, b4, h0, h0, rev,
                                                             save_residuals=True),
+        "K2 lstm_fwd_residuals, 2 dir": lambda: lstm.lstm_scan_fwd(
+            xp4_2, mask, w2, b4_2, z2, z2, (False, True), save_residuals=True),
         "K2 + K3 lstm_bwd": k2_k3,
         # both directions in one call, as a bidirectional layer runs it (the
         # second direction scans the same residuals backwards in time)
@@ -133,6 +139,8 @@ def run(log=print):
         "K4 gru_fwd": lambda: gru.gru_scan_fwd(xp3, mask, w3, b3, h0, rev),
         "K4 gru_fwd_residuals": lambda: gru.gru_scan_fwd(xp3, mask, w3, b3, h0, rev,
                                                          save_residuals=True),
+        "K4 gru_fwd_residuals, 2 dir": lambda: gru.gru_scan_fwd(
+            xp3_2, mask, gw2, b3_2, z2, (False, True), save_residuals=True),
         "K4 residuals + K5 gru_bwd": k4r_k5,
         "K5 gru_bwd, 2 directions": lambda: gru.gru_scan_bwd(gg2, mask, gw2, gh2, dy2, dh2,
                                                               (False, True)),

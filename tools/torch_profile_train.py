@@ -42,8 +42,10 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "lstm_bwd_step_kernel" in low:
         return "lstm reverse scan (K3)"
+    if "lstm_residual_step_kernel" in low:
+        return "lstm forward (K2)"
     if "lstm_step_kernel" in low:
-        return "lstm forward (K2)" if "true" in low else "lstm forward (K1)"
+        return "lstm forward (K1)"
     if "ctc" in low:
         return "ctc"
     if "multi_tensor_apply" in low or "adam" in low:
