@@ -7,14 +7,19 @@ CUDA card and check them.
 Phases, each printing what it measured; any failure exits non-zero:
   1. device   nvidia-smi's name and power limit, torch and CUDA versions;
   2. build    every kernel compiled from dsjax_torch/csrc;
-  3. kernel   K1 (the LSTM forward) against its plain PyTorch version on the
-              card at the serving shapes (T=501, B=8, H=1024), f32 and bf16,
-              with max errors and CUDA-event median times of both;
+  3. kernel   K1 (the LSTM forward, one persistent cooperative launch a
+              call) against its plain PyTorch version on the card at the
+              serving shapes (T=501, B=8, H=1024), 2 directions and 1, f32
+              and bf16, with max errors and CUDA-event median times of both,
+              and cuDNN's, and its plan (units and CTAs; resident,
+              streamed and register W_hh rows a CTA) and kernel as built
+              under it (no local memory);
   4. parity   the full-width 5x BiLSTM-1024 DeepSpeech2 (seeded weights of
               tests/golden_flagship.py) against tests/fixtures/golden_flagship.npz;
   5. serving  the port's HTTP server on 127.0.0.1 answering 8 concurrent
               /transcribe requests, one chunked long upload and a /stream
-              session, checked against the direct forward + greedy decode;
+              session, checked against the direct forward + greedy decode,
+              with exact K1 launch counts (one a layer call);
   6. train kernels  K2 (the residual-saving forward) and K3 (the reverse
               scan) against their plain versions at the training shapes
               (T=512, B=64, H=1024, both directions, ragged lengths, a
@@ -56,10 +61,12 @@ Phases, each printing what it measured; any failure exits non-zero:
               /transcribe requests against DeviceBeamDecoder.decode on the
               same posteriors, a /stream session whose last transcript
               equals the one-shot beam decode of the same chunks, and a
-              one-chunk session equal to /transcribe of the same audio;
- 14. GRU kernel  K4 (the GRU forward) against its plain version at the
-              serving shapes, 2 directions and 1, prefix and suffix masks,
-              f32 and bf16;
+              one-chunk session equal to /transcribe of the same audio,
+              with exact K1 launch counts;
+ 14. GRU kernel  K4 (the GRU forward, K1's persistent kernel with three
+              gates) against its plain version at the serving shapes, 2
+              directions and 1, prefix and suffix masks, f32 and bf16, with
+              its plans and kernel as built, as phase 3;
  15. GRU train kernels  K4 with residuals and K5 (the GRU reverse scan) at
               T=512, B=64: ragged lengths, a prefix mask with a nonzero carry
               and a suffix mask with a zero one, f32 and bf16, and the step
@@ -164,8 +171,33 @@ def cuda_time(fn, reps: int):
     return statistics.median(times)
 
 
+def persistent_plan(torch, mod, dtype, gates, n_dir, label):
+    """K1's or K4's plan at the serving shapes and its kernel as built under
+    it, printed: units, CTAs, resident, streamed and register W_hh rows a
+    CTA, ring, registers, shared and local memory; no local memory allowed."""
+    from dsjax_torch.ops import lstm
+
+    name = str(dtype).split(".")[1]
+    plan = lstm.scan_plan(n_dir, H, gates, dtype, B, torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    attrs = mod.scan_kernel_attributes(dtype, plan)
+    print(f"kernel {label} {name} {n_dir} direction(s) plan: {plan.units} units a CTA, "
+          f"{plan.ctas} CTAs a direction, {plan.resident_rows} W_hh rows resident, "
+          f"{plan.streamed_rows} streamed and {plan.register_rows} in registers a CTA (share "
+          f"kept on the SM {attrs['resident_share']!r}), "
+          f"{plan.stages} ring stages of {plan.chunk_bytes} B chunks; {attrs['registers']} "
+          f"registers a thread, {attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} bytes "
+          f"of shared memory a CTA, {attrs['local_bytes']} bytes of local memory a thread "
+          f"(cudaFuncGetAttributes)")
+    check(attrs["local_bytes"] == 0, f"{label} {name}: the persistent kernel spills "
+                                     f"{attrs['local_bytes']} bytes a thread")
+    return {"plan": plan._asdict(), "kernel_attributes": attrs}
+
+
 def phase_kernel(torch, np):
-    """K1: dsjax/ops/lstm_pallas.py:_fwd_kernel -> dsjax_torch/csrc/lstm_fwd.cu."""
+    """K1: dsjax/ops/lstm_pallas.py:_fwd_kernel -> dsjax_torch/csrc/lstm_fwd.cu
+    (the persistent kernel of csrc/scan_persist.cuh), at the serving shapes,
+    both directions and one."""
     from dsjax_torch.ops import lstm
 
     rng = np.random.default_rng(0)
@@ -183,13 +215,16 @@ def phase_kernel(torch, np):
         b = dev(rng.standard_normal((2, 4 * H)) * 0.1)
         h0 = dev(rng.standard_normal((2, B, H)) * 0.1)
         c0 = dev(rng.standard_normal((2, B, H)) * 0.1)
-        cases = {"bidirectional, prefix mask": (dev(prefix, torch.float32), (False, True)),
-                 "forward, suffix mask": (dev(prefix[::-1], torch.float32), (False, False))}
+        mask, suffix = dev(prefix, torch.float32), dev(prefix[::-1], torch.float32)
+        cases = {"bidirectional, prefix mask": (xp, mask, w, b, h0, c0, (False, True)),
+                 "2 forward directions, suffix mask": (xp, suffix, w, b, h0, c0, (False, False)),
+                 "1 direction, prefix mask": (xp[:1], mask, w[:1], b[:1], h0[:1], c0[:1],
+                                              (False,))}
         atol, rtol = TOLERANCE[name]
         err = 0.0
-        for case, (mask, reverse) in cases.items():
-            out = lstm.lstm_scan(xp, mask, w, b, h0, c0, reverse)
-            ref = lstm.lstm_scan_reference(xp, mask, w, b, h0, c0, reverse)
+        for case, args in cases.items():
+            out = lstm.lstm_scan(*args)
+            ref = lstm.lstm_scan_reference(*args)
             torch.cuda.synchronize()
             for o, r, what in zip(out, ref, ("y", "h_T", "c_T")):
                 check(bool(torch.isfinite(o.float()).all()), f"{name} {case}: {what} not finite")
@@ -198,21 +233,23 @@ def phase_kernel(torch, np):
                 check(bool((e <= bound).all()),
                       f"{name} {case}: {what} max err {e.max().item()} over atol {atol} rtol {rtol}")
                 err = max(err, e.max().item())
-        mask, reverse = cases["bidirectional, prefix mask"]
-        k_ms = cuda_time(lambda: lstm.lstm_scan(xp, mask, w, b, h0, c0, reverse), 20)
-        p_ms = cuda_time(lambda: lstm.lstm_scan_reference(xp, mask, w, b, h0, c0, reverse), 5)
-        out = lstm.lstm_scan(xp, mask, w, b, h0, c0, reverse)
-        bound_ms, bound_by = least_time(scan_flops(mask, 2, 4, H),
-                                        nbytes(xp, mask, w, b, h0, c0, *out), name)
-        # cuDNN in f32 only: the row's times are f32
-        lib_ms = (library_times(torch, "LSTM", w, b, lengths, T, 20, train=False)[0]
-                  if dtype == torch.float32 else None)
-        print(f"kernel lstm_fwd {name} T={T} B={B} H={H} 2 directions: max_abs_err {err!r} "
-              f"(atol {atol}, rtol {rtol}); kernel {k_ms!r} ms, plain {p_ms!r} ms, "
-              f"torch.nn.LSTM (cuDNN) {lib_ms!r} ms (median, CUDA events); bound {bound_ms!r} ms "
-              f"({bound_by})")
-        result[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms}
+        args = cases["bidirectional, prefix mask"]
+        k_ms = cuda_time(lambda: lstm.lstm_scan(*args), 20)
+        k1_ms = cuda_time(lambda: lstm.lstm_scan(*cases["1 direction, prefix mask"]), 20)
+        p_ms = cuda_time(lambda: lstm.lstm_scan_reference(*args), 5)
+        out = lstm.lstm_scan(*args)
+        bound_ms, bound_by = least_time(scan_flops(mask, 2, 4, H), nbytes(*args[:6], *out), name)
+        lib_ms = library_times(torch, "LSTM", w, b, lengths, T, 20, train=False)[0]
+        print(f"kernel lstm_fwd (K1) {name} T={T} B={B} H={H}: max_abs_err {err!r} (atol "
+              f"{atol}, rtol {rtol}); 2 directions: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
+              f"torch.nn.LSTM (cuDNN) {lib_ms!r} ms; 1 direction: kernel {k1_ms!r} ms (median, "
+              f"CUDA events); bound {bound_ms!r} ms ({bound_by})")
+        result[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        "one_direction_ms": k1_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms,
+                        "plans": {f"{n} directions": persistent_plan(torch, lstm, dtype, 4, n,
+                                                                     "lstm_fwd (K1)")
+                                  for n in (2, 1)}}
     return result
 
 
@@ -319,16 +356,16 @@ def reset_counts():
     from dsjax_torch.ops import beam, gru, lstm, mm_chain, topk
 
     for scan in (lstm, gru):
-        scan.LAUNCHES = scan.STEP_LAUNCHES = scan.RESIDUAL_LAUNCHES = scan.BWD_LAUNCHES = 0
+        scan.LAUNCHES = scan.STEPS = scan.RESIDUAL_LAUNCHES = scan.BWD_LAUNCHES = 0
     topk.LAUNCHES = beam.LAUNCHES = mm_chain.LAUNCHES = 0
 
 
 def read_counts():
     from dsjax_torch.ops import beam, gru, lstm, mm_chain, topk
 
-    return {"lstm_fwd": lstm.LAUNCHES, "lstm_steps": lstm.STEP_LAUNCHES,
+    return {"lstm_fwd": lstm.LAUNCHES, "lstm_steps": lstm.STEPS,
             "lstm_fwd_residuals": lstm.RESIDUAL_LAUNCHES, "lstm_bwd": lstm.BWD_LAUNCHES,
-            "gru_fwd": gru.LAUNCHES, "gru_steps": gru.STEP_LAUNCHES,
+            "gru_fwd": gru.LAUNCHES, "gru_steps": gru.STEPS,
             "gru_fwd_residuals": gru.RESIDUAL_LAUNCHES, "gru_bwd": gru.BWD_LAUNCHES,
             "topk": topk.LAUNCHES, "beam_scan": beam.LAUNCHES, "mm_chain": mm_chain.LAUNCHES}
 
@@ -376,7 +413,7 @@ def phase_serving(torch, np, state, model_cfg, gpu_name):
             stream = [post(port, f"/stream?session=smoke&final={int(i == 2)}", y)
                       for i, y in enumerate(stream_ys)]
             torch.cuda.synchronize()
-            launches, step_launches = lstm.LAUNCHES, lstm.STEP_LAUNCHES
+            launches, steps = lstm.LAUNCHES, lstm.STEPS
 
             for (status, payload, _), s in zip(results + [long_result], seconds + [25.0]):
                 check(status == 200, f"/transcribe ({s} s) -> {status} {payload}")
@@ -387,7 +424,7 @@ def phase_serving(torch, np, state, model_cfg, gpu_name):
                 check(status == 200 and isinstance(payload.get("transcription"), str),
                       f"/stream -> {status} {payload}")
             check(stream[-1][1]["final"] is True, "the final /stream chunk was not final")
-            # one scan call per layer and forward: a warmup forward per
+            # one K1 launch per layer and forward: a warmup forward per
             # power-of-two batch size, the one batch of 8, each chunk of the
             # long upload and each /stream chunk
             warmups = cfg.max_batch.bit_length()
@@ -412,9 +449,9 @@ def phase_serving(torch, np, state, model_cfg, gpu_name):
           f"8 concurrent /transcribe of {seconds} s: p50 {statistics.median(lat)!r} ms, "
           f"max {lat[-1]!r} ms; chunked 25 s upload {long_result[2]!r} ms; /stream chunks "
           f"{[round(s[2], 3) for s in stream]} ms; transcripts equal the direct forward; "
-          f"lstm_fwd calls {launches} ({forwards} forwards x {model_cfg.hidden_layers} "
-          f"layers), {step_launches} step kernels")
-    return launches, step_launches
+          f"lstm_fwd launches {launches} ({forwards} forwards x {model_cfg.hidden_layers} "
+          f"layers, one a layer call), {steps} time steps scanned")
+    return launches, steps
 
 
 def nbytes(*tensors):
@@ -1015,6 +1052,7 @@ def phase_beam_serving(torch, np, state, model_cfg, gpu_name):
                                      "device=cuda", "max_batch=8", "batch_timeout_ms=2000",
                                      "warmup_seconds=2", "lm.decoder_type=beam",
                                      f"lm.beam_width={EVAL_WIDTH}"])
+        reset_counts()
         server, worker = serve(cfg)
         try:
             check(isinstance(worker.decoder, DeviceBeamDecoder), "the server's decoder is not "
@@ -1058,12 +1096,23 @@ def phase_beam_serving(torch, np, state, model_cfg, gpu_name):
                   "a one-chunk beam /stream session differs from /transcribe")
         finally:
             shutdown(server, worker)
+    # one K1 launch per layer and forward: a warmup forward per power-of-two
+    # batch size, the batch of 8 and its direct rebuild, each /stream chunk,
+    # the one-chunk session and its /transcribe
+    torch.cuda.synchronize()
+    counts = read_counts()
+    forwards = cfg.max_batch.bit_length() + 2 + len(stream_ys) + 2
+    check(counts["lstm_fwd"] == forwards * model_cfg.hidden_layers,
+          f"beam serving: {counts['lstm_fwd']} lstm_fwd launches for {forwards} forwards of "
+          f"{model_cfg.hidden_layers} layers")
     lat = sorted(r[2] for r in results)
     print(f"beam serving on {gpu_name} (W={EVAL_WIDTH}): 8 concurrent /transcribe of {seconds} s: "
           f"p50 {statistics.median(lat)!r} ms, max {lat[-1]!r} ms, equal to "
           f"DeviceBeamDecoder.decode on the same posteriors; /stream chunks "
           f"{[round(s[2], 3) for s in stream]} ms, last transcript equal to the one-shot beam "
-          f"decode of its {len(stream_chunks)} chunks; a one-chunk session equals /transcribe")
+          f"decode of its {len(stream_chunks)} chunks; a one-chunk session equals /transcribe; "
+          f"lstm_fwd launches {counts['lstm_fwd']} ({forwards} forwards x "
+          f"{model_cfg.hidden_layers} layers, one a layer call)")
 
 
 def gru_inputs(torch, np, rng, t_dim, b_dim, dtype):
@@ -1118,15 +1167,17 @@ def phase_gru_kernel(torch, np):
         p_ms = cuda_time(lambda: gru.gru_scan_reference(*args), 5)
         bound_ms, bound_by = least_time(scan_flops(mask, 2, 3, H),
                                         nbytes(*args[:5], *gru.gru_scan(*args)), name)
-        lib_ms = (library_times(torch, "GRU", w, b, lengths, T, 20, train=False)[0]
-                  if dtype == torch.float32 else None)
-        print(f"kernel gru_fwd {name} T={T} B={B} H={H}: max_abs_err {err!r} (atol "
+        lib_ms = library_times(torch, "GRU", w, b, lengths, T, 20, train=False)[0]
+        print(f"kernel gru_fwd (K4) {name} T={T} B={B} H={H}: max_abs_err {err!r} (atol "
               f"{TOLERANCE[name][0]}, rtol {TOLERANCE[name][1]}); 2 directions: kernel {k_ms!r} "
               f"ms, plain {p_ms!r} ms, torch.nn.GRU (cuDNN) {lib_ms!r} ms; 1 direction: kernel "
               f"{k1_ms!r} ms (median, CUDA events); bound {bound_ms!r} ms ({bound_by})")
         result[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                         "one_direction_ms": k1_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": lib_ms}
+                        "library_ms": lib_ms,
+                        "plans": {f"{n} directions": persistent_plan(torch, gru, dtype, 3, n,
+                                                                     "gru_fwd (K4)")
+                                  for n in (2, 1)}}
     return result
 
 
@@ -1400,7 +1451,8 @@ def phase_gru_serving(torch, np, paths, gpu_name):
           f"5 x GRU-1024 + Lookahead 20 /stream of {len(stream_ys)} 1 s chunks: "
           f"{[round(s[2], 3) for s in stream]} ms, transcript equal to the direct chunked "
           f"forward; gru_fwd launches {counts['gru_fwd']} ({bi_forwards} + {uni_forwards} "
-          f"forwards x {layers} layers), {counts['gru_steps']} step kernels")
+          f"forwards x {layers} layers, one a layer call), {counts['gru_steps']} time steps "
+          f"scanned")
     return counts
 
 
@@ -1480,7 +1532,7 @@ def run(torch, np):
     defaults_back()
     print(f"serving phase: PyTorch defaults (cudnn TF32 {defaults[0]}, matmul TF32 "
           f"{defaults[1]}, precision {defaults[2]!r})")
-    launches, step_launches = phase_serving(torch, np, state, model_cfg, gpu_name)
+    launches, steps = phase_serving(torch, np, state, model_cfg, gpu_name)
     full_fp32()
     train_kernels = phase_train_kernels(torch, np)
     phase_gradients(torch, np)
@@ -1522,6 +1574,13 @@ def run(torch, np):
                 "bf16_plain_ms": res["plain_ms"], "bf16_bound_ms": res["bound_ms"],
                 "bf16_library_ms": res["library_ms"]}
 
+    def persistent_extra(f32, bf16):
+        # a serving scan: its one-direction times and, for each dtype and
+        # direction count, its plan and kernel as built
+        return {"one_direction_ms": f32["one_direction_ms"],
+                "bf16_one_direction_ms": bf16["one_direction_ms"],
+                "plans": {"float32": f32["plans"], "bfloat16": bf16["plans"]}}
+
     def pair_extra(key, f32, bf16):
         # a backward row: its kernel pair (forward with residuals, then the
         # backward) as one call, and cuDNN's forward plus backward
@@ -1539,10 +1598,11 @@ def run(torch, np):
                                       for n in ("float32", "bfloat16")}}
 
     rows = [row("lstm_fwd", "dsjax_torch/csrc/lstm_fwd.cu", "dsjax/ops/lstm_pallas.py:62",
-                launches, kernel["float32"], step_launches=step_launches,
+                launches, kernel["float32"], steps=steps,
                 launches_in_training=train_launches["lstm_fwd"],
                 launches_in_evaluation=eval_runs["greedy"]["counts"]["lstm_fwd"],
-                **bf16_extra(kernel["bfloat16"]))]
+                **bf16_extra(kernel["bfloat16"]),
+                **persistent_extra(kernel["float32"], kernel["bfloat16"]))]
     for key, name, source, replaces in (
             ("fwd", "lstm_fwd_residuals", "dsjax_torch/csrc/lstm_fwd.cu",
              "dsjax/ops/lstm_pallas.py:381"),
@@ -1566,10 +1626,10 @@ def run(torch, np):
                     beam_res[f"B={b} T={t} W={w} C={c}"], shapes=beam_res))
     rows.append(row("gru_fwd", "dsjax_torch/csrc/gru_fwd.cu", "dsjax/ops/gru_pallas.py:40",
                     gru_serving["gru_fwd"], gru_kernel["float32"],
-                    step_launches=gru_serving["gru_steps"],
+                    steps=gru_serving["gru_steps"],
                     launches_in_training=gru_train_launches["gru_fwd"],
-                    one_direction_ms=gru_kernel["float32"]["one_direction_ms"],
-                    **bf16_extra(gru_kernel["bfloat16"])))
+                    **bf16_extra(gru_kernel["bfloat16"]),
+                    **persistent_extra(gru_kernel["float32"], gru_kernel["bfloat16"])))
     for key, name, source, replaces in (
             ("fwd", "gru_fwd_residuals", "dsjax_torch/csrc/gru_fwd.cu",
              "dsjax/ops/gru_pallas.py:293"),

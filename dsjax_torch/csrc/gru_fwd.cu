@@ -18,11 +18,21 @@
 // (gru_pallas.py:101-104). The reverse scan (gru_bwd.cu) reads them back
 // instead of recomputing h_{t-1} . W_hh^T.
 //
-// Both kernels run one launch per time step for every direction, grid
-// (units / units a CTA, directions); a CTA owns a set of hidden units and
-// computes their r, z and n columns for every batch row, so it finishes the
-// update itself and nothing crosses CTAs within a step. The launch boundary
-// is the barrier between steps, so h is double-buffered in device memory.
+// K4, inference, is K1's persistent kernel (scan_persist.cuh) with three
+// gates and no c: one cooperative launch a layer call, the time loop
+// inside, each CTA's W_hh rows resident in shared memory (streamed from L2
+// only where they do not fit), its own units' h kept there for all T
+// steps, one barrier a step within each direction. GruCell below is its
+// update. With one direction (the streaming GRU + Lookahead model) a CTA
+// owns 8 units, with two 16 (H = 1024, 132 SMs).
+// Where its step's time goes, and the forms tried and dropped, are at the
+// top of scan_persist.cuh.
+//
+// K4r runs one launch per time step for every direction, grid (units /
+// units a CTA, directions); a CTA owns a set of hidden units and computes
+// their r, z and n columns for every batch row, so it finishes the update
+// itself and nothing crosses CTAs within a step. The launch boundary is
+// the barrier between steps, so h is double-buffered in device memory.
 //
 // K4r, the training forward (gru_residual_step_kernel), is lstm_fwd.cu's
 // K2 with three gate columns a unit. What bounds it: at B = 64, H = 1024 a
@@ -32,7 +42,7 @@
 // 96 KB) and the latency of one launch a step, 12.4 us a launch for both
 // directions (H100 80GB HBM3 at 700 W, tools/torch_lstm_microbench.py). In
 // f32 the FMA pipes bound it (20.4 ms a layer call at T = 512,
-// chip_smoke.py). The first form of K4r (K4's kernel with the writes) ran
+// chip_smoke.py). The first form of K4r (the per-step K4 kernel with the writes) ran
 // the product on CUDA cores from an f32 copy of 8 rows of h, 8 passes over
 // its W_hh rows a step at B = 64 with a warp-wide reduction for every
 // (column, row) pair: 67.4 us a launch, 35.3 ms a layer call in bf16
@@ -59,34 +69,20 @@
 // thread in bf16 and took 7.6 ms a layer call in bf16. Later forms: those
 // of K2 (lstm_fwd.cu).
 //
-// K4, inference (gru_step_kernel), keeps its CUDA-core form, as K1 does: at
-// serving shapes (B = 8) each step of a direction reads all of W_hh (12 MB in
-// f32, 6 MB in bf16 at H = 1024) for 2 * B * H * 3H = 50 MFLOP, so it is bound
-// by the rate at which W_hh streams from L2 (both directions' 24 MB fit in the
-// 50 MB L2) and by each step's latency; 8 rows fill half an m16 tile, and it
-// already beats cuDNN 1.5x in f32 (PERF.md). A CTA owns kUnits = 8 units, 256
-// CTAs at H = 1024; a warp takes kColsPerWarp rows of W_hh with 16-byte loads
-// and multiplies them against h_{t-1}, which the CTA stages in shared memory
-// in f32.
+// K4's earlier form ran one launch of 256 CTAs a step (8 units a CTA):
+// every step each CTA re-read its W_hh rows from L2, staged 8 rows of
+// h_{t-1} in f32 and reduced every (column, row) pair across a warp; 5.5
+// and 5.7 ms a call in f32 and bf16 at T = 501, B = 8, H = 1024, both
+// directions, about 11 us a step (PERF.md): latency-bound.
 
 #include "lstm_common.cuh"
 #include "scan_mma.cuh"
+#include "scan_persist.cuh"
 
 namespace {
 
 using namespace dsjax_torch;
 namespace sm = dsjax_torch::scan_mma;
-
-// K4
-constexpr int kUnits = 8;                      // hidden units per CTA
-constexpr int kCols = 3 * kUnits;              // their r, z, n columns
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kColsPerWarp = kCols / kWarps;   // 3
-constexpr int kRows = 8;                       // batch rows per pass over W_hh
-
-static_assert(kCols % kWarps == 0, "columns must split evenly over warps");
-static_assert(kRows * kUnits <= kThreads, "one thread per (row, unit)");
 
 // K4r
 constexpr int kResUnits = 16;                          // hidden units per CTA
@@ -98,117 +94,6 @@ constexpr int kPasses = sm::kRows / kRowsPerPass;      // rows of a block per th
 
 static_assert(sm::kThreads % kPairs == 0 && sm::kRows % kRowsPerPass == 0,
               "threads cover a row block in whole passes");
-
-// One time step of every direction, without residuals (K4).
-//   xp    (D, T, B, 3H)   input projections, b_ih included
-//   mask  (T, B) f32      1 where t < length
-//   w_hh  (D, 3H, H)      recurrent weights, rows in gate order r, z, n
-//   b_hh  (D, 3H)
-//   h_in  (D, B, H)       carry entering the step; h_out leaving it
-//   y     (D, T, B, H)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gru_step_kernel(const T* __restrict__ xp, const float* __restrict__ mask,
-                const T* __restrict__ w_hh, const T* __restrict__ b_hh,
-                const T* __restrict__ h_in, T* __restrict__ h_out, T* __restrict__ y,
-                int n_t, int n_b, int n_h, int step, int reverse_bits) {
-  constexpr int V = Vec<T>::N;
-  extern __shared__ float smem[];
-  float* h_s = smem;                    // (kRows, H): h_{t-1} in f32
-  float* z_s = smem + kRows * n_h;      // (kCols, kRows): h . W_hh^T
-
-  const int d = blockIdx.y;
-  const int j0 = blockIdx.x * kUnits;
-  const int t = time_of(step, n_t, (reverse_bits >> d) & 1);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t g3 = 3 * static_cast<size_t>(n_h);
-
-  // Local column lc is gate lc / kUnits of unit j0 + lc % kUnits.
-  const T* w_rows[kColsPerWarp];
-#pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c) {
-    const int lc = warp * kColsPerWarp + c;
-    const size_t col = static_cast<size_t>(lc / kUnits) * n_h + j0 + lc % kUnits;
-    w_rows[c] = w_hh + d * g3 * n_h + col * n_h;
-  }
-  const size_t state_d = static_cast<size_t>(d) * n_b * n_h;
-
-  for (int b0 = 0; b0 < n_b; b0 += kRows) {
-    const int nb = min(kRows, n_b - b0);
-    const T* h_rows = h_in + state_d + static_cast<size_t>(b0) * n_h;
-    for (int i = threadIdx.x; i < kRows * n_h; i += kThreads) {
-      h_s[i] = i < nb * n_h ? to_f32(h_rows[i]) : 0.f;
-    }
-    __syncthreads();
-
-    float acc[kColsPerWarp][kRows];
-#pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[c][r] = 0.f;
-    }
-#pragma unroll 2
-    for (int k = lane * V; k < n_h; k += 32 * V) {
-      float w[kColsPerWarp][V];
-#pragma unroll
-      for (int c = 0; c < kColsPerWarp; ++c) load16(w_rows[c] + k, w[c]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float hv[V];
-#pragma unroll
-        for (int q = 0; q < V; q += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(h_s + r * n_h + k + q);
-          hv[q] = v.x; hv[q + 1] = v.y; hv[q + 2] = v.z; hv[q + 3] = v.w;
-        }
-#pragma unroll
-        for (int c = 0; c < kColsPerWarp; ++c) {
-#pragma unroll
-          for (int q = 0; q < V; ++q) acc[c][r] = fmaf(w[c][q], hv[q], acc[c][r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float s = acc[c][r];
-#pragma unroll
-        for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) z_s[(warp * kColsPerWarp + c) * kRows + r] = s;
-      }
-    }
-    __syncthreads();
-
-    if (threadIdx.x < nb * kUnits) {
-      const int r = threadIdx.x / kUnits;
-      const int u = threadIdx.x % kUnits;
-      const int j = j0 + u;
-      const int b = b0 + r;
-      const size_t row = (static_cast<size_t>(d) * n_t + t) * n_b + b;
-      const T* xp_row = xp + row * g3;
-      const T* bias = b_hh + d * g3;
-      float hp[3];
-      float xg[3];
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-        const int col = g * n_h + j;
-        hp[g] = z_s[(g * kUnits + u) * kRows + r] + to_f32(bias[col]);
-        xg[g] = to_f32(xp_row[col]);
-      }
-      const float r_g = sigmoid(xg[0] + hp[0]);
-      const float z_g = sigmoid(xg[1] + hp[1]);
-      const float n_g = tanhf(xg[2] + r_g * hp[2]);
-      const size_t s = state_d + static_cast<size_t>(b) * n_h + j;
-      const float h_prev = h_s[r * n_h + j];
-      const float h_new = (1.f - z_g) * n_g + z_g * h_prev;
-      const float m = mask[static_cast<size_t>(t) * n_b + b];
-      h_out[s] = from_f32<T>(m * h_new + (1.f - m) * h_prev);
-      y[row * n_h + j] = from_f32<T>(h_new * m);
-    }
-    __syncthreads();
-  }
-}
 
 template <typename T>
 constexpr int residual_smem_bytes() {
@@ -225,8 +110,8 @@ struct Item {
   typename Pair<T>::type xp[3], h;
 };
 
-// One unit of the update, as gru_step_kernel rounds it, from the product's
-// z[3] (without b_hh) and the pair's inputs.
+// One unit of the update, with the contract's roundings, from the
+// product's z[3] (without b_hh), b_hh, xp's columns, h_{t-1} and the mask.
 struct Cell {
   float h_keep, y, r, z, n, hn;
 };
@@ -246,8 +131,29 @@ __device__ __forceinline__ Cell gru_cell(const float (&zp)[3], const float (&bia
   return out;
 }
 
-// One time step of every direction, saving residuals (K4r). Arguments as
-// gru_step_kernel's, and
+// K4's update for scan_persist.cuh: state {h} of one unit, rounded to the
+// working type in place; returns y.
+struct GruCell {
+  static constexpr int kGates = 3;
+  static constexpr int kState = 1;
+
+  template <typename T>
+  __device__ __forceinline__ static float update(const float (&zp)[3], const float (&x)[3],
+                                                 const float (&bias)[3], float m,
+                                                 float (&state)[1]) {
+    const Cell c = gru_cell(zp, bias, x, state[0], m);
+    state[0] = persist::round_to<T>(c.h_keep);
+    return c.y;
+  }
+};
+
+// One time step of every direction, saving residuals (K4r).
+//   xp    (D, T, B, 3H)   input projections, b_ih included
+//   mask  (T, B) f32      1 where t < length
+//   w_hh  (D, 3H, H)      recurrent weights, rows in gate order r, z, n
+//   b_hh  (D, 3H)
+//   h_in  (D, B, H)       carry entering the step; h_out leaving it
+//   y     (D, T, B, H)
 //   gates (D, T, B, 4H)   (r, z, n, hn)
 template <typename T>
 __global__ void __launch_bounds__(sm::kThreads, 1)
@@ -333,31 +239,6 @@ gru_residual_step_kernel(const T* __restrict__ xp, const float* __restrict__ mas
 }
 
 template <typename T>
-int run_scan(const void* xp, const void* mask, const void* w_hh, const void* b_hh,
-             void* h_buf, void* y, int n_dir, int n_t, int n_b, int n_h, int reverse_bits,
-             cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kRows * n_h + kCols * kRows) * sizeof(float);
-  auto kernel = gru_step_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n_h / kUnits, n_dir);
-  const size_t state = static_cast<size_t>(n_dir) * n_b * n_h;
-  T* h = static_cast<T*>(h_buf);
-  for (int s = 0; s < n_t; ++s) {
-    const size_t in = (s & 1) * state;
-    const size_t out = ((s + 1) & 1) * state;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(xp), static_cast<const float*>(mask),
-        static_cast<const T*>(w_hh), static_cast<const T*>(b_hh), h + in, h + out,
-        static_cast<T*>(y), n_t, n_b, n_h, s, reverse_bits);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-template <typename T>
 int run_residual_scan(const void* xp, const void* mask, const void* w_hh, const void* b_hh,
                       void* h_buf, void* y, void* gates, int n_dir, int n_t, int n_b, int n_h,
                       int reverse_bits, cudaStream_t stream) {
@@ -381,39 +262,39 @@ int run_residual_scan(const void* xp, const void* mask, const void* w_hh, const 
   return cudaSuccess;
 }
 
-template <typename T>
-int dispatch_scan(const void* xp, const void* mask, const void* w_hh, const void* b_hh,
-                  void* h_buf, void* y, void* gates, int n_dir, int n_t, int n_b, int n_h,
-                  int reverse_bits, cudaStream_t stream) {
-  if (gates != nullptr) {
-    return run_residual_scan<T>(xp, mask, w_hh, b_hh, h_buf, y, gates, n_dir, n_t, n_b, n_h,
-                                reverse_bits, stream);
-  }
-  return run_scan<T>(xp, mask, w_hh, b_hh, h_buf, y, n_dir, n_t, n_b, n_h, reverse_bits,
-                     stream);
-}
-
 }  // namespace
 
 // Runs all n_t steps of one layer on `stream`. h_buf is (2, D, B, H): slot 0
 // holds the initial carry, and the final carry is left in slot n_t % 2.
 // gates (D, T, B, 4H) is null for inference (K4) or set for the
-// residual-saving forward (K4r). Requires n_h % 8 == 0 and w_hh and h_buf
-// on 16-byte boundaries; K4r also xp and b_hh on a boundary of two
-// elements (it reads unit pairs). Returns a cudaError_t: the first error
-// any launch reported, or cudaSuccess.
+// residual-saving forward (K4r). K4 is one cooperative launch (none at
+// n_t = 0) with the plan of ops/lstm.py:scan_plan, persist::kPlanInts ints,
+// checked again here, and `counters`, (D,) int32 zeroed; K4r reads
+// neither. Requires n_h % 8 == 0, w_hh and h_buf on 16-byte boundaries,
+// and K4 also xp; K4r also xp and b_hh on a boundary of two elements (it
+// reads unit pairs). Returns a cudaError_t: the first error any launch
+// reported, or cudaSuccess.
 extern "C" int dsjax_torch_gru_fwd(const void* xp, const void* mask, const void* w_hh,
                                    const void* b_hh, void* h_buf, void* y, void* gates,
                                    int n_dir, int n_t, int n_b, int n_h, int reverse_bits,
-                                   int is_bf16, void* stream) {
-  if (n_h % kUnits != 0 || n_h % Vec<__nv_bfloat16>::N != 0) return cudaErrorInvalidValue;
+                                   int is_bf16, void* stream, const int* plan,
+                                   void* counters) {
+  if (n_h % 8 != 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return dispatch_scan<__nv_bfloat16>(xp, mask, w_hh, b_hh, h_buf, y, gates, n_dir, n_t,
-                                        n_b, n_h, reverse_bits, s);
+  if (gates == nullptr) {
+    return is_bf16 ? persist::launch<__nv_bfloat16, GruCell>(xp, mask, w_hh, b_hh, h_buf,
+                                                             nullptr, y, counters, plan, n_dir,
+                                                             n_t, n_b, n_h, reverse_bits, s)
+                   : persist::launch<float, GruCell>(xp, mask, w_hh, b_hh, h_buf, nullptr, y,
+                                                     counters, plan, n_dir, n_t, n_b, n_h,
+                                                     reverse_bits, s);
   }
-  return dispatch_scan<float>(xp, mask, w_hh, b_hh, h_buf, y, gates, n_dir, n_t, n_b, n_h,
-                              reverse_bits, s);
+  if (is_bf16) {
+    return run_residual_scan<__nv_bfloat16>(xp, mask, w_hh, b_hh, h_buf, y, gates, n_dir, n_t,
+                                            n_b, n_h, reverse_bits, s);
+  }
+  return run_residual_scan<float>(xp, mask, w_hh, b_hh, h_buf, y, gates, n_dir, n_t, n_b,
+                                  n_h, reverse_bits, s);
 }
 
 // K4r's step kernel for the working type: out[0] registers a thread, out[1]
@@ -432,4 +313,12 @@ extern "C" int dsjax_torch_gru_fwd_attributes(int is_bf16, int* out) {
   out[3] = static_cast<int>(attr.localSizeBytes);
   out[4] = kResUnits;
   return cudaSuccess;
+}
+
+// K4's persistent kernel for the working type, with register rows
+// (register_rows > 0, float32 only) or without (persist::attributes).
+extern "C" int dsjax_torch_gru_scan_attributes(int is_bf16, int register_rows, int* out) {
+  if (is_bf16 && register_rows > 0) return cudaErrorInvalidValue;
+  return is_bf16 ? persist::attributes<__nv_bfloat16, GruCell>(false, out)
+                 : persist::attributes<float, GruCell>(register_rows > 0, out);
 }

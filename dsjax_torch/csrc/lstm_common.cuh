@@ -1,7 +1,6 @@
 // Helpers shared by the scan kernels (lstm_*.cu, gru_*.cu): the working
-// types float and bfloat16 with float32 arithmetic, 16-byte loads of a
-// working-type row into float32 registers, and the 2-wide loads and stores
-// of a unit pair that the tensor-core scans' epilogues make.
+// types float and bfloat16 with float32 arithmetic, and the 2-wide loads
+// and stores of a unit pair that the tensor-core scans' epilogues make.
 
 #pragma once
 
@@ -24,30 +23,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// Elements of T in one 16-byte load.
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> { static constexpr int N = 4; };
-template <>
-struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
-
-__device__ __forceinline__ void load16(const float* p, float (&out)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&out)[8]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(pairs[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 
 // Two neighbouring elements, from or to a boundary of two elements.

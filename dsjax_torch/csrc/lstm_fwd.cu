@@ -17,12 +17,23 @@
 // natural time t, as y is (lstm_pallas.py:133-141). The reverse scan reads
 // them back instead of recomputing h_{t-1} . W_hh^T.
 //
-// Both kernels run one launch per time step for every direction, grid
-// (units / units a CTA, directions); a CTA owns a set of hidden units and
-// computes their four gate columns for every batch row, so it finishes the
-// cell update itself and nothing crosses CTAs within a step. The launch
+// K1, inference, is one persistent cooperative launch a layer call on
+// scan_persist.cuh (its header comment gives the design): the time loop
+// runs inside the kernel, each CTA keeps its W_hh rows on the SM (all in
+// shared memory in bf16; in f32 at H = 1024 with two directions the last
+// gate's 16 rows in registers and the other 48 in shared memory; where
+// even that does not fit, the rest streamed from L2 each step) and its own
+// units' h and c for all T steps, and the CTAs of a direction meet at one
+// barrier a step. LstmCell below is its update.
+// Where its step's time goes, and the forms tried and dropped, are at the
+// top of scan_persist.cuh.
+//
+// K2 runs one launch per time step for every direction, grid (units /
+// units a CTA, directions); a CTA owns a set of hidden units and computes
+// their four gate columns for every batch row, so it finishes the cell
+// update itself and nothing crosses CTAs within a step. The launch
 // boundary is the barrier between steps, so h and c are double-buffered in
-// device memory and no grid-wide barrier exists to deadlock.
+// device memory.
 //
 // K2, the training forward (lstm_residual_step_kernel). What bounds it: at
 // B = 64, H = 1024 a step of a direction is 2 * B * 4H * H = 537 MFLOP,
@@ -33,7 +44,7 @@
 // tools/torch_lstm_microbench.py), what K3's and K5's launches take for
 // their bytes. In f32 the FMA pipes bound it: 64 x 64 x H FMA a CTA a step
 // (24.4 ms a layer call at T = 512, chip_smoke.py). The first form of K2
-// (K1's kernel with the writes) ran the product on CUDA cores from an f32
+// (the per-step K1 kernel with the writes) ran the product on CUDA cores from an f32
 // copy of 8 rows of h, passing over its W_hh rows 8 times a step at B = 64
 // and reducing every (column, row) pair across a warp: 69.6 us a launch,
 // 36.9 ms a layer call in bf16 against 8.2 now (the microbench, in turns
@@ -68,35 +79,20 @@
 // Later forms: multicast the h tile to a cluster of CTAs so that L2 is read
 // once a cluster, wgmma with M = 64 = B, W_hh resident in shared memory.
 //
-// K1, inference (lstm_step_kernel), keeps its CUDA-core form: at serving
-// shapes (B = 8) a step of a direction reads all of W_hh (16 MB in f32,
-// 8 MB in bf16) for only 2 * B * H * 4H = 67 MFLOP, so it is bound by the
-// rate at which W_hh streams from L2 (both directions' W_hh fit in the
-// 50 MB L2) and by each step's latency; 8 rows fill half an m16 tile, and
-// it already beats cuDNN 2.1x in f32 (PERF.md). Each CTA owns
-// kUnits = 8 units, 256 CTAs at H = 1024; a warp takes kColsPerWarp rows
-// of W_hh (one contiguous row a gate column) with 16-byte loads and
-// multiplies them against h_{t-1}, which the CTA stages in shared memory in
-// f32, kRows batch rows a pass.
+// K1's earlier form ran one launch of 256 CTAs a step:
+// 8 units a CTA, every step re-reading the CTA's W_hh rows from L2 and
+// reducing every (column, row) pair across a warp, 10.8 us a step in f32
+// and bf16 alike (5.4 and 5.9 ms a call at T = 501, B = 8, H = 1024, both
+// directions; PERF.md). Its per-step latency, not its bytes, bounded it.
 
 #include "lstm_common.cuh"
 #include "scan_mma.cuh"
+#include "scan_persist.cuh"
 
 namespace {
 
 using namespace dsjax_torch;
 namespace sm = dsjax_torch::scan_mma;
-
-// K1
-constexpr int kUnits = 8;                      // hidden units per CTA
-constexpr int kCols = 4 * kUnits;              // their i, f, g, o columns
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kColsPerWarp = kCols / kWarps;   // 4
-constexpr int kRows = 8;                       // batch rows per pass over W_hh
-
-static_assert(kCols % kWarps == 0, "columns must split evenly over warps");
-static_assert(kRows * kUnits <= kThreads, "one thread per (row, unit)");
 
 // K2
 constexpr int kResUnits = 16;                          // hidden units per CTA
@@ -108,120 +104,6 @@ constexpr int kPasses = sm::kRows / kRowsPerPass;      // rows of a block per th
 
 static_assert(sm::kThreads % kPairs == 0 && sm::kRows % kRowsPerPass == 0,
               "threads cover a row block in whole passes");
-
-// One time step of every direction, without residuals (K1).
-//   xp    (D, T, B, 4H)   input projections, b_ih included
-//   mask  (T, B) f32      1 where t < length
-//   w_hh  (D, 4H, H)      recurrent weights, rows in gate order i, f, g, o
-//   b_hh  (D, 4H)
-//   h_in, c_in  (D, B, H) carry entering the step; h_out, c_out leaving it
-//   y     (D, T, B, H)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lstm_step_kernel(const T* __restrict__ xp, const float* __restrict__ mask,
-                 const T* __restrict__ w_hh, const T* __restrict__ b_hh,
-                 const T* __restrict__ h_in, const T* __restrict__ c_in,
-                 T* __restrict__ h_out, T* __restrict__ c_out, T* __restrict__ y,
-                 int n_t, int n_b, int n_h, int step, int reverse_bits) {
-  constexpr int V = Vec<T>::N;
-  extern __shared__ float smem[];
-  float* h_s = smem;                    // (kRows, H): h_{t-1} in f32
-  float* z_s = smem + kRows * n_h;      // (kCols, kRows): h . W_hh^T
-
-  const int d = blockIdx.y;
-  const int j0 = blockIdx.x * kUnits;
-  const int t = time_of(step, n_t, (reverse_bits >> d) & 1);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t g4 = 4 * static_cast<size_t>(n_h);
-
-  // Local column lc is gate lc / kUnits of unit j0 + lc % kUnits.
-  const T* w_rows[kColsPerWarp];
-#pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c) {
-    const int lc = warp * kColsPerWarp + c;
-    const size_t col = static_cast<size_t>(lc / kUnits) * n_h + j0 + lc % kUnits;
-    w_rows[c] = w_hh + d * g4 * n_h + col * n_h;
-  }
-  const size_t state_d = static_cast<size_t>(d) * n_b * n_h;
-
-  for (int b0 = 0; b0 < n_b; b0 += kRows) {
-    const int nb = min(kRows, n_b - b0);
-    const T* h_rows = h_in + state_d + static_cast<size_t>(b0) * n_h;
-    for (int i = threadIdx.x; i < kRows * n_h; i += kThreads) {
-      h_s[i] = i < nb * n_h ? to_f32(h_rows[i]) : 0.f;
-    }
-    __syncthreads();
-
-    float acc[kColsPerWarp][kRows];
-#pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[c][r] = 0.f;
-    }
-#pragma unroll 2
-    for (int k = lane * V; k < n_h; k += 32 * V) {
-      float w[kColsPerWarp][V];
-#pragma unroll
-      for (int c = 0; c < kColsPerWarp; ++c) load16(w_rows[c] + k, w[c]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float hv[V];
-#pragma unroll
-        for (int q = 0; q < V; q += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(h_s + r * n_h + k + q);
-          hv[q] = v.x; hv[q + 1] = v.y; hv[q + 2] = v.z; hv[q + 3] = v.w;
-        }
-#pragma unroll
-        for (int c = 0; c < kColsPerWarp; ++c) {
-#pragma unroll
-          for (int q = 0; q < V; ++q) acc[c][r] = fmaf(w[c][q], hv[q], acc[c][r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float s = acc[c][r];
-#pragma unroll
-        for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) z_s[(warp * kColsPerWarp + c) * kRows + r] = s;
-      }
-    }
-    __syncthreads();
-
-    if (threadIdx.x < nb * kUnits) {
-      const int r = threadIdx.x / kUnits;
-      const int u = threadIdx.x % kUnits;
-      const int j = j0 + u;
-      const int b = b0 + r;
-      const size_t row = (static_cast<size_t>(d) * n_t + t) * n_b + b;
-      const T* xp_row = xp + row * g4;
-      const T* bias = b_hh + d * g4;
-      float z[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const int col = g * n_h + j;
-        z[g] = (z_s[(g * kUnits + u) * kRows + r] + to_f32(xp_row[col])) + to_f32(bias[col]);
-      }
-      const float i_s = sigmoid(z[0]);
-      const float f_s = sigmoid(z[1]);
-      const float g_t = tanhf(z[2]);
-      const float o_s = sigmoid(z[3]);
-      const size_t s = state_d + static_cast<size_t>(b) * n_h + j;
-      const float c_prev = to_f32(c_in[s]);
-      const float h_prev = h_s[r * n_h + j];
-      const float c_new = f_s * c_prev + i_s * g_t;
-      const float h_new = o_s * tanhf(c_new);
-      const float m = mask[static_cast<size_t>(t) * n_b + b];
-      c_out[s] = from_f32<T>(m * c_new + (1.f - m) * c_prev);
-      h_out[s] = from_f32<T>(m * h_new + (1.f - m) * h_prev);
-      y[row * n_h + j] = from_f32<T>(h_new * m);
-    }
-    __syncthreads();
-  }
-}
 
 template <typename T>
 constexpr int residual_smem_bytes() {
@@ -240,8 +122,8 @@ struct Item {
   typename Pair<T>::type xp[4];
 };
 
-// One unit of the cell update, as lstm_step_kernel rounds it; returns the
-// kept h and c and writes h' * m and the post-activation gates.
+// One unit of the cell update, with the contract's roundings; returns the
+// kept h and c, h' * m and the post-activation gates.
 struct Cell {
   float h_keep, c_keep, y, gate[4];
 };
@@ -261,8 +143,33 @@ __device__ __forceinline__ Cell lstm_cell(const float (&z)[4], float h_prev, flo
   return out;
 }
 
-// One time step of every direction, saving residuals (K2). Arguments as
-// lstm_step_kernel's, and
+// K1's update for scan_persist.cuh: state {h, c} of one unit, rounded to
+// the working type in place; returns y.
+struct LstmCell {
+  static constexpr int kGates = 4;
+  static constexpr int kState = 2;
+
+  template <typename T>
+  __device__ __forceinline__ static float update(const float (&zp)[4], const float (&x)[4],
+                                                 const float (&bias)[4], float m,
+                                                 float (&state)[2]) {
+    float z[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) z[g] = (zp[g] + x[g]) + bias[g];
+    const Cell c = lstm_cell(z, state[0], state[1], m);
+    state[0] = persist::round_to<T>(c.h_keep);
+    state[1] = persist::round_to<T>(c.c_keep);
+    return c.y;
+  }
+};
+
+// One time step of every direction, saving residuals (K2).
+//   xp    (D, T, B, 4H)   input projections, b_ih included
+//   mask  (T, B) f32      1 where t < length
+//   w_hh  (D, 4H, H)      recurrent weights, rows in gate order i, f, g, o
+//   b_hh  (D, 4H)
+//   h_in, c_in  (D, B, H) carry entering the step; h_out, c_out leaving it
+//   y     (D, T, B, H)
 //   gates (D, T, B, 4H), c_seq (D, T, B, H)
 template <typename T>
 __global__ void __launch_bounds__(sm::kThreads, 1)
@@ -341,32 +248,6 @@ lstm_residual_step_kernel(const T* __restrict__ xp, const float* __restrict__ ma
 }
 
 template <typename T>
-int run_scan(const void* xp, const void* mask, const void* w_hh, const void* b_hh,
-             void* h_buf, void* c_buf, void* y, int n_dir, int n_t, int n_b, int n_h,
-             int reverse_bits, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kRows * n_h + kCols * kRows) * sizeof(float);
-  auto kernel = lstm_step_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n_h / kUnits, n_dir);
-  const size_t state = static_cast<size_t>(n_dir) * n_b * n_h;
-  T* h = static_cast<T*>(h_buf);
-  T* c = static_cast<T*>(c_buf);
-  for (int s = 0; s < n_t; ++s) {
-    const size_t in = (s & 1) * state;
-    const size_t out = ((s + 1) & 1) * state;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(xp), static_cast<const float*>(mask),
-        static_cast<const T*>(w_hh), static_cast<const T*>(b_hh), h + in, c + in,
-        h + out, c + out, static_cast<T*>(y), n_t, n_b, n_h, s, reverse_bits);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-template <typename T>
 int run_residual_scan(const void* xp, const void* mask, const void* w_hh, const void* b_hh,
                       void* h_buf, void* c_buf, void* y, void* gates, void* c_seq, int n_dir,
                       int n_t, int n_b, int n_h, int reverse_bits, cudaStream_t stream) {
@@ -392,41 +273,41 @@ int run_residual_scan(const void* xp, const void* mask, const void* w_hh, const 
   return cudaSuccess;
 }
 
-template <typename T>
-int dispatch_scan(const void* xp, const void* mask, const void* w_hh, const void* b_hh,
-                  void* h_buf, void* c_buf, void* y, void* gates, void* c_seq, int n_dir,
-                  int n_t, int n_b, int n_h, int reverse_bits, cudaStream_t stream) {
-  if (gates != nullptr) {
-    return run_residual_scan<T>(xp, mask, w_hh, b_hh, h_buf, c_buf, y, gates, c_seq, n_dir,
-                                n_t, n_b, n_h, reverse_bits, stream);
-  }
-  return run_scan<T>(xp, mask, w_hh, b_hh, h_buf, c_buf, y, n_dir, n_t, n_b, n_h,
-                     reverse_bits, stream);
-}
-
 }  // namespace
 
 // Runs all n_t steps of one layer on `stream`. h_buf and c_buf are
 // (2, D, B, H): slot 0 holds the initial carry, and the final carry is left
 // in slot n_t % 2. gates (D, T, B, 4H) and c_seq (D, T, B, H) are both null
 // for inference (K1) or both set for the residual-saving forward (K2).
-// Requires n_h % 8 == 0 and w_hh and h_buf on 16-byte boundaries; K2 also
-// xp and b_hh on a boundary of two elements (it reads unit pairs). Returns
-// a cudaError_t: the first error any launch reported, or cudaSuccess.
+// K1 is one cooperative launch (none at n_t = 0) with the plan of
+// ops/lstm.py:scan_plan, persist::kPlanInts ints, checked again here, and
+// `counters`, (D,) int32 zeroed; K2 reads neither. Requires n_h % 8 == 0,
+// w_hh and h_buf on 16-byte boundaries, and K1 also xp; K2 also xp and b_hh
+// on a boundary of two elements (it reads unit pairs). Returns a
+// cudaError_t: the first error any launch reported, or cudaSuccess.
 extern "C" int dsjax_torch_lstm_fwd(const void* xp, const void* mask,
                                     const void* w_hh, const void* b_hh,
                                     void* h_buf, void* c_buf, void* y, void* gates,
                                     void* c_seq, int n_dir, int n_t, int n_b, int n_h,
-                                    int reverse_bits, int is_bf16, void* stream) {
-  if (n_h % kUnits != 0 || n_h % Vec<__nv_bfloat16>::N != 0) return cudaErrorInvalidValue;
+                                    int reverse_bits, int is_bf16, void* stream,
+                                    const int* plan, void* counters) {
+  if (n_h % 8 != 0) return cudaErrorInvalidValue;
   if ((gates == nullptr) != (c_seq == nullptr)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return dispatch_scan<__nv_bfloat16>(xp, mask, w_hh, b_hh, h_buf, c_buf, y, gates, c_seq,
-                                        n_dir, n_t, n_b, n_h, reverse_bits, s);
+  if (gates == nullptr) {
+    return is_bf16 ? persist::launch<__nv_bfloat16, LstmCell>(xp, mask, w_hh, b_hh, h_buf,
+                                                              c_buf, y, counters, plan, n_dir,
+                                                              n_t, n_b, n_h, reverse_bits, s)
+                   : persist::launch<float, LstmCell>(xp, mask, w_hh, b_hh, h_buf, c_buf, y,
+                                                      counters, plan, n_dir, n_t, n_b, n_h,
+                                                      reverse_bits, s);
   }
-  return dispatch_scan<float>(xp, mask, w_hh, b_hh, h_buf, c_buf, y, gates, c_seq, n_dir,
-                              n_t, n_b, n_h, reverse_bits, s);
+  if (is_bf16) {
+    return run_residual_scan<__nv_bfloat16>(xp, mask, w_hh, b_hh, h_buf, c_buf, y, gates,
+                                            c_seq, n_dir, n_t, n_b, n_h, reverse_bits, s);
+  }
+  return run_residual_scan<float>(xp, mask, w_hh, b_hh, h_buf, c_buf, y, gates, c_seq, n_dir,
+                                  n_t, n_b, n_h, reverse_bits, s);
 }
 
 // K2's step kernel for the working type: out[0] registers a thread, out[1]
@@ -445,6 +326,14 @@ extern "C" int dsjax_torch_lstm_fwd_attributes(int is_bf16, int* out) {
   out[3] = static_cast<int>(attr.localSizeBytes);
   out[4] = kResUnits;
   return cudaSuccess;
+}
+
+// K1's persistent kernel for the working type, with register rows
+// (register_rows > 0, float32 only) or without (persist::attributes).
+extern "C" int dsjax_torch_lstm_scan_attributes(int is_bf16, int register_rows, int* out) {
+  if (is_bf16 && register_rows > 0) return cudaErrorInvalidValue;
+  return is_bf16 ? persist::attributes<__nv_bfloat16, LstmCell>(false, out)
+                 : persist::attributes<float, LstmCell>(register_rows > 0, out);
 }
 
 extern "C" const char* dsjax_torch_error_string(int err) {

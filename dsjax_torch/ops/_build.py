@@ -108,18 +108,22 @@ def build(force: bool = False) -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dsjax_torch_lstm_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsjax_torch_lstm_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.dsjax_torch_lstm_fwd.restype = i
     lib.dsjax_torch_lstm_fwd_attributes.argtypes = [i, p]
     lib.dsjax_torch_lstm_fwd_attributes.restype = i
+    lib.dsjax_torch_lstm_scan_attributes.argtypes = [i, i, p]
+    lib.dsjax_torch_lstm_scan_attributes.restype = i
     lib.dsjax_torch_lstm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_lstm_bwd.restype = i
     lib.dsjax_torch_lstm_bwd_attributes.argtypes = [i, p]
     lib.dsjax_torch_lstm_bwd_attributes.restype = i
-    lib.dsjax_torch_gru_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsjax_torch_gru_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.dsjax_torch_gru_fwd.restype = i
     lib.dsjax_torch_gru_fwd_attributes.argtypes = [i, p]
     lib.dsjax_torch_gru_fwd_attributes.restype = i
+    lib.dsjax_torch_gru_scan_attributes.argtypes = [i, i, p]
+    lib.dsjax_torch_gru_scan_attributes.restype = i
     lib.dsjax_torch_gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_gru_bwd.restype = i
     lib.dsjax_torch_gru_bwd_attributes.argtypes = [i, p]
@@ -145,13 +149,15 @@ def load_library() -> ctypes.CDLL:
         return _lib
 
 
-def kernel_attributes(entry: str, is_bf16: bool) -> dict:
-    """A step kernel's resources as built (needs the card), from the C entry
-    point ``entry``: registers a thread, static and dynamic shared memory a
-    CTA, local memory (spills) a thread, and the hidden units a CTA owns."""
+def kernel_attributes(entry: str, is_bf16: bool, *args: int) -> dict:
+    """A scan kernel's resources as built (needs the card), from the C entry
+    point ``entry`` (given ``args`` after the dtype flag): registers a
+    thread, static and dynamic shared memory a CTA, local memory (spills) a
+    thread, and the hidden units a CTA owns (0 for the persistent kernels,
+    whose shared memory and units are their plan's)."""
     lib = load_library()
     out = (ctypes.c_int * 5)()
-    check(lib, getattr(lib, entry)(int(is_bf16), out), entry)
+    check(lib, getattr(lib, entry)(int(is_bf16), *args, out), entry)
     return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
                      "local_bytes", "units"), out))
 

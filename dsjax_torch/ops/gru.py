@@ -21,7 +21,9 @@ Per step, in float32 (gru_pallas.py:72-87):
 ``gru_scan`` returns (y (D, T, B, H), h_T (D, B, H)).
 
 Three kernels, as in dsjax:
-  K4  ``gru_scan_fwd``                 forward without residuals (inference);
+  K4  ``gru_scan_fwd``                 forward without residuals (inference):
+      K1's persistent kernel with three gates (csrc/scan_persist.cuh), one
+      cooperative launch a layer call, laid out by ``ops.lstm.scan_plan``;
   K4 with residuals  ``gru_scan_fwd(save_residuals=True)``, the forward of
       training, which also writes (r, z, n, hn) (D, T, B, 4H) at natural
       time t (csrc/gru_fwd.cu, on the step product of csrc/scan_mma.cuh);
@@ -51,17 +53,19 @@ from typing import Sequence, Tuple
 import torch
 
 from dsjax_torch.ops import _build
-from dsjax_torch.ops.lstm import (_carried_h_prev, _flip, _reverse_bits, check_pairs,
-                                  check_reverse_scan, check_scan)
+from dsjax_torch.ops.lstm import (ScanPlan, _carried_h_prev, _flip, _reverse_bits,
+                                  check_aligned, check_pairs, check_reverse_scan, check_scan,
+                                  persistent_attributes, plan_array, scan_plan, sm_count)
 
 Tensor = torch.Tensor
 
 # wrapper calls on CUDA tensors so far, one per call of a C entry point,
-# which covers every direction of a layer: LAUNCHES for K4 (and
-# STEP_LAUNCHES for its step kernels, one per time step), RESIDUAL_LAUNCHES
-# for K4 with residuals, BWD_LAUNCHES for K5
+# which covers every direction of a layer: LAUNCHES for K4 (one kernel
+# launch a call with n_t > 0, none at n_t = 0; STEPS counts the time steps
+# those calls scanned), RESIDUAL_LAUNCHES for K4 with residuals,
+# BWD_LAUNCHES for K5
 LAUNCHES = 0
-STEP_LAUNCHES = 0
+STEPS = 0
 RESIDUAL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
@@ -158,8 +162,10 @@ def gru_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tenso
     """The forward scan: K4, or K4 with residuals (then also (r, z, n, hn)).
     Inputs as ``ops.lstm.check_scan`` takes them; with residuals also xp and
     b_hh on a boundary of two elements (``ops.lstm.check_pairs``, on every
-    device)."""
-    global LAUNCHES, STEP_LAUNCHES, RESIDUAL_LAUNCHES
+    device), and K4 on a CUDA tensor xp on a 16-byte boundary. K4 is one
+    cooperative launch of ``scan_plan``'s grid; where the card cannot hold
+    that grid at once (another process holding SMs) it raises."""
+    global LAUNCHES, STEPS, RESIDUAL_LAUNCHES
     if save_residuals:
         check_pairs({"xp": xp, "b_hh": b_hh})
     if xp.device.type == "cpu":
@@ -167,26 +173,38 @@ def gru_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tenso
                                   save_residuals=save_residuals)
     n_dir, n_t, n_b, g3 = xp.shape
     n_h = g3 // 3
+    plan = None
+    if not save_residuals:
+        check_aligned("xp", xp)
+        plan = scan_plan(n_dir, n_h, 3, xp.dtype, n_b, sm_count(xp.device))
     # slot 0 holds the carry entering step 0; step s reads slot s % 2
     h = torch.empty((2, n_dir, n_b, n_h), dtype=xp.dtype, device=xp.device)
     h[0].copy_(h0)
     y = torch.empty((n_dir, n_t, n_b, n_h), dtype=xp.dtype, device=xp.device)
     g_seq = (torch.empty((n_dir, n_t, n_b, 4 * n_h), dtype=xp.dtype, device=xp.device)
              if save_residuals else None)
+    if n_t == 0 and not save_residuals:
+        return y, h[0]
+    # arrivals at each direction's barrier between steps (K4)
+    counters = None if save_residuals else torch.zeros(n_dir, dtype=torch.int32,
+                                                       device=xp.device)
     lib = _build.load_library()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dsjax_torch_gru_fwd(
             xp.data_ptr(), mask.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h.data_ptr(),
             y.data_ptr(), g_seq.data_ptr() if save_residuals else None, n_dir, n_t, n_b, n_h,
-            _reverse_bits(reverse), int(xp.dtype == torch.bfloat16), stream)
-    _build.check(lib, err, "gru_fwd launch")
+            _reverse_bits(reverse), int(xp.dtype == torch.bfloat16), stream,
+            None if plan is None else plan_array(plan),
+            None if counters is None else counters.data_ptr())
+    _build.check(lib, err, "gru_fwd launch" if save_residuals else
+                 f"gru_fwd launch (K4, cooperative, {plan})")
     with _launch_lock:
         if save_residuals:
             RESIDUAL_LAUNCHES += 1
         else:
             LAUNCHES += 1
-            STEP_LAUNCHES += n_t
+            STEPS += n_t
     out = (y, h[n_t % 2])
     return out + (g_seq,) if save_residuals else out
 
@@ -244,6 +262,12 @@ def fwd_kernel_attributes(dtype: torch.dtype) -> dict:
     card): registers a thread, static and dynamic shared memory a CTA, local
     memory (spills) a thread, and the hidden units a CTA owns."""
     return _build.kernel_attributes("dsjax_torch_gru_fwd_attributes", dtype == torch.bfloat16)
+
+
+def scan_kernel_attributes(dtype: torch.dtype, plan: ScanPlan) -> dict:
+    """K4's persistent kernel for ``dtype`` as built under ``plan`` (needs
+    the card), as ``ops.lstm.persistent_attributes`` gives it."""
+    return persistent_attributes("dsjax_torch_gru_scan_attributes", dtype, plan)
 
 
 def bwd_kernel_attributes(dtype: torch.dtype) -> dict:

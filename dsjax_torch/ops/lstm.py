@@ -25,7 +25,9 @@ sums and the cell math run in float32 and the carry is rounded to the
 working dtype every step, as in the Pallas kernels.
 
 Three kernels, as in dsjax:
-  K1  ``lstm_scan_fwd``       forward without residuals (inference);
+  K1  ``lstm_scan_fwd``       forward without residuals (inference): one
+      persistent cooperative launch a layer call (csrc/scan_persist.cuh,
+      shared with the GRU's K4), laid out by ``scan_plan``;
   K2  ``lstm_scan_fwd(save_residuals=True)``  the forward of training, which
       also writes the post-activation gates (D, T, B, 4H) and the kept carry
       c (D, T, B, H), both at natural time t (csrc/lstm_fwd.cu, on the step
@@ -43,8 +45,9 @@ run the plain versions ``lstm_scan_reference`` and
 
 from __future__ import annotations
 
+import ctypes
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,19 +56,148 @@ from dsjax_torch.ops import _build
 Tensor = torch.Tensor
 
 # wrapper calls on CUDA tensors so far, one per call of a C entry point,
-# which covers every direction of a layer: LAUNCHES for K1 (and
-# STEP_LAUNCHES for its step kernels, one per time step), RESIDUAL_LAUNCHES
-# for K2, BWD_LAUNCHES for K3
+# which covers every direction of a layer: LAUNCHES for K1 (one kernel
+# launch a call with n_t > 0, none at n_t = 0; STEPS counts the time steps
+# those calls scanned), RESIDUAL_LAUNCHES for K2, BWD_LAUNCHES for K3
 LAUNCHES = 0
-STEP_LAUNCHES = 0
+STEPS = 0
 RESIDUAL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-# the kernels load 16 bytes at a time, so H must be a multiple of 8, and K1
-# and K4 stage (8, H) f32 rows of h in shared memory, which must fit a CTA
+# the kernels copy 16 bytes at a time, so H must be a multiple of 8; up to
+# MAX_HIDDEN, ``scan_plan`` finds a layout for K1 and K4 on 132 SMs
 MAX_HIDDEN = 4096
 DTYPES = (torch.float32, torch.bfloat16)
+
+# what scan_persist.cuh takes: shared memory a CTA (sm_90), column tiles of
+# 8 units (one a warp), ring stages, chunk widths in bytes; register rows
+# (f32): the last gate's rows of a CTA of 16 units, read in 1024-byte chunks,
+# at most 4 of them (H <= 1024)
+SMEM_LIMIT = 232448
+_WARPS = 8
+_MAX_STAGES = 5
+_CHUNK_BYTES = (2048, 1024, 512, 256, 128, 64, 32)
+_REG_UNITS, _REG_CHUNK, _REG_CHUNKS = 16, 1024, 4
+
+
+class ScanPlan(NamedTuple):
+    """The layout of K1's and K4's persistent kernel (csrc/scan_persist.cuh,
+    ``persist::Plan``, in this order): hidden units a CTA, CTAs a direction,
+    the W_hh rows a CTA keeps in shared memory, those it streams from L2
+    each step and those it keeps in registers, ring stages, the ring's chunk
+    of a row in bytes, and the shared memory a CTA."""
+
+    units: int
+    ctas: int
+    resident_rows: int
+    streamed_rows: int
+    register_rows: int
+    stages: int
+    chunk_bytes: int
+    smem_bytes: int
+
+
+def _plan_smem(gates: int, esize: int, n_h: int, n_b: int, units: int, resident: int,
+               streamed: int, stages: int, chunk: int) -> int:
+    """Shared memory a CTA, as ``persist::layout`` sums it: resident rows,
+    the ring (each stage a chunk of the pass's h rows and of the streamed
+    rows), the K splits' partial sums, xp's columns, the mask, b_hh's
+    columns, and the h (and c) of the CTA's own units for every batch row.
+    The register rows take none."""
+    rows = 16 if esize == 2 else 8
+    cols, tiles = gates * units, units // 8
+    r16 = lambda x: -(-x // 16) * 16
+    n_state = 2 if gates == 4 else 1
+    return (resident * (n_h * esize + 16) + stages * (rows + streamed) * (chunk + 16)
+            + (_WARPS // tiles) * rows * cols * 4
+            + r16(rows * cols * esize) + r16(rows * 4) + r16(cols * 4)
+            + n_state * n_b * units * 4)
+
+
+def scan_plan(n_dir: int, n_h: int, gates: int, dtype: torch.dtype, n_b: int,
+              sm_count: int) -> ScanPlan:
+    """The persistent scan's plan for D directions of H units with G gates
+    (4 LSTM, 3 GRU) at batch B on a card of ``sm_count`` SMs, one CTA an SM:
+    units a CTA the least multiple of 8 with D * ceil(H / units) <= SMs;
+    every W_hh row resident where all fit a CTA, with the ring's chunk and
+    stages that keep the most bytes of h in flight (then the fewest
+    chunks). Else, in f32 at 16 units a CTA and H <= 1024, the last gate's
+    16 rows in registers and the others resident as above in 1024-byte
+    chunks, or as many as fit beside a 2-stage ring; else as many rows as
+    fit beside a 2-stage ring of 512-byte chunks (narrower where that does
+    not fit). What is not kept is streamed. Raises ValueError where no plan
+    fits (more than 8 column tiles of 8 units a CTA, or the shared memory).
+    Pure: the CPU tests reach it."""
+    if dtype not in DTYPES:
+        raise TypeError(f"dtype {dtype} is not one of {DTYPES}")
+    if n_h <= 0 or n_h % 8:
+        raise ValueError(f"hidden size {n_h} must be a positive multiple of 8")
+    if n_dir < 1 or sm_count < n_dir:
+        raise ValueError(f"no plan: {n_dir} directions on {sm_count} SMs")
+    units = 8 * -(-n_h // (8 * (sm_count // n_dir)))
+    if units // 8 > _WARPS:
+        raise ValueError(f"no plan: {units} units a CTA ({n_dir} directions of {n_h} on "
+                         f"{sm_count} SMs) pass {_WARPS} column tiles of 8")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    cols, row_bytes = gates * units, n_h * esize
+    row32 = -(-row_bytes // 32) * 32
+
+    def plan(r, reg, st, ch):
+        streamed = cols - reg - r
+        return ScanPlan(units, -(-n_h // units), r, streamed, reg, st, ch,
+                        _plan_smem(gates, esize, n_h, n_b, units, r, streamed, st, ch))
+
+    def resident_all(reg, chunks):
+        # every row not in registers resident: the chunk and stages that
+        # keep the most bytes of h in flight, then the fewest chunks (a
+        # single chunk takes one stage)
+        fits = []
+        for chunk in chunks:
+            chunk = min(chunk, row32)
+            n_chunks = -(-row_bytes // chunk)
+            for stages in range(1 if n_chunks == 1 else 2, _MAX_STAGES + 1):
+                ahead = min(max(1, stages - 1), n_chunks)
+                if plan(cols - reg, reg, stages, chunk).smem_bytes <= SMEM_LIMIT:
+                    fits.append((-ahead * chunk, n_chunks, stages, chunk))
+        return plan(cols - reg, reg, *min(fits)[2:]) if fits else None
+
+    def resident_most(reg, chunk):
+        # as many rows resident as fit beside a 2-stage ring, or None
+        streamed_all = plan(0, reg, 2, chunk).smem_bytes
+        per_row = n_h * esize + 16 - 2 * (chunk + 16)   # a row moved from the ring
+        if streamed_all > SMEM_LIMIT or per_row <= 0:
+            return None
+        return plan(min(cols - reg, (SMEM_LIMIT - streamed_all) // per_row), reg, 2, chunk)
+
+    found = resident_all(0, _CHUNK_BYTES)
+    if found is None and (esize == 4 and units == _REG_UNITS
+                          and _REG_CHUNK <= row32 and row_bytes <= _REG_CHUNKS * _REG_CHUNK):
+        found = (resident_all(_REG_UNITS, (_REG_CHUNK,))
+                 or resident_most(_REG_UNITS, _REG_CHUNK))
+    for chunk in _CHUNK_BYTES[_CHUNK_BYTES.index(512):]:
+        if found is None:
+            found = resident_most(0, min(chunk, row32))
+    if found is None:
+        raise ValueError(f"no plan: {n_dir} x H={n_h} with {gates} gates at B={n_b} in "
+                         f"{dtype} does not fit {SMEM_LIMIT} bytes of shared memory a CTA")
+    return found
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (cached per device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
+def plan_array(plan: ScanPlan):
+    """The plan as the C entry points take it: ``persist::kPlanInts`` ints."""
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 def _scan_one(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h: Tensor,
@@ -225,8 +357,10 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
     """The forward scan: K1, or K2 with ``save_residuals`` (then also the
     gates and the kept carry). Inputs as ``check_scan`` takes them; K2 also
     needs xp and b_hh on a boundary of two elements (``check_pairs``, on
-    every device)."""
-    global LAUNCHES, STEP_LAUNCHES, RESIDUAL_LAUNCHES
+    every device), and K1 on a CUDA tensor xp on a 16-byte boundary. K1 is
+    one cooperative launch of ``scan_plan``'s grid; where the card cannot
+    hold that grid at once (another process holding SMs) it raises."""
+    global LAUNCHES, STEPS, RESIDUAL_LAUNCHES
     if save_residuals:
         check_pairs({"xp": xp, "b_hh": b_hh})
     if xp.device.type == "cpu":
@@ -234,6 +368,10 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
                                    save_residuals=save_residuals)
     n_dir, n_t, n_b, g4 = xp.shape
     n_h = g4 // 4
+    plan = None
+    if not save_residuals:
+        check_aligned("xp", xp)
+        plan = scan_plan(n_dir, n_h, 4, xp.dtype, n_b, sm_count(xp.device))
     # slot 0 holds the carry entering step 0; step s reads slot s % 2
     h = torch.empty((2, n_dir, n_b, n_h), dtype=xp.dtype, device=xp.device)
     c = torch.empty_like(h)
@@ -245,6 +383,11 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
     if save_residuals:
         g_seq = torch.empty_like(xp)
         c_seq = torch.empty_like(y)
+    if n_t == 0 and not save_residuals:
+        return y, h[0], c[0]
+    # arrivals at each direction's barrier between steps (K1)
+    counters = None if save_residuals else torch.zeros(n_dir, dtype=torch.int32,
+                                                       device=xp.device)
     lib = _build.load_library()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -253,16 +396,26 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
             h.data_ptr(), c.data_ptr(), y.data_ptr(),
             g_seq.data_ptr() if save_residuals else None,
             c_seq.data_ptr() if save_residuals else None, n_dir, n_t, n_b, n_h,
-            _reverse_bits(reverse), int(xp.dtype == torch.bfloat16), stream)
-    _build.check(lib, err, "lstm_fwd launch")
+            _reverse_bits(reverse), int(xp.dtype == torch.bfloat16), stream,
+            None if plan is None else plan_array(plan),
+            None if counters is None else counters.data_ptr())
+    _build.check(lib, err, "lstm_fwd launch" if save_residuals else
+                 f"lstm_fwd launch (K1, cooperative, {plan})")
     with _launch_lock:
         if save_residuals:
             RESIDUAL_LAUNCHES += 1
         else:
             LAUNCHES += 1
-            STEP_LAUNCHES += n_t
+            STEPS += n_t
     out = (y, h[n_t % 2], c[n_t % 2])
     return out + (g_seq, c_seq) if save_residuals else out
+
+
+def check_aligned(name: str, t: Tensor) -> None:
+    """Raise unless ``t`` starts on a 16-byte boundary: K1 and K4 copy xp's
+    columns into shared memory 16 bytes at a time."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def check_reverse_scan(op: str, g_seq: Tensor, mask: Tensor, w_hh: Tensor, gates: int,
@@ -349,6 +502,27 @@ def fwd_kernel_attributes(dtype: torch.dtype) -> dict:
     thread, static and dynamic shared memory a CTA, local memory (spills) a
     thread, and the hidden units a CTA owns."""
     return _build.kernel_attributes("dsjax_torch_lstm_fwd_attributes", dtype == torch.bfloat16)
+
+
+def scan_kernel_attributes(dtype: torch.dtype, plan: ScanPlan) -> dict:
+    """K1's persistent kernel for ``dtype`` as built under ``plan`` (needs
+    the card), as ``persistent_attributes`` gives it."""
+    return persistent_attributes("dsjax_torch_lstm_scan_attributes", dtype, plan)
+
+
+def persistent_attributes(entry: str, dtype: torch.dtype, plan: ScanPlan) -> dict:
+    """The persistent scan kernel behind ``entry`` as built for ``plan``
+    (with or without register rows): ``_build.kernel_attributes`` with the
+    plan's shared memory, units and CTAs a direction, its W_hh rows a CTA
+    by where they stay, and the share of them kept on the SM (in shared
+    memory or registers) for the whole call."""
+    attrs = _build.kernel_attributes(entry, dtype == torch.bfloat16, plan.register_rows)
+    rows = plan.resident_rows + plan.streamed_rows + plan.register_rows
+    attrs.update(dynamic_smem_bytes=plan.smem_bytes, units=plan.units, ctas=plan.ctas,
+                 resident_rows=plan.resident_rows, streamed_rows=plan.streamed_rows,
+                 register_rows=plan.register_rows,
+                 resident_share=(plan.resident_rows + plan.register_rows) / rows)
+    return attrs
 
 
 def bwd_kernel_attributes(dtype: torch.dtype) -> dict:

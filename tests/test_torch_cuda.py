@@ -18,7 +18,12 @@ cannot load; K6 also on signed zeros and subnormals, values compared bit
 for bit. K5 (the GRU reverse scan) runs at K3's tiling edges, as K2 and
 K4 with residuals (the forwards on the same step product) do; the step
 kernels of all four are checked to fit one CTA an SM, the forwards' also
-to spill nothing.
+to spill nothing. K1 and K4, the persistent forwards (one cooperative
+launch a call), run at the flagship's width where f32 rows stream from L2,
+at a unit edge inside the last CTA, at B = 1, 20 and 64, at T = 0 and 1,
+and with one direction under a suffix mask with a zero-length row; their
+kernels are checked to spill nothing under their plans, and K1 to run
+beside K2 on a second stream.
 """
 
 import numpy as np
@@ -59,8 +64,8 @@ def problem(shape, dtype, suffix=False, empty_row=False):
     D = len(reverse)
     rng = np.random.default_rng(T)
     dev = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda", dt)
-    lengths = rng.integers(1, T + 1, B)
-    lengths[0], lengths[-1] = 1, T
+    lengths = rng.integers(1, T + 1, B) if T else np.zeros(B, np.int64)
+    lengths[0], lengths[-1] = min(1, T), T
     if empty_row and B > 2:
         lengths[1] = 0
     mask = np.arange(T)[:, None] < lengths[None, :]
@@ -421,10 +426,10 @@ def test_gru_kernel_matches_plain_version(full_fp32, dtype, shape):
 
     for suffix in (False, True):
         args = gru_problem(shape, dtype, suffix)
-        before = (gru.LAUNCHES, gru.STEP_LAUNCHES)
+        before = (gru.LAUNCHES, gru.STEPS)
         out = gru.gru_scan(*args, shape[3])
         torch.cuda.synchronize()
-        assert (gru.LAUNCHES, gru.STEP_LAUNCHES) == (before[0] + 1, before[1] + shape[0])
+        assert (gru.LAUNCHES, gru.STEPS) == (before[0] + 1, before[1] + shape[0])
         ref = gru.gru_scan_reference(*args, shape[3])
         for o, r in zip(out, ref):
             torch.testing.assert_close(o.float(), r.float(), **TOL[dtype])
@@ -590,3 +595,109 @@ def test_mm_chain_kernel_matches_plain_version(full_fp32, t, b, h):
     for g, r in zip(got, want):
         assert g.shape == r.shape and g.dtype == torch.bfloat16
         torch.testing.assert_close(g.float(), r.float(), **BWD_TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------------------
+# K1 and K4, the persistent forwards
+# ---------------------------------------------------------------------------
+
+# (T, B, H, reverse, suffix mask and a zero-length row): the flagship's width
+# (the f32 LSTM's last gate in registers), its evaluation batch (B = 20:
+# three passes over the registers), a unit edge inside the last CTA (H=1032:
+# 65 CTAs of 16 units, the last with 8, f32 LSTM rows streamed; H=1000: the
+# last of 63 CTAs with 8 units and a short last chunk, with register rows),
+# B = 1, 20 and 64 (more passes over the resident rows; at H=1024 the f32
+# LSTM streams 2 rows beside its registers), T = 0 and 1, one direction
+# under a suffix mask
+PERSISTENT_SHAPES = [
+    (40, 8, 1024, (False, True), False), (6, 20, 1024, (False, True), False),
+    (9, 5, 1032, (False, True), False), (11, 9, 1000, (False, True), False),
+    (10, 1, 128, (True,), False), (12, 20, 256, (False, True), False),
+    (7, 64, 1024, (False, True), False), (0, 4, 64, (False, True), False),
+    (1, 3, 64, (False, True), False), (33, 6, 1024, (False,), True)]
+
+
+def scan_case(rnn, shape, dtype):
+    from dsjax_torch.ops import gru
+
+    T, B, H, reverse, suffix = shape
+    if rnn == "lstm":
+        return lstm, problem((T, B, H, reverse), dtype, suffix, empty_row=suffix)
+    return gru, gru_problem((T, B, H, reverse), dtype, suffix, empty_row=suffix)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", PERSISTENT_SHAPES)
+@pytest.mark.parametrize("rnn", ["lstm", "gru"])
+def test_persistent_scan_matches_plain_version(full_fp32, rnn, dtype, shape):
+    """K1 and K4: every output against the plain loop, one launch a call
+    (none at T = 0) and T steps counted."""
+    T, B, H, reverse, _ = shape
+    mod, args = scan_case(rnn, shape, dtype)
+    scan = mod.lstm_scan if rnn == "lstm" else mod.gru_scan
+    before = (mod.LAUNCHES, mod.STEPS)
+    out = scan(*args, reverse)
+    torch.cuda.synchronize()
+    assert (mod.LAUNCHES, mod.STEPS) == (before[0] + (T > 0), before[1] + T)
+    ref = (mod.lstm_scan_reference if rnn == "lstm" else mod.gru_scan_reference)(*args, reverse)
+    assert len(out) == len(ref)
+    for o, r in zip(out, ref):
+        assert o.dtype == dtype and o.shape == r.shape
+        torch.testing.assert_close(o.float(), r.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("n_dir", [2, 1])
+@pytest.mark.parametrize("rnn", ["lstm", "gru"])
+def test_persistent_scan_kernel_fits_its_plan(full_fp32, rnn, n_dir, dtype):
+    """K1's and K4's kernels as built under the serving plan (H=1024, B=8):
+    one CTA an SM within 227 KB, no local memory, 16 units a CTA with two
+    directions and 8 with one, no W_hh row streamed: every row resident in
+    shared memory, but for the LSTM's f32 with two directions, which keeps
+    its last gate's 16 rows in registers."""
+    from dsjax_torch.ops import gru
+
+    mod, gates = (lstm, 4) if rnn == "lstm" else (gru, 3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = lstm.scan_plan(n_dir, 1024, gates, dtype, 8, sms)
+    attrs = mod.scan_kernel_attributes(dtype, plan)
+    assert attrs["local_bytes"] == 0
+    assert 0 < attrs["registers"] <= 255
+    assert attrs["static_smem_bytes"] + attrs["dynamic_smem_bytes"] <= 232448
+    assert attrs["units"] == (16 if n_dir == 2 else 8) and attrs["ctas"] * n_dir <= sms
+    in_registers = rnn == "lstm" and n_dir == 2 and dtype == torch.float32
+    assert attrs["register_rows"] == (16 if in_registers else 0)
+    assert attrs["streamed_rows"] == 0 and attrs["resident_share"] == 1.0
+    assert attrs["resident_rows"] + attrs["register_rows"] == gates * attrs["units"]
+
+
+def test_persistent_scan_beside_a_second_stream(full_fp32):
+    """K1 on one stream while K2 runs on another: both finish and match."""
+    shape = (24, 8, 256, (False, True))
+    args = problem(shape, torch.float32)
+    train_args = problem((20, 16, 256, (False, True)), torch.float32)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        res = lstm.lstm_scan_fwd(*train_args, (False, True), save_residuals=True)
+    out = lstm.lstm_scan(*args, shape[3])
+    torch.cuda.synchronize()
+    for o, r in zip(out, lstm.lstm_scan_reference(*args, shape[3])):
+        torch.testing.assert_close(o, r, **TOL[torch.float32])
+    want = lstm.lstm_scan_reference(*train_args, (False, True), save_residuals=True)
+    for o, r in zip(res, want):
+        torch.testing.assert_close(o, r, **TOL[torch.float32])
+
+
+def test_persistent_scan_refuses_a_plan_it_does_not_take(full_fp32, monkeypatch):
+    """The C entry point checks the plan again: one whose shared memory
+    disagrees with its layout raises, naming the launch; nothing runs."""
+    shape = (5, 4, 64, (False, True))
+    args = problem(shape, torch.float32)
+    good = lstm.scan_plan
+    monkeypatch.setattr(lstm, "scan_plan", lambda *a: good(*a)._replace(
+        smem_bytes=good(*a).smem_bytes + 16))
+    before = lstm.LAUNCHES
+    with pytest.raises(RuntimeError, match="lstm_fwd launch"):
+        lstm.lstm_scan(*args, shape[3])
+    assert lstm.LAUNCHES == before

@@ -26,7 +26,7 @@ import jax.numpy as jnp
 from dsjax.ops.gru_pallas import _gru_fwd_pallas
 from dsjax.ops.gru_pallas import gru_scan as jax_gru_scan
 from dsjax.ops.gru_pallas import gru_scan_reference as jax_gru_scan_reference
-from dsjax_torch.ops import gru
+from dsjax_torch.ops import gru, lstm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"float32": dict(atol=1e-5, rtol=1e-4), "bfloat16": dict(atol=3e-2, rtol=0.0)}
@@ -286,3 +286,35 @@ def test_full_width_models_match_the_golden_fixture(name):
     for i, n in enumerate(golden[f"{name}_out_lens"]):
         np.testing.assert_allclose(probs[i, :n].numpy(), golden[f"{name}_probs"][i, :n],
                                    atol=GOLDEN_TOL[0], rtol=GOLDEN_TOL[1])
+
+
+# the persistent scan's plan for K4 (three gates), as tests/test_torch_lstm.py
+# holds K1's
+
+
+@pytest.mark.parametrize("n_dir,n_h,dtype,n_b,sms", [
+    (2, 1024, torch.float32, 8, 132), (1, 1024, torch.float32, 1, 132),
+    (1, 1024, torch.bfloat16, 8, 132), (2, 1024, torch.float32, 64, 132),
+    (2, 1032, torch.bfloat16, 20, 132), (2, 4096, torch.float32, 64, 132),
+    (1, 4096, torch.bfloat16, 8, 132), (2, 2048, torch.float32, 8, 100)])
+def test_scan_plan_covers_every_unit_and_fits_a_cta(n_dir, n_h, dtype, n_b, sms):
+    from tests.test_torch_lstm import check_plan
+
+    check_plan(lstm.scan_plan(n_dir, n_h, 3, dtype, n_b, sms), n_dir, n_h, 3, dtype, sms)
+
+
+def test_scan_plan_at_the_flagship_width():
+    """H=1024 on 132 SMs: the BiGRU keeps all 48 rows of a CTA resident in
+    f32 and bf16; the streaming model's one direction takes 8 units a CTA."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = lstm.scan_plan(2, 1024, 3, dtype, 8, 132)
+        assert (plan.units, plan.ctas, plan.streamed_rows) == (16, 64, 0)
+    one = lstm.scan_plan(1, 1024, 3, torch.float32, 1, 132)
+    assert (one.units, one.ctas, one.streamed_rows) == (8, 128, 0)
+
+
+@pytest.mark.parametrize("n_dir,n_h,n_b,sms,match", [
+    (1, 4096, 8, 8, "column tiles"), (2, 1024, 6000, 132, "shared memory")])
+def test_scan_plan_raises_where_no_plan_fits(n_dir, n_h, n_b, sms, match):
+    with pytest.raises(ValueError, match=match):
+        lstm.scan_plan(n_dir, n_h, 3, torch.float32, n_b, sms)

@@ -205,3 +205,72 @@ def test_cpu_path_counts_no_launch_and_import_loads_nothing():
             "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
             "assert not any(m.startswith('torch.utils.cpp_extension') for m in sys.modules)\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+# ---------------------------------------------------------------------------
+# The persistent scan's plan (K1 and K4 on the card), pure Python
+# ---------------------------------------------------------------------------
+
+# (directions, H, dtype, B, SMs): the serving and streaming widths, the
+# evaluation and validation batches, unit edges (the second with register
+# rows), the widest H the wrapper takes, the narrowest, and cards of other
+# SM counts
+PLAN_CASES = [
+    (2, 1024, torch.float32, 8, 132), (2, 1024, torch.bfloat16, 8, 132),
+    (1, 1024, torch.float32, 8, 132), (2, 1024, torch.float32, 64, 132),
+    (2, 1024, torch.bfloat16, 20, 132), (2, 1032, torch.float32, 20, 132),
+    (2, 4096, torch.float32, 8, 132), (2, 4096, torch.bfloat16, 64, 132),
+    (1, 4096, torch.float32, 64, 132), (2, 8, torch.bfloat16, 1, 132),
+    (2, 1024, torch.float32, 8, 114), (1, 2048, torch.bfloat16, 20, 78),
+    (2, 1000, torch.float32, 9, 132)]
+
+
+def check_plan(plan, n_dir, n_h, gates, dtype, sms):
+    """Every unit owned by exactly one CTA, at most one CTA an SM, the
+    shared memory within what a CTA may take, every gate row resident,
+    streamed or in registers (only the last gate's 16 rows, in f32, read in
+    at most four 1024-byte chunks), and a ring of one stage only for a
+    single chunk."""
+    owners = np.arange(n_h) // plan.units
+    assert np.array_equal(np.unique(owners), np.arange(plan.ctas))
+    assert plan.units % 8 == 0 and n_dir * plan.ctas <= sms
+    assert plan.smem_bytes <= lstm.SMEM_LIMIT == 232448
+    assert plan.resident_rows + plan.streamed_rows + plan.register_rows == gates * plan.units
+    assert min(plan.resident_rows, plan.streamed_rows) >= 0
+    assert plan.register_rows in (0, plan.units)
+    if plan.register_rows:
+        assert dtype == torch.float32 and plan.units == 16 and plan.chunk_bytes == 1024
+        assert n_h * 4 <= 4 * 1024
+    n_chunks = -(-n_h * (2 if dtype == torch.bfloat16 else 4) // plan.chunk_bytes)
+    assert 1 <= plan.stages <= 5 and plan.chunk_bytes % 32 == 0
+    assert plan.stages >= 2 or n_chunks == 1
+
+
+@pytest.mark.parametrize("n_dir,n_h,dtype,n_b,sms", PLAN_CASES)
+def test_scan_plan_covers_every_unit_and_fits_a_cta(n_dir, n_h, dtype, n_b, sms):
+    check_plan(lstm.scan_plan(n_dir, n_h, 4, dtype, n_b, sms), n_dir, n_h, 4, dtype, sms)
+
+
+def test_scan_plan_at_the_flagship_width():
+    """H=1024 on 132 SMs: two directions take 16 units a CTA, 64 CTAs each;
+    a CTA's 64 f32 rows do not fit its shared memory, so the last gate's 16
+    stay in registers and the serving and evaluation batches stream none
+    (validation's B=64 streams 2); bf16 keeps them all resident; one
+    direction takes 8 units a CTA."""
+    f32 = lstm.scan_plan(2, 1024, 4, torch.float32, 8, 132)
+    bf16 = lstm.scan_plan(2, 1024, 4, torch.bfloat16, 8, 132)
+    one = lstm.scan_plan(1, 1024, 4, torch.float32, 8, 132)
+    assert (f32.units, f32.ctas, bf16.units, bf16.ctas) == (16, 64, 16, 64)
+    assert (f32.resident_rows, f32.streamed_rows, f32.register_rows) == (48, 0, 16)
+    assert lstm.scan_plan(2, 1024, 4, torch.float32, 20, 132).streamed_rows == 0
+    assert lstm.scan_plan(2, 1024, 4, torch.float32, 64, 132).streamed_rows > 0
+    assert (bf16.streamed_rows, bf16.register_rows) == (0, 0)
+    assert (one.units, one.ctas, one.register_rows) == (8, 128, 0)
+
+
+@pytest.mark.parametrize("n_dir,n_h,n_b,sms,match", [
+    (2, 4096, 8, 16, "column tiles"), (2, 1024, 8, 1, "directions"),
+    (2, 1024, 4000, 132, "shared memory"), (2, 1020, 8, 132, "multiple of 8")])
+def test_scan_plan_raises_where_no_plan_fits(n_dir, n_h, n_b, sms, match):
+    with pytest.raises(ValueError, match=match):
+        lstm.scan_plan(n_dir, n_h, 4, torch.float32, n_b, sms)

@@ -13,7 +13,8 @@ synthetic utterances of ``--seconds`` each:
   forward     ModelBundle.forward on the padded batch plus a synchronize,
               median and min of 10 (host clock)
   device      torch.profiler over 3 forwards: kernel time per forward, split
-              into the LSTM step kernel, matrix products, convolutions,
+              into the LSTM forward K1 (the persistent kernel, or the
+              per-step kernel of older checkouts), matrix products, convolutions,
               copies and the rest; idle share = 1 - kernel time / profiled
               wall time
   decode      GreedyDecoder on the batch's posteriors, median of 5 after a
@@ -41,8 +42,8 @@ SR = 16000
 
 def kernel_group(name: str) -> str:
     low = name.lower()
-    if "lstm_step_kernel" in low:
-        return "lstm_step_kernel"
+    if "persistent_scan" in low or "lstm_step_kernel" in low:
+        return "lstm forward (K1)"
     if "conv" in low or "fprop" in low:
         return "convolution"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet")):

@@ -2,9 +2,10 @@
 """Profile dsjax_torch's training step of the flagship model on a CUDA card.
 
     python tools/torch_profile_train.py [--batch 64] [--frames 1024] [--precision 16]
-                                        [--out FILE]
+                                        [--rnn lstm|gru] [--out FILE]
 
-Builds the full-width 5x BiLSTM-1024 DeepSpeech2 (weights from the
+Builds the full-width 5x BiLSTM-1024 DeepSpeech2 (or with --rnn gru the
+5x BiGRU-1024, whose scans are K4 with residuals and K5; weights from the
 trainer's seed) and runs ``Trainer.train_step`` (forward, f32 log-softmax,
 CTC, backward through the LSTM kernels K2 and K3, global-norm clip 400,
 AdamW) on one synthetic batch of ``--batch`` utterances of ``--frames``
@@ -42,10 +43,14 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "lstm_bwd_step_kernel" in low:
         return "lstm reverse scan (K3)"
+    if "gru_bwd_step_kernel" in low:
+        return "gru reverse scan (K5)"
     if "lstm_residual_step_kernel" in low:
         return "lstm forward (K2)"
-    if "lstm_step_kernel" in low:
-        return "lstm forward (K1)"
+    if "gru_residual_step_kernel" in low:
+        return "gru forward (K4r)"
+    if any(k in low for k in ("persistent_scan", "lstm_step_kernel", "gru_step_kernel")):
+        return "serving forward (K1, K4; validation only)"
     if "ctc" in low:
         return "ctc"
     if "multi_tensor_apply" in low or "adam" in low:
@@ -79,14 +84,14 @@ def synthetic_batch(np, batch: int, frames: int, seed: int):
                  valid=np.ones((batch,), bool))
 
 
-def profile_step(torch, np, precision: int, batch_size: int, frames: int):
+def profile_step(torch, np, precision: int, batch_size: int, frames: int, rnn: str = "lstm"):
     from dsjax_torch.config import TrainConfig, compose
     from dsjax_torch.labels import DEFAULT_LABELS
     from dsjax_torch.train.loop import Trainer
 
     cfg = compose(TrainConfig, [f"trainer.precision={precision}", "trainer.device=cuda",
                                 "trainer.devices=1", "data.device_features=false",
-                                f"data.batch_size={batch_size}"])
+                                f"data.batch_size={batch_size}", f"model.rnn_type={rnn}"])
     trainer = Trainer(cfg, list(DEFAULT_LABELS))
     state = trainer.init_state()
     batch = synthetic_batch(np, batch_size, frames, seed=0)
@@ -129,7 +134,7 @@ def profile_step(torch, np, precision: int, batch_size: int, frames: int):
     for name, (ms, _) in kernels.items():
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
     return {
-        "precision": precision, "batch": batch_size, "frames": frames,
+        "precision": precision, "batch": batch_size, "frames": frames, "rnn": rnn,
         "scan_steps": (frames - 1) // 2 + 1, "losses": losses,
         "step_wall_ms_median": statistics.median(walls), "step_wall_ms_min": min(walls),
         "utt_per_sec": batch_size / (statistics.median(walls) / 1e3),
@@ -146,6 +151,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--frames", type=int, default=1024)
     ap.add_argument("--precision", type=int, default=16, choices=(16, 32))
+    ap.add_argument("--rnn", default="lstm", choices=("lstm", "gru"))
     ap.add_argument("--out", default="", help="write every figure as JSON here")
     args = ap.parse_args()
 
@@ -162,8 +168,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; PyTorch default TF32 "
           f"settings (cudnn {torch.backends.cudnn.allow_tf32}, matmul "
           f"{torch.backends.cuda.matmul.allow_tf32})")
-    r = profile_step(torch, np, args.precision, args.batch, args.frames)
-    tag = "bf16" if args.precision == 16 else "f32"
+    r = profile_step(torch, np, args.precision, args.batch, args.frames, args.rnn)
+    tag = f"{args.rnn} {'bf16' if args.precision == 16 else 'f32'}"
     print(f"[{tag}] B={r['batch']}, T={r['frames']} frames, {r['scan_steps']} scan steps: "
           f"step wall median {r['step_wall_ms_median']!r} ms (min {r['step_wall_ms_min']!r}), "
           f"{r['utt_per_sec']!r} utt/s; peak memory {r['peak_memory_gib']!r} GiB; "
