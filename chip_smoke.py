@@ -44,19 +44,27 @@ Phases, each printing what it measured; any failure exits non-zero:
               values (bit for bit) and indices exactly equal; CUDA-event
               median times of both, and the kernel's own device time under
               torch.profiler;
- 11. beam kernel  K7 against the plain scan at (B, T, W, C) = (16, 500, 128,
-              29) and (20, 500, 10, 29), log-softmax posteriors with ragged
-              sizes including 0, 1 and T: backptr, emit, h1, h2 and the
-              integer carry exactly equal, totals and the float carry within
-              1e-5; a two-chunk K7 stream equal to the one-shot K7; times
-              of K7, of the scan with K6 and of the plain scan;
+ 11. beam kernel  K7 (a CTA an utterance) against the plain scan at (B, T,
+              W, C) = (16, 500, 128, 29), (20, 500, 10, 29) and an
+              evaluation batch's (20, 577, 10, 29), and at W = 1, 11, 32 and
+              33, log-softmax posteriors with ragged sizes
+              including 0, 1 and T: backptr, emit, h1, h2 and the integer
+              carry exactly equal, totals and the float carry within 1e-5; a
+              two-chunk K7 stream equal to the one-shot K7; pools of signed
+              zeros and exact ties (W = 4 and 40) bit for bit; times of K7,
+              of the scan with K6 and of the plain scan. Then the backtrack
+              kernel against _backtrack, exactly, on K7's and the scan
+              route's outputs and a two-chunk stream's, with its time, its
+              device time under torch.profiler and the plain loop's at the
+              evaluation batch;
  12. evaluation  ``workflows.evaluate`` of the flagship (seeded weights) on a
               synthetic corpus of 40 WAVs of 2-12 s, with the STFT on the
               card from int16 raw audio, batch 20: greedy, beam W=10 by the
               scan with K6, and beam W=10 with DSJAX_FUSED_BEAM=1 (K7); the
               two beam routes give identical transcripts, WER and CER; exact
-              K1, K6 and K7 launch counts; the raw-audio forward's
-              posteriors against the host-feature forward's;
+              K1, K6, K7 and backtrack launch counts (one backtrack a batch
+              on either beam route); the raw-audio forward's posteriors
+              against the host-feature forward's;
  13. beam serving  the server with lm.decoder_type=beam: 8 concurrent
               /transcribe requests against DeviceBeamDecoder.decode on the
               same posteriors, a /stream session whose last transcript
@@ -83,21 +91,26 @@ Phases, each printing what it measured; any failure exits non-zero:
               forward, with exact K4 launch counts;
  19. GRU training  phase 8 for 5 x BiGRU-1024 (one epoch of 3 steps), exact
               K4-with-residuals, K5 and K4 counts;
- 20. K8  the matmul-only chain against its plain version at T=512, B=64,
-              H=1024, bf16, then tools/torch_lstm_microbench.py's run with
-              its K8 launches counted.
+ 20. K8  the matmul-only chain (one cooperative launch, W resident, the
+              step product on wgmma) against its plain version at T=512,
+              B=64, H=1024, bf16, with its plan and kernel as built (no
+              local memory), its time beside its bound and beside a CUDA
+              graph of the T torch.addmm calls (cuBLAS) that compute the
+              same chain, then tools/torch_lstm_microbench.py's run with its
+              K8 launches counted.
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
 f32, and for K2, K3, K4 with residuals and K5 in bf16 as well; torch.topk;
-the port never calls them), times K2 + K3 and K4 with residuals
-+ K5 each as one call beside cuDNN's forward plus backward under autograd
-(the backward rows' with_forward_ms and with_forward_library_ms), and
-computes each kernel's bound: the larger of its operations over the
-H100's peak for their type and its bytes over 3.35 TB/s. The parity phases (3, 4, 6, 7, 9, 10, 11, 12's posterior
+for K8 a CUDA graph of T torch.addmm calls; the port never calls them),
+times K2 + K3 and K4 with residuals + K5 each as one call beside cuDNN's
+forward plus backward under autograd (the backward rows' with_forward_ms
+and with_forward_library_ms), and computes each kernel's bound: the larger
+of its operations over the H100's peak for their type and its bytes over
+3.35 TB/s. The parity phases (3, 4, 6, 7, 9, 10, 11, 12's posterior
 comparison, 14-17 and 20) turn TF32 off (cuDNN convolutions and matmuls in
 full float32); serving, training and evaluation run PyTorch's defaults. The
-last two lines are a JSON object of kernel results and
-{"ok": true, "device": {...}}.
+last two lines are a JSON object of kernel results and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -133,7 +146,9 @@ STEP_TOL = 1e-3
 GOLDEN_TOL = (5e-6, 1e-4)
 SR = 16000
 TOPK_SHAPES = [(16, 3840, 128), (20, 300, 10), (64, 7680, 256)]
-BEAM_SHAPES = [(16, 500, 128, 29), (20, 500, 10, 29)]      # (B, T, W, C)
+# (B, T, W, C): the widest beam, evaluation's width, an evaluation batch
+BEAM_SHAPES = [(16, 500, 128, 29), (20, 500, 10, 29), (20, 577, 10, 29)]
+BEAM_EDGE_WIDTHS = (1, 11, 32, 33)  # the narrowest, past evaluation's, a warp's and past it
 BEAM_TOL = 1e-5                 # totals and the float carry of K7 vs the scan
 EVAL_UTTS, EVAL_BATCH, EVAL_WIDTH = 40, 20, 10
 # the flagship's posteriors from int16 raw audio with the STFT on the card
@@ -357,7 +372,7 @@ def reset_counts():
 
     for scan in (lstm, gru):
         scan.LAUNCHES = scan.STEPS = scan.RESIDUAL_LAUNCHES = scan.BWD_LAUNCHES = 0
-    topk.LAUNCHES = beam.LAUNCHES = mm_chain.LAUNCHES = 0
+    topk.LAUNCHES = beam.LAUNCHES = beam.BACKTRACK_LAUNCHES = mm_chain.LAUNCHES = 0
 
 
 def read_counts():
@@ -367,7 +382,8 @@ def read_counts():
             "lstm_fwd_residuals": lstm.RESIDUAL_LAUNCHES, "lstm_bwd": lstm.BWD_LAUNCHES,
             "gru_fwd": gru.LAUNCHES, "gru_steps": gru.STEPS,
             "gru_fwd_residuals": gru.RESIDUAL_LAUNCHES, "gru_bwd": gru.BWD_LAUNCHES,
-            "topk": topk.LAUNCHES, "beam_scan": beam.LAUNCHES, "mm_chain": mm_chain.LAUNCHES}
+            "topk": topk.LAUNCHES, "beam_scan": beam.LAUNCHES,
+            "beam_backtrack": beam.BACKTRACK_LAUNCHES, "mm_chain": mm_chain.LAUNCHES}
 
 
 def phase_serving(torch, np, state, model_cfg, gpu_name):
@@ -885,6 +901,65 @@ def same_scan(torch, got, want, what):
     return err
 
 
+def beam_stream(beam, lp, sizes, w, half):
+    """A two-chunk K7 stream, split at frame ``half``: the first chunk's and
+    the second's outputs."""
+    first = beam.fused_beam_scan(lp[:, :half], sizes.clamp(max=half), w, 0)
+    second = beam.fused_beam_scan(lp[:, half:], (sizes - half).clamp(min=0), w, 0,
+                                  carry0=first[4])
+    return first, second
+
+
+def check_beam(torch, beam, _beam_scan, lp, sizes, w, what):
+    """K7 against its plain version and the K6 scan, and a two-chunk K7
+    stream against the one-shot K7; returns (K7's outputs, max float err)."""
+    got = beam.fused_beam_scan(lp, sizes, w, 0)
+    want = beam.fused_beam_scan_reference(lp, sizes, w, 0)
+    torch.cuda.synchronize()
+    err = same_scan(torch, got, want, f"K7 {what}")
+    check(torch.equal(got[5][1], want[5][1]), f"K7 {what}: ranking differs")
+    scan = _beam_scan(lp, sizes, w, 0)                    # the scan route, with K6
+    err = max(err, same_scan(torch, got, scan, f"K7 vs the K6 scan {what}"))
+    first, second = beam_stream(beam, lp, sizes, w, lp.shape[1] // 2)
+    joined = (torch.cat([first[0], second[0]]), torch.cat([first[1], second[1]]),
+              (torch.cat([first[2][0], second[2][0]]), torch.cat([first[2][1], second[2][1]])),
+              second[3], second[4])
+    torch.cuda.synchronize()
+    err = max(err, same_scan(torch, joined, got, f"K7 two-chunk stream {what}"))
+    return got, err
+
+
+def signed_zero_problem(torch, np, b, t, c, w, seed):
+    """Posteriors of log-probs 0.0, -0.0, -1 and -2 only (blank 0), and a
+    carry whose live slots hold p_b = -0.0 with distinct last chars (slot
+    q's is q + 1): in the first frame every extend scores +0.0 but slot 0's
+    by its last char, -0.0, first in pool order, which K7's float order
+    takes first among the ties and K6's total order after every +0.0
+    (tests/test_torch_cuda.py builds the same)."""
+    rng = np.random.default_rng(seed)
+    lp = rng.choice(np.array([0.0, -0.0, -1.0, -2.0], np.float32), (b, t, c))
+    lp[:, 0, 0] = -1.0
+    lp[:, 0, 1:] = rng.choice(np.array([0.0, -0.0], np.float32), (b, c - 1))
+    lp[:, 0, 1] = -0.0
+    sizes = np.full(b, t, np.int32)
+    sizes[0] = max(1, t - 1)
+    live = min(w, c - 1)
+    slot = np.arange(w, dtype=np.int32)
+    sentinel = -(slot + 2)
+    p_b = np.full((b, w), -1e30, np.float32)
+    p_b[:, :live] = -0.0
+    last = np.where(slot < live, slot % (c - 1) + 1, -1)
+    h1 = np.where(slot < live, 7 * slot + 11, sentinel)
+    h2 = np.where(slot < live, 13 * slot + 5, sentinel)
+    ph1 = np.where(slot < live, h1 + 100003, sentinel)
+    ph2 = np.where(slot < live, h2 + 100019, sentinel)
+    carry = (p_b, np.full((b, w), -1e30, np.float32)) + tuple(
+        np.ascontiguousarray(np.broadcast_to(a.astype(np.int32), (b, w)))
+        for a in (last, h1, h2, ph1, ph2))
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return cuda(lp), cuda(sizes), tuple(cuda(a) for a in carry)
+
+
 def phase_beam_kernel(torch, np):
     """K7: dsjax/ops/beam_pallas.py:_beam_kernel -> dsjax_torch/csrc/beam_scan.cu."""
     from dsjax_torch.decode.beam_device import _beam_scan
@@ -894,23 +969,7 @@ def phase_beam_kernel(torch, np):
     for b, t, w, c in BEAM_SHAPES:
         what = f"B={b} T={t} W={w} C={c}"
         lp, sizes = beam_inputs(torch, np, b, t, c, seed=w)
-        got = beam.fused_beam_scan(lp, sizes, w, 0)
-        want = beam.fused_beam_scan_reference(lp, sizes, w, 0)
-        torch.cuda.synchronize()
-        err = same_scan(torch, got, want, f"K7 {what}")
-        check(torch.equal(got[5][1], want[5][1]), f"K7 {what}: ranking differs")
-        scan = _beam_scan(lp, sizes, w, 0)                # the scan route, with K6
-        err = max(err, same_scan(torch, got, scan, f"K7 vs the K6 scan {what}"))
-        # a stream of two chunks from the carry equals the one-shot scan
-        half = t // 2
-        first = beam.fused_beam_scan(lp[:, :half], sizes.clamp(max=half), w, 0)
-        second = beam.fused_beam_scan(lp[:, half:], (sizes - half).clamp(min=0), w, 0,
-                                      carry0=first[4])
-        joined = (torch.cat([first[0], second[0]]), torch.cat([first[1], second[1]]),
-                  (torch.cat([first[2][0], second[2][0]]), torch.cat([first[2][1], second[2][1]])),
-                  second[3], second[4])
-        torch.cuda.synchronize()
-        err = max(err, same_scan(torch, joined, got, f"K7 two-chunk stream {what}"))
+        got, err = check_beam(torch, beam, _beam_scan, lp, sizes, w, what)
         # one operation per (frame, beam, class) candidate of the valid frames
         flops = float(sizes.sum().item()) * w * c
         bound_ms, bound_by = least_time(flops, nbytes(lp, sizes, got[0], got[1], *got[2],
@@ -918,13 +977,87 @@ def phase_beam_kernel(torch, np):
         k_ms = cuda_time(lambda: beam.fused_beam_scan(lp, sizes, w, 0), 10)
         s_ms = cuda_time(lambda: _beam_scan(lp, sizes, w, 0), 3)
         p_ms = cuda_time(lambda: beam.fused_beam_scan_reference(lp, sizes, w, 0), 3)
-        print(f"kernel beam_scan {what}: backptr, emit, h1, h2, carry and ranking equal to the "
-              f"plain scan and to the K6 scan, totals max_abs_err {err!r} (atol {BEAM_TOL}); "
-              f"two-chunk stream equal; K7 {k_ms!r} ms, scan with K6 {s_ms!r} ms, plain scan "
-              f"{p_ms!r} ms (median, CUDA events); bound {bound_ms!r} ms ({bound_by})")
+        print(f"kernel beam_scan {what}: backptr, emit, h1, h2, carry and ranking equal to "
+              f"the plain scan and to the K6 scan, totals max_abs_err {err!r} (atol "
+              f"{BEAM_TOL}); two-chunk stream equal; K7 {k_ms!r} ms, scan with K6 "
+              f"{s_ms!r} ms, plain scan {p_ms!r} ms (median, CUDA events); bound "
+              f"{bound_ms!r} ms ({bound_by})")
         result[what] = {"max_abs_err": err, "ms": k_ms, "scan_k6_ms": s_ms, "plain_ms": p_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    for w in BEAM_EDGE_WIDTHS:
+        what = f"B=8 T=120 W={w} C=29"
+        lp, sizes = beam_inputs(torch, np, 8, 120, 29, seed=w)
+        _, err = check_beam(torch, beam, _beam_scan, lp, sizes, w, what)
+        k_ms = cuda_time(lambda: beam.fused_beam_scan(lp, sizes, w, 0), 10)
+        print(f"kernel beam_scan {what}: equal to the plain scan and to the K6 scan, totals "
+              f"max_abs_err {err!r}; two-chunk stream equal; K7 {k_ms!r} ms")
+        result[what] = {"max_abs_err": err, "ms": k_ms}
+    for w in (4, 40):
+        what = f"signed zeros B=3 T=6 W={w} C=6"
+        lp, sizes, carry = signed_zero_problem(torch, np, 3, 6, 6, w, seed=w)
+        got = beam.fused_beam_scan(lp, sizes, w, 0, carry0=carry)
+        want = beam.fused_beam_scan_reference(lp, sizes, w, 0, carry0=carry)
+        lax_order = _beam_scan(lp, sizes, w, 0, carry0=carry, top_k=topk.topk_reference)
+        torch.cuda.synchronize()
+        check(not torch.equal(want[1], lax_order[1]), f"K7 {what}: the pool no longer ties "
+                                                      f"-0.0 with +0.0")
+        ints = (got[0], got[1], *got[2], got[5][1]) + got[4][2:]
+        ints_want = (want[0], want[1], *want[2], want[5][1]) + want[4][2:]
+        floats = (got[3], got[5][0]) + got[4][:2]
+        floats_want = (want[3], want[5][0]) + want[4][:2]
+        check(all(torch.equal(g, r) for g, r in zip(ints, ints_want)) and
+              all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+                  for g, r in zip(floats, floats_want)),
+              f"K7 {what}: differs from the plain version")
+        print(f"kernel beam_scan {what}: every output bit for bit equal to the plain version "
+              f"(float order: -0.0 ties +0.0), whose emits differ from a total-order selection")
+        result[what] = {"max_abs_err": 0.0}
     return result
+
+
+def phase_backtrack(torch, np):
+    """The backtrack kernel (csrc/beam_scan.cu) against _backtrack on K7's
+    and the scan route's outputs and a two-chunk stream's, timed at an
+    evaluation batch's shape (T=577, B=20, W=10) following the best beam,
+    as evaluate does."""
+    from dsjax_torch.decode.beam_device import _backtrack, _beam_scan
+    from dsjax_torch.ops import beam, topk
+
+    b, t, w, c = BEAM_SHAPES[2]
+    lp, sizes = beam_inputs(torch, np, b, t, c, seed=w)
+    k7 = beam.fused_beam_scan(lp, sizes, w, 0)
+    scan = _beam_scan(lp, sizes, w, 0)
+    _, second = beam_stream(beam, lp, sizes, 40, t // 2)
+    every = lambda n: torch.arange(n, dtype=torch.int32, device="cuda")[None].expand(b, -1)
+    best = k7[5][1][:, :1]
+    cases = (("K7 route, best beam", k7[0], k7[1], best),
+             ("K7 route, every beam ranked", k7[0], k7[1], k7[5][1]),
+             ("scan route, K6's best beam", scan[0], scan[1], topk.topk(scan[3], 1)[1]),
+             ("second chunk of a W=40 stream, every slot", second[0], second[1], every(40)))
+    for name, bp, em, order in cases:
+        before = beam.BACKTRACK_LAUNCHES
+        chars, start = beam.backtrack(bp, em, order)
+        want = _backtrack(bp, em, order)
+        torch.cuda.synchronize()
+        check(beam.BACKTRACK_LAUNCHES == before + 1, f"backtrack {name}: launches")
+        check(torch.equal(chars, want[0]) and torch.equal(start, want[1]),
+              f"backtrack {name}: differs from _backtrack")
+    fn = lambda: beam.backtrack(k7[0], k7[1], best)
+    k_ms = cuda_time(fn, 20)
+    dev_ms = kernel_device_ms(torch, fn, "backtrack_kernel", 20)
+    p_ms = cuda_time(lambda: _backtrack(k7[0], k7[1], best), 5)
+    chars, start = fn()
+    # the T x B x K chased (parent, char) pairs, the slots and the outputs
+    bound_ms, bound_by = least_time(float(t * b), t * b * 8 + nbytes(best, chars, start),
+                                    "float32")
+    print(f"kernel beam_backtrack: equal to _backtrack on {len(cases)} cases "
+          f"({[n for n, *_ in cases]}); T={t} B={b} W={w} K=1: kernel {k_ms!r} ms (wrapper "
+          f"call, CUDA events), {dev_ms!r} ms "
+          f"(the kernel's device time, torch.profiler), plain {p_ms!r} ms; bound {bound_ms!r} ms "
+          f"({bound_by})")
+    return {"max_abs_err": 0.0, "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": {"T": t, "B": b, "W": w, "K": 1}}
 
 
 def phase_feature_paths(torch, np, state, model_cfg, root):
@@ -1010,13 +1143,16 @@ def phase_evaluation(torch, np, state, model_cfg, gpu_name, full_fp32, defaults_
               f"evaluate ({name}): {c['lstm_fwd']} lstm_fwd launches for {batches} batches")
         check(np.isfinite(r["wer"]) and np.isfinite(r["cer"]), f"evaluate ({name}): {r}")
     steps = runs["greedy"]["counts"]["lstm_steps"] // layers      # output frames, all batches
-    want = {"greedy": (0, 0), "beam, scan with K6": (steps + batches, 0),
-            "beam, K7": (0, batches)}
-    for name, (n_topk, n_beam) in want.items():
+    # K6 a frame and a ranking a batch on the scan route, K7 a batch on the
+    # fused one; one backtrack a batch on either beam route
+    want = {"greedy": (0, 0, 0), "beam, scan with K6": (steps + batches, 0, batches),
+            "beam, K7": (0, batches, batches)}
+    for name, (n_topk, n_beam, n_back) in want.items():
         c = runs[name]["counts"]
-        check((c["topk"], c["beam_scan"]) == (n_topk, n_beam),
-              f"evaluate ({name}): topk {c['topk']} and beam_scan {c['beam_scan']} launches, "
-              f"expected {n_topk} and {n_beam} ({steps} frames in {batches} batches)")
+        check((c["topk"], c["beam_scan"], c["beam_backtrack"]) == (n_topk, n_beam, n_back),
+              f"evaluate ({name}): topk {c['topk']}, beam_scan {c['beam_scan']} and "
+              f"beam_backtrack {c['beam_backtrack']} launches, expected {n_topk}, {n_beam} and "
+              f"{n_back} ({steps} frames in {batches} batches)")
     scan, fused = runs["beam, scan with K6"], runs["beam, K7"]
     check(scan["hyps"] == fused["hyps"], "the two beam routes' transcripts differ")
     check((scan["wer"], scan["cer"]) == (fused["wer"], fused["cer"]),
@@ -1456,13 +1592,38 @@ def phase_gru_serving(torch, np, paths, gpu_name):
     return counts
 
 
+def addmm_graph(torch, xp, w, h0):
+    """The chain as T torch.addmm calls (cuBLAS; h the first H columns of
+    the previous product, read in place) captured in one CUDA graph: the
+    library yardstick of K8. Returns (the graph, h_T's view)."""
+    n_t, n_h = xp.shape[0], h0.shape[1]
+    z = torch.empty((2,) + tuple(xp.shape[1:]), dtype=xp.dtype, device=xp.device)
+
+    def chain():
+        h = h0
+        for t in range(n_t):
+            torch.addmm(xp[t], h, w, out=z[t % 2])
+            h = z[t % 2][:, :n_h]
+        return h
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h_t = chain()
+    return graph, h_t
+
+
 def phase_mm_chain(torch, np):
     """K8: tools/lstm_microbench.py:_mm_kernel -> dsjax_torch/csrc/mm_chain.cu,
     at the microbench's shapes (T=512, B=64, H=1024, bf16), then the
     microbench tool itself (its main path) with K8's launches counted."""
     import importlib.util
 
-    from dsjax_torch.ops import mm_chain
+    from dsjax_torch.ops import _card, mm_chain
 
     spec = importlib.util.spec_from_file_location(
         "torch_lstm_microbench", os.path.join(ROOT, "tools", "torch_lstm_microbench.py"))
@@ -1474,18 +1635,36 @@ def phase_mm_chain(torch, np):
     xp = bf(rng.standard_normal((TRAIN_T, TRAIN_B, 4 * H)))
     w = bf(rng.standard_normal((H, 4 * H)) * 0.01)
     h0 = bf(rng.standard_normal((TRAIN_B, H)))
+    plan = mm_chain.chain_plan(TRAIN_B, H, _card.sm_count(xp.device))
+    attrs = mm_chain.kernel_attributes(plan)
+    print(f"kernel mm_chain (K8) plan: {plan.ctas} CTAs of {plan.cols} columns (one an SM), "
+          f"{plan.m_rows} rows a product, {plan.stages} K atoms of h in shared memory "
+          f"({'resident' if plan.resident else 'streamed'}); {attrs['registers']} registers a "
+          f"thread, {attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} bytes of shared "
+          f"memory a CTA, {attrs['local_bytes']} bytes of local memory a thread "
+          f"(cudaFuncGetAttributes)")
+    check(attrs["local_bytes"] == 0, f"K8 spills {attrs['local_bytes']} bytes a thread")
     got = mm_chain.mm_chain(xp, w, h0)
     want = mm_chain.mm_chain_reference(xp, w, h0)
     torch.cuda.synchronize()
     err = check_all(torch, got, want, BWD_TOLERANCE["bfloat16"], "K8")
     k_ms = cuda_time(lambda: mm_chain.mm_chain(xp, w, h0), 10)
     p_ms = cuda_time(lambda: mm_chain.mm_chain_reference(xp, w, h0), 3)
-    bound_ms, bound_by = least_time(2.0 * TRAIN_B * H * 4 * H * TRAIN_T,
-                                    nbytes(xp, w, h0, *got), "bfloat16")
+    graph, h_graph = addmm_graph(torch, xp, w, h0)
+    graph.replay()
+    torch.cuda.synchronize()
+    lib_err = (h_graph.float() - want[0].float()).abs().max().item()
+    check(bool(torch.isfinite(h_graph.float()).all()), "the cuBLAS chain is not finite")
+    lib_ms = cuda_time(graph.replay, 10)
+    flops = 2.0 * TRAIN_B * H * 4 * H * TRAIN_T
+    bound_ms, bound_by = least_time(flops, nbytes(xp, w, h0, *got), "bfloat16")
+    share = flops / PEAK_FLOPS["bfloat16"] / (k_ms / 1e3)
     print(f"kernel mm_chain (K8) bf16 T={TRAIN_T} B={TRAIN_B} H={H}: max_abs_err {err!r} (atol "
           f"{BWD_TOLERANCE['bfloat16'][0]}, rtol {BWD_TOLERANCE['bfloat16'][1]}); kernel "
-          f"{k_ms!r} ms ({k_ms * 1e3 / TRAIN_T!r} us/step), plain {p_ms!r} ms (median, CUDA "
-          f"events); bound {bound_ms!r} ms ({bound_by})")
+          f"{k_ms!r} ms ({k_ms * 1e3 / TRAIN_T!r} us/step, {share!r} of the bf16 peak), plain "
+          f"{p_ms!r} ms, a CUDA graph of {TRAIN_T} torch.addmm calls (cuBLAS) {lib_ms!r} ms "
+          f"(h_T max_abs_err {lib_err!r} against the plain chain) (median, CUDA events); bound "
+          f"{bound_ms!r} ms ({bound_by})")
     reset_counts()
     bench = tool.run(log=lambda line: print(f"microbench: {line}"))
     torch.cuda.synchronize()
@@ -1493,8 +1672,10 @@ def phase_mm_chain(torch, np):
     check(counts["mm_chain"] == 8, f"microbench: {counts['mm_chain']} mm_chain launches, "
                                    f"expected 8 (5 timed, 1 profiled, 2 warm-ups)")
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "launches": counts["mm_chain"],
-            "microbench": bench}
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "library_call": f"a CUDA graph of {TRAIN_T} torch.addmm calls (cuBLAS), not one call",
+            "library_max_abs_err": lib_err, "bf16_peak_share": share,
+            "kernel_attributes": attrs, "launches": counts["mm_chain"], "microbench": bench}
 
 
 def run(torch, np):
@@ -1543,6 +1724,7 @@ def run(torch, np):
     full_fp32()
     topk_res = phase_topk(torch, np)
     beam_res = phase_beam_kernel(torch, np)
+    backtrack_res = phase_backtrack(torch, np)
     defaults_back()
     print("evaluation and beam serving phases: PyTorch defaults (the posterior comparison with "
           "TF32 off)")
@@ -1624,6 +1806,12 @@ def run(torch, np):
     rows.append(row("beam_scan", "dsjax_torch/csrc/beam_scan.cu", "dsjax/ops/beam_pallas.py:121",
                     eval_runs["beam, K7"]["counts"]["beam_scan"],
                     beam_res[f"B={b} T={t} W={w} C={c}"], shapes=beam_res))
+    # not a Pallas kernel: dsjax runs the backtrack as a lax.scan
+    rows.append(row("beam_backtrack", "dsjax_torch/csrc/beam_scan.cu",
+                    "dsjax/decode/beam_device.py:450", eval_runs["beam, K7"]["counts"]
+                    ["beam_backtrack"], backtrack_res, device_ms=backtrack_res["device_ms"],
+                    launches_on_the_scan_route=eval_runs["beam, scan with K6"]["counts"]
+                    ["beam_backtrack"], shape=backtrack_res["shape"]))
     rows.append(row("gru_fwd", "dsjax_torch/csrc/gru_fwd.cu", "dsjax/ops/gru_pallas.py:40",
                     gru_serving["gru_fwd"], gru_kernel["float32"],
                     steps=gru_serving["gru_steps"],
@@ -1641,7 +1829,10 @@ def run(torch, np):
                                      gru_train_kernels[(key, "bfloat16")]),
                         **attributes(key, gru_train_kernels)))
     rows.append(row("mm_chain", "dsjax_torch/csrc/mm_chain.cu", "tools/lstm_microbench.py:100",
-                    k8["launches"], k8, microbench=k8["microbench"]))
+                    k8["launches"], k8, library_call=k8["library_call"],
+                    library_max_abs_err=k8["library_max_abs_err"],
+                    bf16_peak_share=k8["bf16_peak_share"],
+                    kernel_attributes=k8["kernel_attributes"], microbench=k8["microbench"]))
     print(json.dumps({"kernels": rows}))
     return gpu_name
 

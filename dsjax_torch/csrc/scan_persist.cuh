@@ -57,11 +57,8 @@
 //   and c of its own units, and b_hh's columns, in shared memory for all T
 //   steps (c leaves it once, as the final carry). After writing its h
 //   slice, a CTA meets the other CTAs of its direction at one barrier a
-//   step: __syncthreads, one thread's release add on the direction's
-//   counter (the wrapper's zeroed (D,) int32 workspace), then that
-//   thread's acquire spin until all have arrived, __syncthreads. The spin
-//   traps after kSpinLimitCycles, so a broken barrier fails the call
-//   instead of hanging it.
+//   step (grid_sync.cuh, shared with K8), on the direction's counter in
+//   the wrapper's zeroed (D,) int32 workspace.
 // - Latency hiding. Between its arrival and its wait a CTA issues the next
 //   pass's xp columns and mask row, and the streamed W rows of its first
 //   chunks, with cp.async: they land while it waits.
@@ -106,6 +103,7 @@
 
 #pragma once
 
+#include "grid_sync.cuh"
 #include "lstm_common.cuh"
 #include "scan_mma.cuh"
 
@@ -119,7 +117,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxTiles = kWarps;        // column tiles of 8 units: at most one a warp
 constexpr int kMaxStages = 5;
 constexpr int kMaxChunkBytes = 2048;
-constexpr long long kSpinLimitCycles = 10000000000ll;   // 5 s at one barrier at 2 GHz
 // Register rows (f32 only): the last gate's rows of a CTA of kRegUnits
 // units, read in chunks of kRegChunkBytes, at most kRegChunks of them
 // (H <= 1024): 64 registers a thread (Acc<float>).
@@ -225,36 +222,6 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t addr, uint32_t& r0, uint32_
                : "=r"(r0), "=r"(r1)
                : "r"(addr)
                : "memory");
-}
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void red_release_add(int* p, int v) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
-}
-
-// The barrier between steps, in two halves so that a CTA can issue its
-// next copies between them. arrive: a release add (cumulative over the
-// CTA's writes, which the __syncthreads orders before it); wait: an
-// acquire spin until `target` arrivals have been counted, after which the
-// h every CTA of the direction wrote is visible at L2.
-__device__ __forceinline__ void barrier_arrive(int* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) red_release_add(counter, 1);
-}
-
-__device__ __forceinline__ void barrier_wait(const int* counter, int target) {
-  if (threadIdx.x == 0) {
-    const long long start = clock64();
-    while (load_acquire(counter) < target) {
-      if (clock64() - start > kSpinLimitCycles) __trap();
-    }
-  }
-  __syncthreads();
 }
 
 template <typename T>
@@ -686,9 +653,9 @@ persistent_scan(const __grid_constant__ Args<T> a) {
       __syncthreads();
     }
     if (s + 1 < a.n_t) {
-      barrier_arrive(a.counters + cta.d);
+      grid::barrier_arrive(a.counters + cta.d);
       cta.prefetch(time_of(s + 1, a.n_t, rev), 0, min(l.rows, a.n_b), n_chunks);
-      barrier_wait(a.counters + cta.d, (s + 1) * a.plan.ctas);
+      grid::barrier_wait(a.counters + cta.d, (s + 1) * a.plan.ctas);
     }
   }
   if (S == 2) {   // c leaves the CTA once, as the final carry in slot n_t % 2
@@ -723,22 +690,14 @@ cudaError_t launch(const void* xp, const void* mask, const void* w_hh, const voi
   const Plan p{plan_ints[0], plan_ints[1], plan_ints[2], plan_ints[3],
                plan_ints[4], plan_ints[5], plan_ints[6], plan_ints[7]};
   const Layout l = layout(Cell::kGates, sizeof(T), n_h, n_b, Cell::kState, p);
-  int dev = 0, sm_count = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int sm_count = 0, optin = 0;
+  cudaError_t err = grid::device_limits(&sm_count, &optin);
   if (err != cudaSuccess) return err;
   err = check_plan(p, l, Cell::kGates, sizeof(T), n_dir, n_h, sm_count, optin);
   if (err != cudaSuccess || n_t == 0) return err;
   const auto kernel = kernel_for<T, Cell>(p.reg > 0);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.total);
+  err = grid::fit_coresident(kernel, kThreads, l.total, n_dir * p.ctas, sm_count);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, l.total);
-  if (err != cudaSuccess) return err;
-  if (per_sm * sm_count < n_dir * p.ctas) return cudaErrorCooperativeLaunchTooLarge;
   Args<T> args{static_cast<const T*>(xp), static_cast<const float*>(mask),
                static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
                static_cast<T*>(h_buf), static_cast<T*>(c_buf), static_cast<T*>(y),

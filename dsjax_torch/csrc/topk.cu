@@ -20,23 +20,16 @@
 // What the design does about it. One CTA per row. Every score becomes a
 // uint32 key that orders like the total order (order_key), so "greater key"
 // is "earlier in the output"; each thread holds a contiguous strip of at
-// most kMaxPer keys in registers, so thread order is index order.
-//   1. Radix select, most significant digit first, 8 bits a pass into a
-//      256-bin shared histogram of the keys that still match the digits
-//      fixed so far: one warp finds the bin that holds the k-th key, and
-//      the loop stops once that bin is taken whole (at most 4 passes). The
-//      beam pool puts half its keys in one bin, so each warp first groups
-//      its lanes by digit (__match_any_sync) and one lane a group adds the
-//      group's count: one shared atomic a distinct digit, not a lane.
-//   2. Compaction. Keys above the selected prefix are all taken; of the keys
-//      equal to it, the first k - c_gt in index order, by one block-wide
-//      exclusive scan of each thread's (above, equal) counts packed in one
-//      word. The k survivors go to shared memory as 64-bit (key, ~index)
-//      words, whose descending order is the output order.
-//   3. Order only the survivors: up to kRankMaxK, each survivor's rank is
-//      the count of survivors above it (k compares a survivor, no barrier);
-//      above, a bitonic sort of next_pow2(k) words. Values come back from
-//      the keys bit for bit, so -0.0 stays -0.0.
+// most kMaxPer keys in registers, so thread order is index order. Then
+// radix_select.cuh's block selection (shared with K7):
+//   1. a radix select of the k-th key, 8 bits a pass, at most 4 passes;
+//   2. one block-wide exclusive scan that compacts the k survivors in index
+//      order into shared memory as 64-bit (key, ~index) words, whose
+//      descending order is the output order;
+//   3. only the survivors are ordered: up to kRankMaxK, each survivor's rank
+//      is the count of survivors above it (k compares a survivor, no
+//      barrier); above, a bitonic sort of next_pow2(k) words. Values come
+//      back from the keys bit for bit, so -0.0 stays -0.0.
 // Any k <= N <= kMaxN = 16384 is exact; the sort case holds 16384 words
 // (128 KB) of dynamic shared memory at most.
 
@@ -46,39 +39,20 @@
 
 #include <algorithm>
 
+#include "radix_select.cuh"
+
 namespace {
 
 constexpr int kMaxN = 16384;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxPer = kMaxN / kMaxThreads;   // keys a thread at most: 16
 constexpr int kKeysPerThread = 4;              // the strip aimed at when N is small
-constexpr int kRadixBits = 8;
-constexpr int kBins = 1 << kRadixBits;
-constexpr int kPasses = 32 / kRadixBits;
 // survivors are ranked by counting up to this k, bitonic-sorted above: at
 // k = 256 a ranking thread makes 256 broadcast compares, against the 36
 // barrier stages of a 256-word sort
 constexpr int kRankMaxK = 256;
-constexpr uint32_t kFull = 0xffffffffu;
 
-static_assert(kBins == 32 * 8, "the bin search gives each lane 8 bins");
-
-// The key of a float whose unsigned order is the IEEE total order.
-__device__ __forceinline__ uint32_t order_key(float x) {
-  const uint32_t b = __float_as_uint(x);
-  return b ^ ((b & 0x80000000u) ? kFull : 0x80000000u);
-}
-
-__device__ __forceinline__ float key_value(uint32_t key) {
-  return __uint_as_float(key ^ ((key & 0x80000000u) ? 0x80000000u : kFull));
-}
-
-// The digits fixed so far: keys with (key & mask) == prefix are still open,
-// and k_rem of them are still to take; done once they are taken whole.
-struct Select {
-  uint32_t prefix, mask;
-  int k_rem, done;
-};
+using namespace dsjax_torch::radix;
 
 // Sorts n (a power of two) words descending, every thread of the block
 // taking part; returns after a barrier.
@@ -105,11 +79,9 @@ topk_kernel(const float* __restrict__ scores, float* __restrict__ values,
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* surv = reinterpret_cast<uint64_t*>(smem);   // k words, next_pow2(k) to sort
   __shared__ int hist[kPasses][kBins];
-  __shared__ uint32_t warp_sum[32];
+  __shared__ uint32_t warp_total[32];
   __shared__ Select sel;
 
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
   const int base = threadIdx.x * per;
   const int n_mine = max(0, min(per, n - base));
   const float* row = scores + static_cast<size_t>(blockIdx.x) * n;
@@ -118,108 +90,16 @@ topk_kernel(const float* __restrict__ scores, float* __restrict__ values,
   for (int j = 0; j < kMaxPer; ++j) key[j] = j < n_mine ? order_key(row[base + j]) : 0u;
   for (int i = threadIdx.x; i < kPasses * kBins; i += blockDim.x) (&hist[0][0])[i] = 0;
   if (threadIdx.x == 0) sel = Select{0u, 0u, k, 0};
-  __syncthreads();
-
-  // 1. radix select
-  for (int p = 0; p < kPasses; ++p) {
-    const Select s = sel;
-    if (s.done) break;                                // uniform: every thread read one sel
-    const int shift = 32 - kRadixBits * (p + 1);
-#pragma unroll
-    for (int j = 0; j < kMaxPer; ++j) {
-      if (j < per) {                                  // uniform, so every lane takes the match
-        const bool open = j < n_mine && (key[j] & s.mask) == s.prefix;
-        const uint32_t digit = open ? (key[j] >> shift) & (kBins - 1) : kBins;
-        const uint32_t peers = __match_any_sync(kFull, digit);
-        if (open && lane == __ffs(peers) - 1) atomicAdd(&hist[p][digit], __popc(peers));
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {
-      // lane l holds bins kBins - 1 - 8 l - q, q = 0..7: the bins in
-      // descending order across the warp
-      int h[8];
-      int sum = 0;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        h[q] = hist[p][kBins - 1 - 8 * lane - q];
-        sum += h[q];
-      }
-      int incl = sum;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int v = __shfl_up_sync(kFull, incl, off);
-        if (lane >= off) incl += v;
-      }
-      int above = incl - sum;                         // open keys in higher bins
-      if (above < s.k_rem && s.k_rem <= incl) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          if (above + h[q] >= s.k_rem) {
-            const uint32_t digit = kBins - 1 - 8 * lane - q;
-            const int k_rem = s.k_rem - above;
-            sel = Select{s.prefix | (digit << shift), s.mask | (uint32_t(kBins - 1) << shift),
-                         k_rem, h[q] == k_rem};
-            break;
-          }
-          above += h[q];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // 2. compaction: every key above the prefix, the first k_rem equal to it
-  const Select s = sel;
-  const int c_gt = k - s.k_rem;
-  uint32_t gt = 0, eq = 0;
-#pragma unroll
-  for (int j = 0; j < kMaxPer; ++j) {
-    if (j < n_mine) {
-      const uint32_t m = key[j] & s.mask;
-      gt += m > s.prefix;
-      eq += m == s.prefix;
-    }
-  }
-  // both counts are at most kMaxN < 2^16, so one scan carries both
-  const uint32_t packed = (gt << 16) | eq;
-  uint32_t incl = packed;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t v = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
   const int n_surv = k <= kRankMaxK ? k : 1 << (32 - __clz(k - 1));
   for (int i = k + threadIdx.x; i < n_surv; i += blockDim.x) surv[i] = 0;   // below any survivor
   __syncthreads();
-  if (warp == 0) {
-    const uint32_t w = lane < static_cast<int>(blockDim.x / 32) ? warp_sum[lane] : 0u;
-    uint32_t wi = w;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const uint32_t v = __shfl_up_sync(kFull, wi, off);
-      if (lane >= off) wi += v;
-    }
-    warp_sum[lane] = wi - w;
-  }
-  __syncthreads();
-  const uint32_t excl = warp_sum[warp] + incl - packed;
-  int gt_pos = static_cast<int>(excl >> 16);
-  int eq_pos = static_cast<int>(excl & 0xffffu);
-#pragma unroll
-  for (int j = 0; j < kMaxPer; ++j) {
-    if (j < n_mine) {
-      const uint32_t m = key[j] & s.mask;
-      const uint64_t word = (static_cast<uint64_t>(key[j]) << 32) | (kFull - (base + j));
-      if (m > s.prefix) {
-        surv[gt_pos++] = word;
-      } else if (m == s.prefix) {
-        if (eq_pos < s.k_rem) surv[c_gt + eq_pos] = word;
-        ++eq_pos;
-      }
-    }
-  }
+
+  // 1. radix select; 2. compaction: every key above the prefix, the first
+  // k_rem equal to it
+  block_select(key, per, n_mine, hist, &sel);
+  const Select s = sel;
+  const uint32_t excl = block_exclusive_scan(survivor_counts(key, n_mine, s), warp_total);
+  compact(key, n_mine, base, s, k, excl, surv);
   __syncthreads();
 
   // 3. order the survivors
@@ -231,14 +111,14 @@ topk_kernel(const float* __restrict__ scores, float* __restrict__ values,
       int r = 0;
       for (int q = 0; q < k; ++q) r += surv[q] > w;
       v_out[r] = key_value(static_cast<uint32_t>(w >> 32));
-      i_out[r] = static_cast<int>(kFull - static_cast<uint32_t>(w));
+      i_out[r] = word_index(w);
     }
   } else {
     bitonic_desc(surv, n_surv);
     for (int i = threadIdx.x; i < k; i += blockDim.x) {
       const uint64_t w = surv[i];
       v_out[i] = key_value(static_cast<uint32_t>(w >> 32));
-      i_out[i] = static_cast<int>(kFull - static_cast<uint32_t>(w));
+      i_out[i] = word_index(w);
     }
   }
 }

@@ -10,7 +10,9 @@ prefix_r = prefix_q + c. An O(W^2) join of parent-prefix hashes against
 beam hashes finds them exactly (collision odds about 2^-64), absorbs the
 extend's mass into the stay and kills the extend; the top-W of the pool
 [W stays | W*C extends] survive. Emission history is kept as per-step
-backpointers (parent slot, emitted char) and read back by ``_backtrack``.
+backpointers (parent slot, emitted char) and read back by
+``ops.beam.backtrack`` (one kernel on the card; ``_backtrack`` on CPU
+tensors).
 
 Two routes run the scan, both on the card for CUDA tensors:
   * ``_beam_scan``: the steps in PyTorch, with each step's top-W selection
@@ -215,9 +217,10 @@ def _beam_scan(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
 
 
 def _backtrack(backptr: Tensor, emit: Tensor, order: Tensor) -> Tuple[Tensor, Tensor]:
-    """Chase parent pointers on the device: (T, B, W) backptr/emit and the
-    (B, K) slots to follow -> (T, B, K) emitted chars (int16, -1 = none)
-    and the (B, K) start slots at t = 0."""
+    """Chase parent pointers: (T, B, W) backptr/emit and the (B, K) slots
+    to follow -> (T, B, K) emitted chars (int16, -1 = none) and the (B, K)
+    start slots at t = 0. The plain version of the backtrack kernel
+    (``ops.beam.backtrack``, which the decoders call): two gathers a frame."""
     slot = order.long()
     rev = [None] * backptr.shape[0]
     for t in reversed(range(backptr.shape[0])):
@@ -234,7 +237,8 @@ def _decode_device(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int
     """Scan -> rank the beams by total score -> backtrack the top n_best:
     ((T, B, n_best) int16 chars, the (h1, h2) histories when asked for,
     (B, n_best) totals). The scan route ranks with K6 (T + 1 launches a
-    decode); K7 ranks its own final beams (one launch, no K6)."""
+    decode); K7 ranks its own final beams (one launch, no K6). Either route
+    then backtracks in one launch (``ops.beam.backtrack``)."""
     b_dim, _, c_dim = log_probs.shape
     if fused and _fusable(b_dim, c_dim, beam_width, cutoff_top_n, cutoff_prob):
         backptr, emit, hists, _, _, (ranked, order) = beam_ops.fused_beam_scan(
@@ -246,7 +250,7 @@ def _decode_device(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int
             cutoff_prob=cutoff_prob)
         # ties resolve to the lower slot index, as np.argsort(-scores)
         top_totals, order = topk_ops.topk(totals, n_best)
-    rev, _ = _backtrack(backptr, emit, order)
+    rev, _ = beam_ops.backtrack(backptr, emit, order)
     return rev, (hists if want_hists else None), top_totals
 
 
@@ -260,7 +264,7 @@ def _decode_chunk_device(log_probs: Tensor, sizes: Tensor, beam_width: int, blan
         log_probs, sizes, beam_width, blank, cutoff_top_n=cutoff_top_n,
         cutoff_prob=cutoff_prob, carry0=carry0, fused=fused)
     order = torch.arange(beam_width, dtype=torch.int32, device=log_probs.device)
-    rev, start = _backtrack(backptr, emit, order[None].expand(log_probs.shape[0], -1))
+    rev, start = beam_ops.backtrack(backptr, emit, order[None].expand(log_probs.shape[0], -1))
     return rev, start, torch.argmax(totals, dim=1), carry
 
 

@@ -128,12 +128,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dsjax_torch_gru_bwd.restype = i
     lib.dsjax_torch_gru_bwd_attributes.argtypes = [i, p]
     lib.dsjax_torch_gru_bwd_attributes.restype = i
-    lib.dsjax_torch_mm_chain.argtypes = [p, p, p, p, i, i, i, p]
+    lib.dsjax_torch_mm_chain.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.dsjax_torch_mm_chain.restype = i
+    lib.dsjax_torch_mm_chain_attributes.argtypes = [i, p]
+    lib.dsjax_torch_mm_chain_attributes.restype = i
     lib.dsjax_torch_topk.argtypes = [p, p, p, i, i, i, p]
     lib.dsjax_torch_topk.restype = i
     lib.dsjax_torch_beam_scan.argtypes = [p] * 23 + [i] * 5 + [p]
     lib.dsjax_torch_beam_scan.restype = i
+    lib.dsjax_torch_beam_backtrack.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.dsjax_torch_beam_backtrack.restype = i
     lib.dsjax_torch_error_string.argtypes = [i]
     lib.dsjax_torch_error_string.restype = ctypes.c_char_p
 

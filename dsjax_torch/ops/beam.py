@@ -1,5 +1,6 @@
-"""The whole no-LM, no-pruning CTC prefix-beam scan in one kernel (K7): the
-CUDA kernel, its plain version and the wrapper.
+"""The whole no-LM, no-pruning CTC prefix-beam scan in one kernel (K7) and
+the backtrack that reads its output: the CUDA kernels, their plain
+versions and the wrappers.
 
 Counterpart of dsjax/ops/beam_pallas.py:fused_beam_scan. ``fused_beam_scan``
 takes log_probs (B, T, C) float32 and sizes (B,) and returns, bit for bit,
@@ -17,11 +18,16 @@ the scan from one chunk to the next; ``carry0`` resumes from either's
 carry. The ranking lets a decode pick its n-best without a K6 launch.
 Limits: W <= 128, C <= 30, as dsjax's.
 
-On CUDA tensors the wrapper launches ``csrc/beam_scan.cu`` (one CTA per
-utterance, the time loop inside, the beam state in shared memory) or
-raises; on CPU tensors it runs the plain version,
-``fused_beam_scan_reference``: the port's ``_beam_scan`` with the plain
-top-k.
+``backtrack`` chases the parent pointers of either route's (T, B, W)
+backptr and emit from (B, K) slots back to t = 0, as
+``decode.beam_device._backtrack`` does (dsjax/decode/beam_device.py:
+_backtrack): (T, B, K) int16 chars and the (B, K) start slots.
+
+On CUDA tensors the wrappers launch ``csrc/beam_scan.cu`` (K7: the time
+loop inside, the beam state in shared memory, a CTA an utterance; the
+backtrack: a thread per followed beam) or raise; on
+CPU tensors they run the plain versions, ``fused_beam_scan_reference`` (the
+port's ``_beam_scan`` with K7's float-order selection) and ``_backtrack``.
 """
 
 from __future__ import annotations
@@ -35,8 +41,10 @@ from dsjax_torch.ops import _build
 
 Tensor = torch.Tensor
 
-# wrapper calls on CUDA tensors so far, one per kernel launch
+# wrapper calls on CUDA tensors so far, one per kernel launch: K7's and the
+# backtrack's
 LAUNCHES = 0
+BACKTRACK_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 MAX_WIDTH = 128
@@ -46,7 +54,7 @@ MAX_CLASSES = 30
 def _float_order_top_k(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     """K7's selection: a stable descending sort of the floats themselves,
     cut to k. It compares as K7 and dsjax's fused scan do
-    (csrc/bitonic.cuh:topk_before, dsjax/ops/topk_pallas.py:_before), so
+    (csrc/beam_scan.cu:score_key, dsjax/ops/topk_pallas.py:_before), so
     -0.0 ties with +0.0, where K6 follows jax.lax.top_k's total order."""
     values, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return values[:, :k], idx[:, :k].to(torch.int32)
@@ -119,3 +127,45 @@ def fused_beam_scan(log_probs: Tensor, sizes: Tensor, w: int, blank: int,
         LAUNCHES += 1
     backptr, emit, h1s, h2s = seqs
     return backptr, emit, (h1s, h2s), totals, carry, (ranked, order)
+
+
+def backtrack(backptr: Tensor, emit: Tensor, order: Tensor) -> Tuple[Tensor, Tensor]:
+    """(T, B, W) int32 backptr and emit, and the (B, K) slots to follow ->
+    ((T, B, K) int16 chars, -1 where none, (B, K) int32 start slots at
+    t = 0). One kernel launch on CUDA tensors, ``_backtrack`` on CPU ones."""
+    global BACKTRACK_LAUNCHES
+    if backptr.dim() != 3 or tuple(emit.shape) != tuple(backptr.shape):
+        raise ValueError(f"backptr and emit must be one (T, B, W) shape, got "
+                         f"{tuple(backptr.shape)} and {tuple(emit.shape)}")
+    if order.dim() != 2 or order.shape[0] != backptr.shape[1]:
+        raise ValueError(f"order must be (B, K) with B={backptr.shape[1]}, got "
+                         f"{tuple(order.shape)}")
+    if emit.device != backptr.device or order.device != backptr.device:
+        raise ValueError("backptr, emit and order must be on one device")
+    if backptr.device.type == "cpu":
+        from dsjax_torch.decode.beam_device import _backtrack
+
+        return _backtrack(backptr, emit, order)
+    if backptr.device.type != "cuda":
+        raise ValueError(f"backtrack runs on cuda or cpu tensors, not {backptr.device}")
+    if backptr.dtype != torch.int32 or emit.dtype != torch.int32:
+        raise TypeError(f"backptr and emit must be int32, got {backptr.dtype}, {emit.dtype}")
+    t_dim, b_dim, w = backptr.shape
+    k_dim = order.shape[1]
+    dev = backptr.device
+    order = order.to(torch.int32).contiguous()
+    chars = torch.empty((t_dim, b_dim, k_dim), dtype=torch.int16, device=dev)
+    if b_dim == 0 or k_dim == 0:
+        return chars, order
+    start = torch.empty((b_dim, k_dim), dtype=torch.int32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dsjax_torch_beam_backtrack(backptr.contiguous().data_ptr(),
+                                             emit.contiguous().data_ptr(), order.data_ptr(),
+                                             chars.data_ptr(), start.data_ptr(), t_dim, b_dim,
+                                             w, k_dim, stream)
+    _build.check(lib, err, "beam_backtrack launch")
+    with _launch_lock:
+        BACKTRACK_LAUNCHES += 1
+    return chars, start

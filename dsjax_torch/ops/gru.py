@@ -53,9 +53,10 @@ from typing import Sequence, Tuple
 import torch
 
 from dsjax_torch.ops import _build
+from dsjax_torch.ops._card import plan_array, sm_count
 from dsjax_torch.ops.lstm import (ScanPlan, _carried_h_prev, _flip, _reverse_bits,
                                   check_aligned, check_pairs, check_reverse_scan, check_scan,
-                                  persistent_attributes, plan_array, scan_plan, sm_count)
+                                  persistent_attributes, scan_plan)
 
 Tensor = torch.Tensor
 

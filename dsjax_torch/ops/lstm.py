@@ -45,13 +45,13 @@ run the plain versions ``lstm_scan_reference`` and
 
 from __future__ import annotations
 
-import ctypes
 import threading
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from dsjax_torch.ops import _build
+from dsjax_torch.ops._card import SMEM_LIMIT, plan_array, sm_count
 
 Tensor = torch.Tensor
 
@@ -70,11 +70,9 @@ _launch_lock = threading.Lock()
 MAX_HIDDEN = 4096
 DTYPES = (torch.float32, torch.bfloat16)
 
-# what scan_persist.cuh takes: shared memory a CTA (sm_90), column tiles of
-# 8 units (one a warp), ring stages, chunk widths in bytes; register rows
-# (f32): the last gate's rows of a CTA of 16 units, read in 1024-byte chunks,
-# at most 4 of them (H <= 1024)
-SMEM_LIMIT = 232448
+# what scan_persist.cuh takes: column tiles of 8 units (one a warp), ring
+# stages, chunk widths in bytes; register rows (f32): the last gate's rows of
+# a CTA of 16 units, read in 1024-byte chunks, at most 4 of them (H <= 1024)
 _WARPS = 8
 _MAX_STAGES = 5
 _CHUNK_BYTES = (2048, 1024, 512, 256, 128, 64, 32)
@@ -182,22 +180,6 @@ def scan_plan(n_dir: int, n_h: int, gates: int, dtype: torch.dtype, n_b: int,
         raise ValueError(f"no plan: {n_dir} x H={n_h} with {gates} gates at B={n_b} in "
                          f"{dtype} does not fit {SMEM_LIMIT} bytes of shared memory a CTA")
     return found
-
-
-_sm_counts: dict = {}
-
-
-def sm_count(device: torch.device) -> int:
-    """The card's SM count (cached per device)."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sm_counts[index]
-
-
-def plan_array(plan: ScanPlan):
-    """The plan as the C entry points take it: ``persist::kPlanInts`` ints."""
-    return (ctypes.c_int * len(plan))(*plan)
 
 
 def _scan_one(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h: Tensor,

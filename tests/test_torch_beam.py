@@ -6,7 +6,10 @@ Backpointers, emitted chars and the h1/h2 hash histories must be equal
 exactly; totals and the float half of the carry within atol 1e-5 (XLA's
 and torch's CPU exp/log1p differ in the last ulp: measured up to 9.5e-7).
 The plain version of K7 is held against dsjax's Pallas kernel in interpret
-mode at T <= 12, B <= 2, W <= 8 (interpret mode is slow). The decoders are
+mode at T <= 12, B <= 2, W <= 8 (interpret mode is slow), also on a pool of
+signed zeros and exact ties and followed by the backtrack; the backtrack's
+plain version against dsjax's exactly, and K7's selection key against its
+float order. The decoders are
 compared on strings, offsets (emission frames and ctcdecode-parity
 timesteps) and scores, and streaming against the one-shot decode; the
 no-LM groups of tests/test_beam_fuzz.py run at a reduced case count.
@@ -19,10 +22,11 @@ import torch
 import jax.numpy as jnp
 
 from dsjax.decode.beam_device import DeviceBeamDecoder as JaxBeamDecoder
+from dsjax.decode.beam_device import _backtrack as jax_backtrack
 from dsjax.decode.beam_device import _beam_scan as jax_beam_scan
 from dsjax.ops.beam_pallas import fused_beam_scan as jax_fused_beam_scan
 from dsjax_torch.config import DecoderType, LMConfig
-from dsjax_torch.decode.beam_device import DeviceBeamDecoder, _beam_scan
+from dsjax_torch.decode.beam_device import DeviceBeamDecoder, _backtrack, _beam_scan
 from dsjax_torch.inference import load_decoder
 from dsjax_torch.labels import DEFAULT_LABELS
 from dsjax_torch.ops import beam
@@ -240,3 +244,85 @@ def test_fused_route_needs_cuda_tensors(monkeypatch, rng):
     for x, y in zip(a[:2] + a[2] + (a[3],) + a[4], b[:2] + b[2] + (b[3],) + b[4]):
         assert torch.equal(x, y)
     assert beam.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("t", [0, 1, 577])
+def test_backtrack_matches_dsjax(t, rng):
+    """The backtrack's plain version (and the wrapper on CPU tensors)
+    against dsjax's _backtrack on seeded pointers: chars and start slots
+    exactly equal, T = 0 and 1 included; 577 frames as an evaluation batch."""
+    b, w, k = 5, 10, 4
+    backptr = rng.integers(0, w, (t, b, w)).astype(np.int32)
+    emit = rng.integers(-1, 29, (t, b, w)).astype(np.int32)
+    order = rng.integers(0, w, (b, k)).astype(np.int32)
+    want = jax_backtrack(jnp.asarray(backptr), jnp.asarray(emit), jnp.asarray(order))
+    args = (torch.from_numpy(backptr), torch.from_numpy(emit), torch.from_numpy(order))
+    for got in (_backtrack(*args), beam.backtrack(*args)):
+        assert got[0].dtype == torch.int16 and got[1].dtype == torch.int32
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert beam.BACKTRACK_LAUNCHES == 0
+
+
+def signed_zero_problem(rng, b, t, c, w):
+    """Log-probs of 0.0, -0.0, -1 and -2 only (blank 0), and a carry whose
+    live slots hold p_b = -0.0 with distinct last chars (slot q's is q + 1)
+    and prefixes no slot extends: in the first frame the stays score -1
+    and every extend +0.0 but slot 0's by its last char, -0.0 + -0.0 =
+    -0.0, first in pool order (tests/test_torch_cuda.py builds the same)."""
+    lp = rng.choice(np.array([0.0, -0.0, -1.0, -2.0], np.float32), (b, t, c))
+    lp[:, 0, 0] = -1.0
+    lp[:, 0, 1:] = rng.choice(np.array([0.0, -0.0], np.float32), (b, c - 1))
+    lp[:, 0, 1] = -0.0
+    live = min(w, c - 1)
+    slot = np.arange(w, dtype=np.int32)
+    sentinel = -(slot + 2)
+    p_b = np.full((b, w), -1e30, np.float32)
+    p_b[:, :live] = -0.0
+    ints = [np.where(slot < live, a, sentinel).astype(np.int32)
+            for a in (7 * slot + 11, 13 * slot + 5, 7 * slot + 100014, 13 * slot + 100024)]
+    last = np.where(slot < live, slot % (c - 1) + 1, -1).astype(np.int32)
+    carry = (p_b, np.full((b, w), -1e30, np.float32)) + tuple(
+        np.ascontiguousarray(np.broadcast_to(a, (b, w))) for a in [last] + ints)
+    return lp, carry
+
+
+@pytest.mark.parametrize("w", [3, 4])
+def test_fused_plain_version_and_backtrack_match_pallas_on_signed_zeros(w, rng):
+    """K7's plain version then the backtrack against dsjax's fused kernel
+    (interpret mode) then dsjax's _backtrack, resumed from a carry whose
+    pools hold -0.0, +0.0 and exact ties: the scan's outputs as
+    assert_scan_equal holds them (integers exactly, floats to 1e-5), the
+    chars and start slots of every ranked beam exactly. The first frame's
+    selection takes the -0.0 extend first among the ties, where
+    jax.lax.top_k's total order would not."""
+    b, t, c = 2, 4, 5
+    lp, carry = signed_zero_problem(rng, b, t, c, w)
+    sizes = np.full(b, t, np.int32)
+    want = jax_fused_beam_scan(jnp.asarray(lp), jnp.asarray(sizes), w, 0,
+                               carry0=(tuple(jnp.asarray(a) for a in carry), None), interpret=True)
+    got = beam.fused_beam_scan(torch.from_numpy(lp), torch.from_numpy(sizes), w, 0,
+                               carry0=tuple(torch.from_numpy(a) for a in carry))
+    assert_scan_equal(got[:5], want)
+    assert int(got[1][0, 0, 0]) == 1, "the -0.0 extend no longer leads the first frame"
+    order = got[5][1]
+    chars, start = _backtrack(got[0], got[1], order)
+    want_chars, want_start = jax_backtrack(want[0], want[1], jnp.asarray(order.numpy()))
+    np.testing.assert_array_equal(chars.numpy(), np.asarray(want_chars))
+    np.testing.assert_array_equal(start.numpy(), np.asarray(want_start))
+
+
+def test_selection_key_orders_like_the_float_comparison(rng):
+    """K7's selection key (csrc/beam_scan.cu:score_key: -0.0 made +0.0,
+    then radix::order_key, the bits flipped so that unsigned order is the
+    IEEE order), ties broken by the lower index, sorts a pool of signed
+    zeros, ties, -1e30 and -inf as K7's plain selection does."""
+    values = np.array([0.0, -0.0, -1e30, -np.inf, 1.0, -1.0, 5e-45, -5e-45, -3.25], np.float32)
+    pool = rng.choice(values, (4, 600)).astype(np.float32)
+    canon = np.where(pool == 0, np.float32(0.0), pool)
+    bits = canon.view(np.uint32).astype(np.uint64)
+    key = np.where(bits & 0x80000000, bits ^ 0xFFFFFFFF, bits ^ 0x80000000)
+    index = np.broadcast_to(np.arange(pool.shape[1]), pool.shape)
+    order = np.lexsort((index, -key.astype(np.int64)), axis=1)
+    _, want = beam._float_order_top_k(torch.from_numpy(pool), pool.shape[1])
+    np.testing.assert_array_equal(order, want.numpy())

@@ -323,8 +323,12 @@ def assert_same_scan(got, want):
             torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
 
 
+# the four first shapes, then W = 1 (the narrowest), 11 (past evaluation's
+# width), 32 and 33 (a warp's width and past it)
 @pytest.mark.parametrize("b,t,c,w,blank", [(16, 60, 29, 128, 0), (20, 60, 29, 10, 0),
-                                           (3, 25, 6, 32, 2), (4, 9, 4, 128, 0)])
+                                           (3, 25, 6, 32, 2), (4, 9, 4, 128, 0),
+                                           (5, 30, 29, 1, 0), (6, 40, 29, 11, 0),
+                                           (6, 40, 29, 32, 0), (6, 40, 29, 33, 0)])
 def test_fused_beam_scan_matches_plain_scan(full_fp32, b, t, c, w, blank):
     from dsjax_torch.ops import beam
 
@@ -347,9 +351,89 @@ def test_fused_beam_scan_matches_plain_scan(full_fp32, b, t, c, w, blank):
     assert_same_scan(got2, want2)
 
 
+def signed_zero_problem(b, t, c, w, seed):
+    """Posteriors of log-probs 0.0, -0.0, -1 and -2 only (blank 0), and a
+    carry whose live slots hold p_b = -0.0 with distinct last chars (slot
+    q's is q + 1) and prefixes no slot extends. In the first frame the
+    stays score -1 and every extend +0.0, but slot 0's by its last char
+    -0.0 + -0.0 = -0.0, first in pool order: K7's float order takes it
+    first among the ties, K6's total order after every +0.0."""
+    rng = np.random.default_rng(seed)
+    lp = rng.choice(np.array([0.0, -0.0, -1.0, -2.0], np.float32), (b, t, c))
+    lp[:, 0, 0] = -1.0
+    lp[:, 0, 1:] = rng.choice(np.array([0.0, -0.0], np.float32), (b, c - 1))
+    lp[:, 0, 1] = -0.0
+    sizes = np.full(b, t, np.int32)
+    sizes[0] = max(1, t - 1)
+    live = min(w, c - 1)
+    slot = np.arange(w, dtype=np.int32)
+    sentinel = -(slot + 2)
+    p_b = np.full((b, w), -1e30, np.float32)
+    p_b[:, :live] = -0.0
+    last = np.where(slot < live, slot % (c - 1) + 1, -1).astype(np.int32)
+    h1 = np.where(slot < live, 7 * slot + 11, sentinel).astype(np.int32)
+    h2 = np.where(slot < live, 13 * slot + 5, sentinel).astype(np.int32)
+    ph1 = np.where(slot < live, h1 + 100003, sentinel).astype(np.int32)
+    ph2 = np.where(slot < live, h2 + 100019, sentinel).astype(np.int32)
+    carry = (p_b, np.full((b, w), -1e30, np.float32)) + tuple(
+        np.ascontiguousarray(np.broadcast_to(a, (b, w))) for a in (last, h1, h2, ph1, ph2))
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return cuda(lp), cuda(sizes), tuple(cuda(a) for a in carry)
+
+
+@pytest.mark.parametrize("w", [4, 40])
+def test_fused_beam_scan_on_a_pool_of_signed_zeros(full_fp32, w):
+    """K7 against its plain version, bit for bit (floats compared as bits:
+    torch.equal takes -0.0 for +0.0), on pools of signed zeros and ties,
+    at a narrow beam (W = 4) and a wide one (W = 40)."""
+    from dsjax_torch.decode.beam_device import _beam_scan
+    from dsjax_torch.ops import beam, topk
+
+    lp, sizes, carry = signed_zero_problem(3, 6, 6, w, seed=w)
+    got = beam.fused_beam_scan(lp, sizes, w, 0, carry0=carry)
+    want = beam.fused_beam_scan_reference(lp, sizes, w, 0, carry0=carry)
+    total_order = _beam_scan(lp, sizes, w, 0, carry0=carry, top_k=topk.topk_reference)
+    torch.cuda.synchronize()
+    assert not torch.equal(want[1], total_order[1]), "the pool no longer ties -0.0 with +0.0"
+    for name, g, r in (("backptr", got[0], want[0]), ("emit", got[1], want[1]),
+                       ("h1", got[2][0], want[2][0]), ("h2", got[2][1], want[2][1]),
+                       ("order", got[5][1], want[5][1])):
+        assert torch.equal(g, r), name
+    for i, (g, r) in enumerate(zip((got[3], got[5][0]) + got[4], (want[3], want[5][0]) + want[4])):
+        bits = (lambda a: a.view(torch.int32)) if g.dtype == torch.float32 else (lambda a: a)
+        assert torch.equal(bits(g), bits(r)), f"output {i}"
+
+
+def test_backtrack_kernel_matches_plain_version(full_fp32):
+    """The backtrack kernel against _backtrack, exactly, on K7's outputs, on
+    the scan route's and on a two-chunk K7 stream's second chunk, one
+    launch a call; T = 0 gives the slots back."""
+    from dsjax_torch.decode.beam_device import _backtrack, _beam_scan
+    from dsjax_torch.ops import beam
+
+    lp, sizes = beam_problem(7, 50, 29, seed=11)
+    k7 = beam.fused_beam_scan(lp, sizes, 10, 0)
+    scan = _beam_scan(lp, sizes, 12, 0)
+    first = beam.fused_beam_scan(lp[:, :20], sizes.clamp(max=20), 40, 0)
+    second = beam.fused_beam_scan(lp[:, 20:], (sizes - 20).clamp(min=0), 40, 0, carry0=first[4])
+    every = lambda w: torch.arange(w, dtype=torch.int32, device="cuda")[None].expand(7, -1)
+    for name, (bp, em, order) in (("K7 top 3", (k7[0], k7[1], k7[5][1][:, :3])),
+                                  ("scan, every slot", (scan[0], scan[1], every(12))),
+                                  ("stream chunk", (second[0], second[1], every(40))),
+                                  ("T = 0", (k7[0][:0], k7[1][:0], k7[5][1]))):
+        before = beam.BACKTRACK_LAUNCHES
+        chars, start = beam.backtrack(bp, em, order)
+        torch.cuda.synchronize()
+        assert beam.BACKTRACK_LAUNCHES == before + 1, name
+        want = _backtrack(bp, em, order)
+        assert chars.dtype == torch.int16 and torch.equal(chars, want[0]), name
+        assert start.dtype == torch.int32 and torch.equal(start, want[1]), name
+
+
 def test_beam_decoder_routes_and_launch_counts(full_fp32, monkeypatch):
     """T + 1 K6 launches a decode on the scan route, one K7 launch and no
-    K6 on the fused route; both give the plain decode's strings."""
+    K6 on the fused route, one backtrack launch on either; both give the
+    plain decode's strings."""
     from dsjax_torch.decode.beam_device import DeviceBeamDecoder
     from dsjax_torch.labels import DEFAULT_LABELS
     from dsjax_torch.ops import beam, topk
@@ -361,16 +445,17 @@ def test_beam_decoder_routes_and_launch_counts(full_fp32, monkeypatch):
     counts = []
     for fused in ("0", "1"):
         monkeypatch.setenv("DSJAX_FUSED_BEAM", fused)
-        before = (topk.LAUNCHES, beam.LAUNCHES)
+        before = (topk.LAUNCHES, beam.LAUNCHES, beam.BACKTRACK_LAUNCHES)
         got = dec.decode(probs, sizes, n_best=3, with_scores=True)
         torch.cuda.synchronize()
-        counts.append((topk.LAUNCHES - before[0], beam.LAUNCHES - before[1]))
+        counts.append((topk.LAUNCHES - before[0], beam.LAUNCHES - before[1],
+                       beam.BACKTRACK_LAUNCHES - before[2]))
         assert got[0] == want[0]
         for a, b in zip(got[1], want[1]):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
         np.testing.assert_allclose(got[2], want[2], atol=1e-5, rtol=0)
-    assert counts == [(lp.shape[1] + 1, 0), (0, 1)]
+    assert counts == [(lp.shape[1] + 1, 0, 1), (0, 1, 1)]
 
 
 def test_cuda_decode_without_the_library_raises(full_fp32, monkeypatch):
@@ -576,10 +661,13 @@ def test_gru_model_cuda_forward_and_gradients_match_cpu(full_fp32, unidirectiona
                                    msg=lambda m: f"{name}: {m}")
 
 
-@pytest.mark.parametrize("t,b,h", [(512, 64, 1024), (9, 16, 32), (0, 16, 64)])
+# the microbench's shape (h resident), a partial K atom (H = 32), T = 0, and
+# B = 128 (two warpgroups, h streamed through the ring)
+@pytest.mark.parametrize("t,b,h", [(512, 64, 1024), (9, 16, 32), (0, 16, 64), (17, 128, 1024)])
 def test_mm_chain_kernel_matches_plain_version(full_fp32, t, b, h):
     """K8 against its plain loop: h_T and the last step's full product (bf16
-    values of f32 sums; a rounding flipped by the sum order propagates)."""
+    values of f32 sums; a rounding flipped by the sum order propagates); one
+    launch a chain of T > 0 steps, none at T = 0."""
     from dsjax_torch.ops import mm_chain
 
     rng = np.random.default_rng(t + b)
@@ -590,11 +678,24 @@ def test_mm_chain_kernel_matches_plain_version(full_fp32, t, b, h):
     before = mm_chain.LAUNCHES
     got = mm_chain.mm_chain(xp, w, h0)
     torch.cuda.synchronize()
-    assert mm_chain.LAUNCHES == before + 1
+    assert mm_chain.LAUNCHES == before + (1 if t else 0)
     want = mm_chain.mm_chain_reference(xp, w, h0)
     for g, r in zip(got, want):
         assert g.shape == r.shape and g.dtype == torch.bfloat16
         torch.testing.assert_close(g.float(), r.float(), **BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("b", [16, 64, 128])
+def test_mm_chain_kernel_fits_its_plan(full_fp32, b):
+    """K8's kernel as built: no local memory, one CTA an SM under the plan
+    at H = 1024 (h resident up to B = 64, streamed at 128)."""
+    from dsjax_torch.ops import _card, mm_chain
+
+    plan = mm_chain.chain_plan(b, 1024, _card.sm_count(torch.device("cuda")))
+    attrs = mm_chain.kernel_attributes(plan)
+    assert attrs["local_bytes"] == 0 and attrs["cols"] == plan.cols == 32
+    assert attrs["static_smem_bytes"] + attrs["dynamic_smem_bytes"] <= _card.SMEM_LIMIT
+    assert plan.ctas == 128 and plan.resident == (b <= 64)
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,7 @@ def _imports(path):
      os.path.join(ROOT, "tools", "torch_profile_train.py"),
      os.path.join(ROOT, "tools", "torch_profile_eval.py"),
      os.path.join(ROOT, "tools", "torch_lstm_microbench.py"),
+     os.path.join(ROOT, "tools", "torch_kernel_probe.py"),
      os.path.join(ROOT, "tests", "synthetic_manifest.py"),
      os.path.join(ROOT, "tests", "golden_gru.py")]
     + glob.glob(os.path.join(ROOT, "dsjax_torch", "**", "*.py"), recursive=True)),

@@ -17,7 +17,10 @@ decoding at ``--width``:
   scan+K6     the beam scan route: _beam_scan (a K6 launch a frame) and
               the K6 ranking (CUDA events, median of 3)
   K7          the fused beam scan with its ranking (CUDA events, median of 10)
-  backtrack   _backtrack of the top beam (CUDA events, median of 5)
+  backtrack   the backtrack of the top beam (CUDA events, median of 5), and
+              its kernels' device time under torch.profiler: the backtrack
+              kernel (ops.beam.backtrack), or the gather loop of
+              _backtrack in a tree that has no kernel
   decode      DeviceBeamDecoder.decode(n_best=1) wall on each route, and
               GreedyDecoder's (host clock, median of 5); the host share is
               the wall less the device pieces above
@@ -171,7 +174,12 @@ def main() -> int:
     scan_ms = events_ms(torch, scan_route, 3)
     k7_ms = events_ms(torch, lambda: beam.fused_beam_scan(lp, out_lens, w, 0), 10)
     bp, em, _, _, _, (_, order) = beam.fused_beam_scan(lp, out_lens, w, 0)
-    backtrack_ms = events_ms(torch, lambda: _backtrack(bp, em, order[:, :1]), 5)
+    # a tree before the backtrack kernel has only the gather loop; the JSON
+    # says which one was timed
+    backtrack = getattr(beam, "backtrack", _backtrack)
+    backtrack_impl = "gather loop" if backtrack is _backtrack else "kernel"
+    backtrack_ms = events_ms(torch, lambda: backtrack(bp, em, order[:, :1]), 5)
+    backtrack_device_ms = profiled(torch, lambda: backtrack(bp, em, order[:, :1]), 5)[0]
 
     decoder = DeviceBeamDecoder(DEFAULT_LABELS, beam_width=w)
     greedy = GreedyDecoder(DEFAULT_LABELS)
@@ -196,6 +204,7 @@ def main() -> int:
          "scan_steps": int(probs.shape[1]), "host_prep_ms": prep_ms, "copy_ms": copy_ms,
          "stft_ms": stft_ms, "forward_ms": forward_ms, "scan_k6_ms": scan_ms,
          "k6_launches_per_decode": k6_per_decode, "k7_ms": k7_ms, "backtrack_ms": backtrack_ms,
+         "backtrack_impl": backtrack_impl, "backtrack_device_ms": backtrack_device_ms,
          "decode_wall_ms": walls, "decode_host_ms": host_share,
          "profile": {k: {"kernel_ms": v[0], "wall_ms": v[1], "idle_share": 1 - v[0] / v[1]}
                      for k, v in profiles.items()}}
@@ -204,7 +213,8 @@ def main() -> int:
     print(f"host prep (pad, int16, collate) {prep_ms!r} ms; copy to the card {copy_ms!r} ms; "
           f"STFT {stft_ms!r} ms; forward {forward_ms!r} ms (CUDA events)")
     print(f"beam: scan with K6 {scan_ms!r} ms ({k6_per_decode} K6 launches); K7 {k7_ms!r} ms; "
-          f"backtrack {backtrack_ms!r} ms (CUDA events)")
+          f"backtrack ({backtrack_impl}) {backtrack_ms!r} ms (CUDA events), "
+          f"{backtrack_device_ms!r} ms of kernels (torch.profiler)")
     print(f"decode wall (n_best=1): {walls}; host share {host_share}")
     for k, v in r["profile"].items():
         print(f"profile STFT + forward + decode ({k}): kernel {v['kernel_ms']!r} ms of "

@@ -20,9 +20,9 @@ checkout's copy of
 each in a process of its own from that checkout's root, so each builds and
 times its own kernels. This checkout's torch_serving_scans.py,
 torch_profile_train.py and torch_profile_eval.py are copied into the other
-first: both sides run the same measuring code. Prints one line a figure and turn with the card's name
-and power limit, and with --out writes every tool's JSON, by turn. Needs a
-card; imports nothing of jax.
+first: both sides run the same measuring code. Prints one line a figure and
+turn with the card's name and power limit, and with --out writes every tool's
+JSON, by turn. Needs a card; imports nothing of jax.
 """
 
 from __future__ import annotations
@@ -55,7 +55,10 @@ def figures(label: str, data: dict) -> dict:
     if label == "microbench":
         return {k: v["ms"] for k, v in data.items() if isinstance(v, dict) and "ms" in v}
     if label == "eval batch f32":
-        return {"forward ms": data["forward_ms"],
+        return {"forward ms": data["forward_ms"], "K7 ms": data["k7_ms"],
+                "backtrack ms": data["backtrack_ms"],
+                "backtrack impl": data["backtrack_impl"],
+                "backtrack device ms": data["backtrack_device_ms"],
                 **{f"profile {k} kernel ms": v["kernel_ms"] for k, v in data["profile"].items()},
                 **{f"profile {k} idle share": v["idle_share"] for k, v in data["profile"].items()}}
     r = data["result"]
