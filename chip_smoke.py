@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive dsjax_torch's serving, training and evaluation paths once on one
-CUDA card and check them.
+"""Drive dsjax_torch's serving, training, evaluation and LM decoding paths
+once on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
@@ -98,6 +98,30 @@ Phases, each printing what it measured; any failure exits non-zero:
               graph of the T torch.addmm calls (cuBLAS) that compute the
               same chain, then tools/torch_lstm_microbench.py's run with its
               K8 launches counted.
+ 21. LM  n-gram LM decoding with a seeded synthetic 3-gram over A-Z
+              (tests/synthetic_lm.py: every word of 1-3 letters and longer
+              ones to 20k words, 200k bigrams, 400k trigrams): the host
+              library built with lm.cpp and beam.cpp; the ARPA converted to
+              DSLMBIN2 by build_lm_binary and the device tables packed from
+              both, equal bucket for bucket, with their bytes and build
+              seconds; score_word_ln on the card over 4096 (word, 2-word
+              context) samples within 1e-4 of ArpaLM; the LM-fused scan with
+              K6 at (B, T, W, C) = (20, 577, 10, 29) and (16, 500, 32, 29),
+              and pruned (cutoff_top_n 10), bit for bit against the same
+              scan with the plain top-k (exactly T K6 launches a call), a
+              two-chunk LM stream against the one-shot scan, their times, K6
+              alone at the LM pools, and an LM decode under
+              DSJAX_FUSED_BEAM=1 with no K7 launch; ``workflows.evaluate``
+              of the flagship on phase 12's corpus with the LM (alpha 0.8,
+              beta 0.3, W=10), on the device route (exact K1, K6, K7 = 0
+              and backtrack counts) and the host beam (4 threads); the
+              server with the LM: 8 concurrent /transcribe against
+              DeviceBeamDecoder(lm_path=the binary).decode on the same
+              posteriors, a /stream session against the one-shot LM decode
+              of its chunks, and a /stream session on the host LM beam
+              (greedy) against the direct chunked forward; then
+              ``python -m dsjax_torch.search_lm_params`` on a 2 x 2 grid
+              with the device beam and ``select_lm_params`` on its JSON.
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
 f32, and for K2, K3, K4 with residuals and K5 in bf16 as well; torch.topk;
@@ -154,6 +178,13 @@ EVAL_UTTS, EVAL_BATCH, EVAL_WIDTH = 40, 20, 10
 # the flagship's posteriors from int16 raw audio with the STFT on the card
 # against host features of the same 16-bit WAVs: the STFT's rounding only
 FEATURE_PATH_TOL = 1e-4
+# phase 21: the LM weights, the space label, score_word_ln's samples and its
+# tolerance against ArpaLM (tests/test_lm_device.py's), and the LM scans'
+# (B, T, W, C, cutoff_top_n): an evaluation batch, K6's Pallas regime in
+# dsjax (a pool of 960), and the evaluation batch pruned
+LM_ALPHA, LM_BETA, LM_SPACE = 0.8, 0.3, 28
+LM_SAMPLES, LM_SCORE_TOL = 4096, 1e-4
+LM_SCAN_SHAPES = [(20, 577, 10, 29, 10 ** 9), (16, 500, 32, 29, 10 ** 9), (20, 577, 10, 29, 10)]
 
 
 # H100 SXM at 700 W (NVIDIA's data sheet): HBM rate, and peak rates by type
@@ -1095,17 +1126,24 @@ def phase_feature_paths(torch, np, state, model_cfg, root):
     return err
 
 
+def eval_corpus(np, root):
+    """Phase 12's corpus: EVAL_UTTS synthetic WAVs of 2-12 s under root;
+    returns the manifest's path."""
+    from tests.synthetic_manifest import write_manifest
+
+    rng = np.random.default_rng(12)
+    seconds = [round(float(s), 2) for s in rng.uniform(2.0, 12.0, EVAL_UTTS)]
+    return write_manifest(root, "eval", seconds, seed=13)
+
+
 def phase_evaluation(torch, np, state, model_cfg, gpu_name, full_fp32, defaults_back):
     from dsjax_torch.config import EvalConfig, SpectConfig, compose
     from dsjax_torch.labels import DEFAULT_LABELS
     from dsjax_torch.model.convert import from_reference_state_dict, save_checkpoint
     from dsjax_torch.workflows import evaluate
-    from tests.synthetic_manifest import write_manifest
 
-    rng = np.random.default_rng(12)
     with tempfile.TemporaryDirectory() as tmp:
-        seconds = [round(float(s), 2) for s in rng.uniform(2.0, 12.0, EVAL_UTTS)]
-        manifest = write_manifest(tmp, "eval", seconds, seed=13)
+        manifest = eval_corpus(np, tmp)
         path = os.path.join(tmp, "flagship.pt")
         save_checkpoint(path, from_reference_state_dict(state), model_cfg, SpectConfig(),
                         DEFAULT_LABELS)
@@ -1499,6 +1537,8 @@ def stream_direct(worker, chunks, np):
     from dsjax_torch.audio.features import spectrogram_np
 
     cfg, dec = worker.bundle.spect_cfg, worker.decoder
+    # the greedy decoder's table, or the host beam's (in its label map)
+    int_to_char = getattr(dec, "int_to_char", None) or dec.label_map.int_to_char
     total = total_sq = 0.0
     count, carry, prev, text = 0, None, dec.blank_index, ""
     for y in chunks:
@@ -1514,7 +1554,7 @@ def stream_direct(worker, chunks, np):
         probs, out_lens, carry = worker.bundle.forward(spect, [t_true], carry)
         for lbl in probs[0, : int(out_lens[0])].argmax(dim=-1).tolist():
             if lbl != dec.blank_index and lbl != prev:
-                text += dec.int_to_char[lbl]
+                text += int_to_char[lbl]
             prev = lbl
     return text
 
@@ -1678,6 +1718,405 @@ def phase_mm_chain(torch, np):
             "kernel_attributes": attrs, "launches": counts["mm_chain"], "microbench": bench}
 
 
+def bits_equal(torch, a, b):
+    """Equal tensors, floats bit for bit (signed zeros told apart)."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def bucket_sorted(np, data):
+    """A table's (S, 4) slots with each bucket's slots in key order: the ARPA
+    build inserts in the file's order, the binary's in word-id order."""
+    rows = data.reshape(-1, 16, 4)
+    keys = rows[..., 0].astype(np.uint64) << np.uint64(32) | rows[..., 1]
+    return np.take_along_axis(rows, np.argsort(keys, axis=1, kind="stable")[..., None], axis=1)
+
+
+def lm_samples(np, host, n, seed):
+    """n (word, 2-word context) pairs for score_word_ln: trigrams of the LM,
+    bigrams behind a random word, unigrams behind two random words, and
+    words the LM lacks, in the word or the context (none with <s>, </s> or
+    <unk>, which the decoder never produces)."""
+    rng = np.random.default_rng(seed)
+    specials = ("<s>", "</s>", "<unk>")
+    uni = [w for (w,) in host.ngrams[0] if w not in specials]
+    bi = [g for g in host.ngrams[1] if not set(g) & set(specials)]
+    tri = [g for g in host.ngrams[2] if not set(g) & set(specials)]
+    pick = lambda seq: seq[rng.integers(len(seq))]
+    oov = lambda: "".join(rng.choice(list("QXZJ"), 9))
+    out = []
+    for i in range(n):
+        kind = i % 8
+        if kind < 3:
+            g = pick(tri)
+            out.append((g[2], [g[0], g[1]]))
+        elif kind < 5:
+            g = pick(bi)
+            out.append((g[1], [pick(uni), g[0]]))
+        elif kind < 7:
+            out.append((pick(uni), [pick(uni), pick(uni)] if kind == 5 else [oov(), pick(uni)]))
+        else:
+            out.append((oov(), [pick(uni), pick(uni)]))
+    return out
+
+
+def lm_scan(_beam_scan, lp, sizes, w, lm, top_n=10 ** 9, top_k=None, carry0=None):
+    return _beam_scan(lp, sizes, w, 0, cutoff_top_n=top_n, lm=lm, alpha=LM_ALPHA, beta=LM_BETA,
+                      space=LM_SPACE, top_k=top_k, carry0=carry0)
+
+
+def flat_scan(r):
+    """Every tensor of an LM scan's outputs: backptr, emit, h1, h2, totals,
+    the core carry and the LM state."""
+    return (r[0], r[1], *r[2], r[3], *r[4][0], *r[4][1])
+
+
+def phase_lm_formats(torch, np, tmp):
+    """21 (a, b): the host library with lm.cpp and beam.cpp, the synthetic
+    3-gram as ARPA and DSLMBIN2, the device tables from both, and
+    score_word_ln on the card against ArpaLM."""
+    from dsjax_torch.audio import native
+    from dsjax_torch.decode import lm_device
+    from dsjax_torch.decode.lm import ArpaLM
+    from dsjax_torch.decode.native_beam import build_lm_binary
+    from dsjax_torch.labels import DEFAULT_LABELS, LabelMap
+    from tests.synthetic_lm import letter_trigram, write_arpa
+
+    t0 = time.perf_counter()
+    native.build(force=True)
+    native.load_library()
+    lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arpa = write_arpa(os.path.join(tmp, "letters.arpa"), letter_trigram(seed=21))
+    arpa_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    binary = os.path.join(tmp, "letters.bin")
+    build_lm_binary(arpa, binary)
+    bin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = ArpaLM(arpa)
+    from_text = lm_device.DeviceNgramLM(host, DEFAULT_LABELS)
+    text_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_bin = lm_device.DeviceNgramLM(binary, DEFAULT_LABELS)
+    packed = from_bin.device("cuda")
+    torch.cuda.synchronize()
+    packed_s = time.perf_counter() - t0
+    counts = [len(g) for g in host.ngrams]
+    check((from_text.order, from_text.unk_logp, from_text.n_vocab)
+          == (from_bin.order, from_bin.unk_logp, from_bin.n_vocab),
+          "the ARPA and binary LMs differ in order, <unk> or vocabulary")
+    for i, (a, b) in enumerate(zip(from_text.tables, from_bin.tables)):
+        check(a.data.shape == b.data.shape and np.array_equal(bucket_sorted(np, a.data),
+                                                              bucket_sorted(np, b.data)),
+              f"order {i + 1}: the ARPA and the binary pack different tables")
+    table_bytes = packed.ngrams.numel() * packed.ngrams.element_size()
+    print(f"lm formats: host library (flac, audio_decode, levenshtein, lm, beam) built in "
+          f"{lib_s!r} s; synthetic 3-gram over A-Z {counts} n-grams written in {arpa_s!r} s, "
+          f"DSLMBIN2 {os.path.getsize(binary)} bytes in {bin_s!r} s; device tables "
+          f"{table_bytes} bytes ({from_bin.n_vocab} words) packed from the ARPA in {text_s!r} s "
+          f"(parse included) and from the binary and copied to the card in {packed_s!r} s, "
+          f"equal bucket for bucket")
+
+    lmap = LabelMap(DEFAULT_LABELS)
+    samples = lm_samples(np, host, LM_SAMPLES, seed=22)
+    pair = lambda w: lm_device._word_hash([lmap.char_to_int[c] for c in w])
+    cur = torch.tensor([pair(w) for w, _ in samples], dtype=torch.int64, device="cuda")
+    ctx = torch.tensor([[pair(c) for c in cs] for _, cs in samples], dtype=torch.int64,
+                       device="cuda")
+    got = lm_device.score_word_ln(packed, cur[:, 0], cur[:, 1], ctx)[0].cpu().numpy()
+    want = np.array([host.score_word_ln(w, cs) for w, cs in samples])
+    err = float(np.abs(got - want).max())
+    check(bool(np.isfinite(got).all()) and err <= LM_SCORE_TOL,
+          f"score_word_ln on the card: max err {err} against ArpaLM over {LM_SAMPLES} samples")
+    print(f"lm scoring: score_word_ln on the card over {LM_SAMPLES} (word, 2-word context) "
+          f"samples against ArpaLM.score_word_ln: max_abs_err {err!r} (<= {LM_SCORE_TOL})")
+    return arpa, binary, packed, {"ngrams": counts, "table_bytes": table_bytes,
+                                  "binary_bytes": os.path.getsize(binary),
+                                  "pack_from_arpa_s": text_s, "pack_from_binary_s": packed_s,
+                                  "score_max_abs_err": err}
+
+
+def phase_lm_scan(torch, np, packed):
+    """21 (c): the LM-fused scan with K6 against the same scan with the plain
+    top-k on the card, bit for bit; a two-chunk stream against the one-shot
+    scan; K6 timed at the LM pool; no K7 for an LM decode."""
+    from dsjax_torch.decode.beam_device import DeviceBeamDecoder, _beam_scan
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.ops import beam, topk
+
+    result = {}
+    for b, t, w, c, top_n in LM_SCAN_SHAPES:
+        what = f"B={b} T={t} W={w} C={c}" + (f" cutoff_top_n={top_n}" if top_n < c else "")
+        lp, sizes = beam_inputs(torch, np, b, t, c, seed=w + 100)
+        before = topk.LAUNCHES
+        got = lm_scan(_beam_scan, lp, sizes, w, packed, top_n)
+        torch.cuda.synchronize()
+        launches = topk.LAUNCHES - before
+        check(launches == t, f"LM scan {what}: {launches} K6 launches for {t} frames")
+        want = lm_scan(_beam_scan, lp, sizes, w, packed, top_n, top_k=topk.topk_reference)
+        for i, (g, x) in enumerate(zip(flat_scan(got), flat_scan(want))):
+            check(bits_equal(torch, g, x), f"LM scan {what}: output {i} differs from the plain "
+                                           f"top-k's")
+        check(bool(torch.isfinite(got[3][sizes > 0]).all()), f"LM scan {what}: totals not finite")
+        half = t // 2
+        first = lm_scan(_beam_scan, lp[:, :half], sizes.clamp(max=half), w, packed, top_n)
+        second = lm_scan(_beam_scan, lp[:, half:], (sizes - half).clamp(min=0), w, packed,
+                         top_n, carry0=first[4])
+        joined = (torch.cat([first[0], second[0]]), torch.cat([first[1], second[1]]),
+                  (torch.cat([first[2][0], second[2][0]]), torch.cat([first[2][1], second[2][1]])),
+                  second[3], second[4])
+        torch.cuda.synchronize()
+        for i, (g, x) in enumerate(zip(flat_scan(joined), flat_scan(got))):
+            check(bits_equal(torch, g, x), f"LM scan {what}: the two-chunk stream's output {i} "
+                                           f"differs from the one-shot scan's")
+        k_ms = cuda_time(lambda: lm_scan(_beam_scan, lp, sizes, w, packed, top_n), 3)
+        p_ms = cuda_time(lambda: lm_scan(_beam_scan, lp, sizes, w, packed, top_n,
+                                         top_k=topk.topk_reference), 3)
+        print(f"lm scan {what}, alpha {LM_ALPHA} beta {LM_BETA}: with K6 every output and the "
+              f"carry (LM hashes included) bit for bit equal to the plain top-k's; a two-chunk "
+              f"stream equal to the one-shot scan; {launches} K6 launches ({t} frames); scan "
+              f"with K6 {k_ms!r} ms, with the plain top-k {p_ms!r} ms (median, CUDA events)")
+        result[what] = {"k6_launches": launches, "scan_k6_ms": k_ms, "scan_plain_ms": p_ms}
+
+    # K6 alone at the LM pools: W stays and W * C extends a row
+    rng = np.random.default_rng(25)
+    for b, t, w, c, top_n in LM_SCAN_SHAPES[:2]:
+        n = w + w * c
+        s = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32)).cuda()
+        got, want = topk.topk(s, w), topk.topk_reference(s, w)
+        torch.cuda.synchronize()
+        check(bits_equal(torch, got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K6 ({b}, {n}) -> {w}: differs from the plain version")
+        k_ms = cuda_time(lambda: topk.topk(s, w), 50)
+        dev_ms = kernel_device_ms(torch, lambda: topk.topk(s, w), "topk_kernel", 50)
+        p_ms = cuda_time(lambda: topk.topk_reference(s, w), 50)
+        lib_ms = cuda_time(lambda: torch.topk(s, w, dim=-1), 50)
+        bound_ms, bound_by = least_time(s.numel(), nbytes(s, *got), "float32")
+        print(f"kernel topk at the LM pool ({b}, {n}) -> {w}: equal to the plain version; kernel "
+              f"{k_ms!r} ms, {dev_ms!r} ms device time (torch.profiler), plain {p_ms!r} ms, "
+              f"torch.topk {lib_ms!r} ms; bound {bound_ms!r} ms ({bound_by})")
+        result[f"K6 ({b}, {n}) -> {w}"] = {"max_abs_err": 0.0, "ms": k_ms, "device_ms": dev_ms,
+                                            "plain_ms": p_ms, "bound_ms": bound_ms,
+                                            "bound_by": bound_by, "library_ms": lib_ms}
+
+    # an LM decode under DSJAX_FUSED_BEAM=1: K6 and the backtrack, no K7
+    b, t, w, c, _ = LM_SCAN_SHAPES[0]
+    lp, sizes = beam_inputs(torch, np, b, t, c, seed=3)
+    dec = DeviceBeamDecoder(DEFAULT_LABELS, beam_width=w, alpha=LM_ALPHA, beta=LM_BETA,
+                            shared_lm=packed)
+    os.environ["DSJAX_FUSED_BEAM"] = "1"
+    try:
+        before = (topk.LAUNCHES, beam.LAUNCHES, beam.BACKTRACK_LAUNCHES)
+        dec.decode(lp.exp(), sizes, n_best=1)
+        torch.cuda.synchronize()
+        counts = (topk.LAUNCHES - before[0], beam.LAUNCHES - before[1],
+                  beam.BACKTRACK_LAUNCHES - before[2])
+    finally:
+        os.environ.pop("DSJAX_FUSED_BEAM")
+    check(counts == (t + 1, 0, 1), f"an LM decode with DSJAX_FUSED_BEAM=1 launched K6, K7 and "
+                                   f"the backtrack {counts} times, expected ({t + 1}, 0, 1)")
+    print(f"lm decode with DSJAX_FUSED_BEAM=1 (B={b} T={t} W={w}): K6 {counts[0]}, K7 "
+          f"{counts[1]}, backtrack {counts[2]} launches")
+    return result
+
+
+def lm_eval_args(arpa, device_beam):
+    return ["lm.decoder_type=beam", f"lm.beam_width={EVAL_WIDTH}", f"lm.lm_path={arpa}",
+            f"lm.alpha={LM_ALPHA}", f"lm.beta={LM_BETA}", f"lm.device_beam={device_beam}",
+            "lm.lm_workers=4"]
+
+
+def phase_lm_evaluation(torch, np, path, manifest, arpa, model_cfg, gpu_name):
+    """21 (d): workflows.evaluate of the flagship on phase 12's corpus with the
+    LM, on the device route (under DSJAX_FUSED_BEAM=1, which must not take
+    K7) and the host route."""
+    from dsjax_torch.config import EvalConfig, compose
+    from dsjax_torch.workflows import evaluate
+
+    runs = {}
+    for name, device_beam in (("device LM beam", "true"), ("host LM beam", "false")):
+        os.environ["DSJAX_FUSED_BEAM"] = "1"
+        cfg = compose(EvalConfig, [f"model.model_path={path}", f"test_path={manifest}",
+                                   f"batch_size={EVAL_BATCH}", "num_workers=4", "device=cuda"]
+                      + lm_eval_args(arpa, device_beam))
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                wer, cer = evaluate(cfg)
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("DSJAX_FUSED_BEAM")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        lines = out.getvalue().splitlines()
+        hyps = [line for line in lines if line.startswith("Hyp:")]
+        summary = [line for line in lines if line.startswith("Test Summary")]
+        check(len(hyps) == EVAL_UTTS and len(summary) == 1, f"evaluate ({name}) printed "
+              f"{len(hyps)} hypotheses and {len(summary)} summaries")
+        check(np.isfinite(wer) and np.isfinite(cer), f"evaluate ({name}): WER {wer} CER {cer}")
+        runs[name] = dict(wer=wer, cer=cer, summary=summary[0].strip(), counts=counts, wall=wall)
+    layers, batches = model_cfg.hidden_layers, -(-EVAL_UTTS // EVAL_BATCH)
+    steps = runs["device LM beam"]["counts"]["lstm_steps"] // layers   # frames, all batches
+    want = {"device LM beam": (steps + batches, 0, batches), "host LM beam": (0, 0, 0)}
+    for name, (n_topk, n_beam, n_back) in want.items():
+        c = runs[name]["counts"]
+        check(c["lstm_fwd"] == layers * batches,
+              f"evaluate ({name}): {c['lstm_fwd']} lstm_fwd launches for {batches} batches")
+        check((c["topk"], c["beam_scan"], c["beam_backtrack"]) == (n_topk, n_beam, n_back),
+              f"evaluate ({name}): topk {c['topk']}, beam_scan {c['beam_scan']} and "
+              f"beam_backtrack {c['beam_backtrack']} launches, expected {n_topk}, {n_beam} and "
+              f"{n_back} ({steps} frames in {batches} batches)")
+    for name, r in runs.items():
+        print(f"lm evaluation on {gpu_name}, flagship f32, {EVAL_UTTS} utterances of 2-12 s, "
+              f"batch {EVAL_BATCH}, W={EVAL_WIDTH}, alpha {LM_ALPHA} beta {LM_BETA} ({name}): "
+              f"{r['summary']!r}; wall {r['wall']!r} s ({EVAL_UTTS / r['wall']!r} utt/s with "
+              f"the model's load); launches {r['counts']}")
+    return runs
+
+
+def phase_lm_serving(torch, np, path, arpa, binary, gpu_name):
+    """21 (e): the server with the LM. On the device route 8 concurrent
+    /transcribe requests against DeviceBeamDecoder(lm_path=the binary).decode
+    on the same posteriors and a /stream session against the one-shot LM
+    decode of its chunks; on the host route a /stream session (greedy, the
+    host beam cannot stream) against the direct chunked forward."""
+    from dsjax_torch.config import ServerConfig, compose
+    from dsjax_torch.decode.beam import BeamCTCDecoder
+    from dsjax_torch.decode.beam_device import DeviceBeamDecoder
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.server import serve, shutdown
+
+    rng = np.random.default_rng(26)
+    seconds = [round(float(s), 2) for s in rng.uniform(1.0, 8.0, 8)]
+    ys = [synth(rng, np, s) for s in seconds]
+    stream_ys = [synth(rng, np, 1.0) for _ in range(3)]
+    base = [f"model.model_path={path}", "host=127.0.0.1", "port=0", "device=cuda",
+            "max_batch=8", "batch_timeout_ms=2000", "warmup_seconds=2"]
+    cfg = compose(ServerConfig, base + lm_eval_args(arpa, "true"))
+    server, worker = serve(cfg)
+    try:
+        check(isinstance(worker.decoder, DeviceBeamDecoder) and worker.decoder._lm is not None,
+              "the LM server's decoder is not the device beam with the LM")
+        port = server.server_address[1]
+        chunks_seen = []
+        decode_chunk = worker.decoder.decode_chunk
+
+        def recording(probs, state=None):
+            chunks_seen.append(probs.clone())
+            return decode_chunk(probs, state)
+
+        worker.decoder.decode_chunk = recording
+        results = [None] * len(ys)
+
+        def client(i):
+            results[i] = post(port, "/transcribe", ys[i])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(ys))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            check(not t.is_alive(), "an LM /transcribe request hung")
+        stream = [post(port, f"/stream?session=lm&final={int(i == 2)}", y)
+                  for i, y in enumerate(stream_ys)]
+        for status, payload, _ in results + stream:
+            check(status == 200, f"LM server -> {status} {payload}")
+        from_binary = DeviceBeamDecoder(DEFAULT_LABELS, beam_width=EVAL_WIDTH, lm_path=binary,
+                                        alpha=LM_ALPHA, beta=LM_BETA, cutoff_top_n=40)
+        worker.decoder, device_decoder = from_binary, worker.decoder
+        want = direct_transcripts(worker, ys, np)
+        worker.decoder = device_decoder
+        got = [r[1]["output"][0]["transcription"] for r in results]
+        check(got == want, f"LM /transcribe differs from DeviceBeamDecoder(lm_path).decode on "
+                           f"the same posteriors:\n{got}\n{want}")
+        one_shot = from_binary.decode(torch.cat(chunks_seen, dim=1))[0][0][0]
+        check(stream[-1][1]["transcription"] == one_shot,
+              f"LM /stream transcript {stream[-1][1]['transcription']!r} differs from the "
+              f"one-shot LM decode of its chunks {one_shot!r}")
+    finally:
+        shutdown(server, worker)
+    cfg = compose(ServerConfig, base + lm_eval_args(arpa, "false"))
+    server, worker = serve(cfg)
+    try:
+        check(isinstance(worker.decoder, BeamCTCDecoder) and worker.decoder.lm is not None,
+              "the host LM server's decoder is not the host beam with the LM")
+        port = server.server_address[1]
+        host_stream = [post(port, f"/stream?session=host&final={int(i == 2)}", y)
+                       for i, y in enumerate(stream_ys)]
+        for status, payload, _ in host_stream:
+            check(status == 200, f"host LM /stream -> {status} {payload}")
+        direct = stream_direct(worker, stream_ys, np)
+        check(host_stream[-1][1]["transcription"] == direct,
+              f"the host LM /stream transcript {host_stream[-1][1]['transcription']!r} differs "
+              f"from the direct chunked greedy forward {direct!r}")
+    finally:
+        shutdown(server, worker)
+    lat = sorted(r[2] for r in results)
+    print(f"lm serving on {gpu_name} (W={EVAL_WIDTH}, device LM beam): 8 concurrent /transcribe "
+          f"of {seconds} s: p50 {statistics.median(lat)!r} ms, max {lat[-1]!r} ms, equal to "
+          f"DeviceBeamDecoder(lm_path=DSLMBIN2).decode on the same posteriors; /stream chunks "
+          f"{[round(s[2], 3) for s in stream]} ms, last transcript equal to the one-shot LM "
+          f"decode; host LM beam /stream {[round(s[2], 3) for s in host_stream]} ms, equal to "
+          f"the direct chunked greedy forward")
+
+
+def phase_lm_tuner(np, path, manifest_dir, arpa):
+    """21 (f): python -m dsjax_torch.search_lm_params on a 2 x 2 grid with the
+    device beam on four WAVs, then python -m dsjax_torch.select_lm_params on
+    its JSON."""
+    from tests.synthetic_manifest import write_manifest
+
+    manifest = write_manifest(manifest_dir, "tune", [2.5, 3.0, 4.0, 3.5], seed=27)
+    out = os.path.join(manifest_dir, "grid.json")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "dsjax_torch.search_lm_params", f"model_path={path}",
+         f"test_path={manifest}", f"lm_path={arpa}", "grid=true", "grid_steps=2",
+         "device_beam=true", f"beam_width={EVAL_WIDTH}", "batch_size=4", "n_jobs=2",
+         "device=cuda", f"output_path={out}"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    tune_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"search_lm_params exited {run.returncode}:\n{run.stderr[-3000:]}")
+    with open(out) as f:
+        trials = json.load(f)
+    check(len(trials) == 4 and all(len(t) == 4 and all(np.isfinite(t)) for t in trials),
+          f"search_lm_params wrote {trials}")
+    sel = subprocess.run([sys.executable, "-m", "dsjax_torch.select_lm_params", "--input-path",
+                          out], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    check(sel.returncode == 0 and "Alpha" in sel.stdout,
+          f"select_lm_params exited {sel.returncode}:\n{sel.stderr[-3000:]}")
+    best = min(trials, key=lambda t: t[2])
+    check(f"Alpha: {best[0]:f}" in sel.stdout,
+          f"select_lm_params picked another row:\n{sel.stdout}")
+    print(f"lm tuner: search_lm_params grid 2 x 2, device beam, flagship bf16, 4 WAVs: exit 0 in "
+          f"{tune_s!r} s, trials {trials}; select_lm_params picked alpha {best[0]} beta {best[1]}")
+
+
+def phase_lm(torch, np, state, model_cfg, gpu_name):
+    """21: n-gram LM decoding (formats, scoring, the LM scan on K6,
+    evaluation, serving, the tuner)."""
+    from dsjax_torch.config import SpectConfig
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.model.convert import from_reference_state_dict, save_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        arpa, binary, packed, formats = phase_lm_formats(torch, np, tmp)
+        scan = phase_lm_scan(torch, np, packed)
+        del packed
+        path = os.path.join(tmp, "flagship.pt")
+        save_checkpoint(path, from_reference_state_dict(state), model_cfg, SpectConfig(),
+                        DEFAULT_LABELS)
+        manifest = eval_corpus(np, tmp)
+        runs = phase_lm_evaluation(torch, np, path, manifest, arpa, model_cfg, gpu_name)
+        phase_lm_serving(torch, np, path, arpa, binary, gpu_name)
+        phase_lm_tuner(np, path, tmp, arpa)
+    return {"formats": formats, "scan": scan, "evaluation": runs}
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -1730,7 +2169,6 @@ def run(torch, np):
           "TF32 off)")
     eval_runs = phase_evaluation(torch, np, state, model_cfg, gpu_name, full_fp32, defaults_back)
     phase_beam_serving(torch, np, state, model_cfg, gpu_name)
-    del state
     full_fp32()
     print("GRU kernel and parity phases: TF32 off")
     gru_kernel = phase_gru_kernel(torch, np)
@@ -1745,6 +2183,9 @@ def run(torch, np):
     full_fp32()
     k8 = phase_mm_chain(torch, np)
     defaults_back()
+    print("LM phase: PyTorch defaults")
+    lm = phase_lm(torch, np, state, model_cfg, gpu_name)
+    del state
 
     def row(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1797,11 +2238,13 @@ def run(torch, np):
                                      train_kernels[(key, "bfloat16")]),
                         **attributes(key, train_kernels)))
     first_topk, first_beam = TOPK_SHAPES[0], BEAM_SHAPES[0]
+    lm_device_counts = lm["evaluation"]["device LM beam"]["counts"]
     rows.append(row("topk", "dsjax_torch/csrc/topk.cu", "dsjax/ops/topk_pallas.py:139",
                     eval_runs["beam, scan with K6"]["counts"]["topk"],
                     topk_res[f"({first_topk[0]}, {first_topk[1]}) -> {first_topk[2]}"],
                     device_ms=topk_res[f"({first_topk[0]}, {first_topk[1]}) -> {first_topk[2]}"]
-                    ["device_ms"], shapes=topk_res))
+                    ["device_ms"], shapes=topk_res,
+                    launches_on_the_lm_path=lm_device_counts["topk"], lm_scans=lm["scan"]))
     b, t, w, c = first_beam
     rows.append(row("beam_scan", "dsjax_torch/csrc/beam_scan.cu", "dsjax/ops/beam_pallas.py:121",
                     eval_runs["beam, K7"]["counts"]["beam_scan"],
@@ -1811,7 +2254,8 @@ def run(torch, np):
                     "dsjax/decode/beam_device.py:450", eval_runs["beam, K7"]["counts"]
                     ["beam_backtrack"], backtrack_res, device_ms=backtrack_res["device_ms"],
                     launches_on_the_scan_route=eval_runs["beam, scan with K6"]["counts"]
-                    ["beam_backtrack"], shape=backtrack_res["shape"]))
+                    ["beam_backtrack"], shape=backtrack_res["shape"],
+                    launches_on_the_lm_path=lm_device_counts["beam_backtrack"]))
     rows.append(row("gru_fwd", "dsjax_torch/csrc/gru_fwd.cu", "dsjax/ops/gru_pallas.py:40",
                     gru_serving["gru_fwd"], gru_kernel["float32"],
                     steps=gru_serving["gru_steps"],

@@ -6,7 +6,7 @@ dsjax module of the same name and is held against it by a CPU test
 kernels become kernels written by hand for sm_90a under ``csrc/``, built
 with nvcc at first use (``dsjax_torch.ops._build``).
 
-Three paths are ported, for every model dsjax supports (LSTM, GRU or
+Four paths are ported, for every model dsjax supports (LSTM, GRU or
 vanilla RNN layers; bidirectional, or unidirectional with Lookahead):
   * serving: host STFT features, the DeepSpeech2 forward (the LSTM and GRU
     recurrences run in ``csrc/lstm_fwd.cu`` and ``csrc/gru_fwd.cu``),
@@ -19,9 +19,14 @@ vanilla RNN layers; bidirectional, or unidirectional with Lookahead):
     (``python -m dsjax_torch.train ...``);
   * evaluation and transcription (``python -m dsjax_torch.evaluate ...``,
     ``python -m dsjax_torch.transcribe ...``): WER/CER over a manifest and
-    the result JSON of a file, greedy or with the device beam search
-    without LM, whose top-k runs in ``csrc/topk.cu`` and whose whole scan
-    can run in ``csrc/beam_scan.cu``.
+    the result JSON of a file, greedy or with the device beam search,
+    whose top-k runs in ``csrc/topk.cu`` and whose whole no-LM scan can
+    run in ``csrc/beam_scan.cu``;
+  * n-gram LM decoding (``lm.lm_path``): the LM packed into device hash
+    tables and fused into the beam scan (``lm.device_beam=true``), or the
+    native host beam with the LM; the tuner
+    (``python -m dsjax_torch.search_lm_params``, ``select_lm_params``) and
+    ``python -m dsjax_torch.build_lm_binary``.
 
 The package never imports jax. Importing it builds and loads nothing.
 """
@@ -33,6 +38,7 @@ def __getattr__(name):
     """Lazy public API: submodules load on first use."""
     api = {
         "DeepSpeech2": ("dsjax_torch.model.ds2", "DeepSpeech2"),
+        "BeamCTCDecoder": ("dsjax_torch.decode.beam", "BeamCTCDecoder"),
         "DeviceBeamDecoder": ("dsjax_torch.decode.beam_device", "DeviceBeamDecoder"),
         "GreedyDecoder": ("dsjax_torch.decode.greedy", "GreedyDecoder"),
         "ModelBundle": ("dsjax_torch.inference", "ModelBundle"),

@@ -1,9 +1,10 @@
-"""The port's native host library: FLAC and compressed-audio decoders and the
-Levenshtein distance, bound with ctypes.
+"""The port's native host library: FLAC and compressed-audio decoders, the
+Levenshtein distance, the word n-gram LM and the CTC prefix beam search,
+bound with ctypes.
 
-The C++ sources are copies of dsjax's (``dsjax_torch/csrc/host/``: flac.cpp
-and audio_decode.cpp whole, ``ds_levenshtein`` of beam.cpp), so the port
-imports nothing of dsjax. They compile with g++ at first use into
+The C++ sources are copies of dsjax's (``dsjax_torch/csrc/host/``: flac.cpp,
+audio_decode.cpp, lm.h, lm.cpp whole, beam.cpp without ``ds_levenshtein``,
+which levenshtein.cpp defines once), so the port imports nothing of dsjax. They compile with g++ at first use into
 ``build/dsjax_torch/libdsjax_torch_host.so`` under the checkout's root, and
 again only when a source or the flags change (a SHA-256 of both is kept
 beside the library, as ``dsjax_torch/ops/_build.py`` does for the CUDA
@@ -13,7 +14,8 @@ False and decoding raises. Importing this module builds and loads nothing.
 
 The functions mirror dsjax/cpp/{flac_binding,audio_binding,beam_binding}.py:
 ``decode_flac``, ``decode_file``, ``decode_bytes``, ``can_decode``,
-``available_formats`` and ``levenshtein``.
+``available_formats`` and ``levenshtein``; ``decode/native_beam.py`` binds
+the LM and the beam search on the same library.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from dsjax_torch.ops import _build
 
 SRC_DIR = _build.PACKAGE_DIR / "csrc" / "host"
 LIB_PATH = _build.BUILD_DIR / "libdsjax_torch_host.so"
-SOURCES = ("flac.cpp", "audio_decode.cpp", "levenshtein.cpp")
+SOURCES = ("flac.cpp", "audio_decode.cpp", "levenshtein.cpp", "lm.cpp", "beam.cpp")
+HEADERS = ("lm.h",)
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 LIBS = ["-ldl"]                       # audio_decode.cpp dlopens the codecs
 
@@ -43,7 +46,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((SRC_DIR / name).read_bytes())
     return h.hexdigest()
@@ -75,6 +78,25 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ds_audio_formats.restype = ctypes.c_int
     lib.ds_levenshtein.restype = ctypes.c_int
     lib.ds_levenshtein.argtypes = [i32p, ctypes.c_int, i32p, ctypes.c_int]
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    strs = ctypes.POINTER(ctypes.c_char_p)
+    lib.ds_lm_load.restype = p
+    lib.ds_lm_load.argtypes = [ctypes.c_char_p]
+    lib.ds_lm_free.restype = None
+    lib.ds_lm_free.argtypes = [p]
+    lib.ds_lm_score_word.restype = d
+    lib.ds_lm_score_word.argtypes = [p, strs, i, ctypes.c_char_p]
+    lib.ds_lm_order.restype = i
+    lib.ds_lm_order.argtypes = [p]
+    lib.ds_lm_build_binary.restype = i
+    lib.ds_lm_build_binary.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.ds_beam_create.restype = p
+    lib.ds_beam_create.argtypes = [strs, i, i, i, p]
+    lib.ds_beam_free.restype = None
+    lib.ds_beam_free.argtypes = [p]
+    lib.ds_beam_decode.restype = i
+    lib.ds_beam_decode.argtypes = [p, f32p, i, i, d, d, i, i, d, i, i, ctypes.POINTER(i),
+                                   ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(d)]
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,1 +1,2 @@
-"""CTC decoding (greedy only in this slice)."""
+"""CTC decoding: greedy, the device beam search (optionally with the n-gram
+LM fused), and the host beam search with the LM."""

@@ -1,4 +1,5 @@
-"""Batched CTC prefix beam search on the posteriors' device, without an LM.
+"""Batched CTC prefix beam search on the posteriors' device, with optional
+n-gram LM fusion.
 
 Counterpart of dsjax/decode/beam_device.py. The search runs over time with
 (B, W) beam state: each beam keeps (p_blank, p_nonblank, last_char) and two
@@ -29,13 +30,20 @@ Two routes run the scan, both on the card for CUDA tensors:
 On CPU tensors the same code runs with the plain top-k, which is how the
 tests hold it against dsjax.
 
+LM fusion (``lm``, a ``decode.lm_device.PackedLM`` on the posteriors'
+device): every beam also carries rolling hashes of its current partial word,
+the hash pairs of its last order-1 words and their backoffs, so the scan
+adds ``alpha * ln P(word | context) + beta`` on every space extension (with
+no partial word, the previous word's bonus again) and the trailing word's
+bonus to the final totals, the scoring of the host ``decode.beam``
+decoder. An LM decode always takes ``_beam_scan``, K6 selecting every frame
+on the card; K7 takes no LM. Its carry is ``(core, lm_state)``, the core
+being the no-LM scan's 7-tuple.
+
 Exactness: logaddexp is written as max + log1p(exp(-|a - b|)), jnp's
 formula; the prefix hashes are int32 and wrap modulo 2^32
-(``h * 1000003 + c + 1``), as dsjax's do.
-
-Not ported yet (ROADMAP.md, Queue 1 item 4): the on-device n-gram LM
-fusion (``lm_path``, ``alpha``, ``beta``, ``space``); a decoder built with
-an ``lm_path`` raises.
+(``h * 1000003 + c + 1``), as dsjax's do. The LM word hashes are uint32 in
+dsjax, int64 holding values in [0, 2^32) here (``decode.lm_device``).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dsjax_torch.decode import lm_device
 from dsjax_torch.labels import LabelMap
 from dsjax_torch.ops import beam as beam_ops
 from dsjax_torch.ops import topk as topk_ops
@@ -55,9 +64,7 @@ Tensor = torch.Tensor
 NEG = -1e30
 _P1 = 1000003
 _P2 = 10007
-
-LM_NOT_PORTED = ("lm.lm_path: decoding with an n-gram LM is not ported yet "
-                 "(ROADMAP.md, Queue 1 item 4)")
+_M32 = 0xFFFFFFFF
 
 
 def _logaddexp(a: Tensor, b: Tensor) -> Tensor:
@@ -77,6 +84,33 @@ def _init_carry(b_dim: int, w: int, device) -> Tuple[Tensor, ...]:
             torch.zeros((b_dim, w), **i32))
 
 
+def _init_lm_state(b_dim: int, w: int, order: int, device) -> Tuple[Tensor, ...]:
+    """(cur1, cur2, ctx, in_word, memo, ctx_bos): the partial word's two
+    hashes (seed 1), the context word hash pairs interleaved [h1, h2] *
+    max(1, order-1), oldest first (all absent), whether a word is open, the
+    last completed word's bonus, and the carried backoffs of the context's
+    suffixes (0 = absent, right for the empty context)."""
+    cw, nbo = max(1, order - 1), max(0, order - 1)
+    i64 = dict(dtype=torch.int64, device=device)
+    return (torch.full((b_dim, w), int(lm_device.CHAR_SEED), **i64),
+            torch.full((b_dim, w), int(lm_device.CHAR_SEED), **i64),
+            torch.full((b_dim, w, 2 * cw), int(lm_device.CTX_ABSENT), **i64),
+            torch.zeros((b_dim, w), dtype=torch.bool, device=device),
+            torch.zeros((b_dim, w), dtype=torch.float32, device=device),
+            torch.zeros((b_dim, w, nbo), dtype=torch.float32, device=device))
+
+
+def _lm_bonus(lm, lm_state: Tuple[Tensor, ...], alpha: float, beta: float):
+    """The bonus of completing each beam's partial word now, alpha * ln
+    P(word | context) + beta, and the backoff carries a beam committing the
+    word adopts."""
+    cur1, cur2, ctx, _, _, ctx_bos = lm_state
+    cw = ctx.shape[-1] // 2
+    score_ln, _, new_bos = lm_device.score_word_ln(
+        lm, cur1, cur2, ctx.reshape(ctx.shape[:-1] + (cw, 2)), ctx_bos)
+    return alpha * score_ln + beta, new_bos
+
+
 def _keep_mask(lp_t: Tensor, cutoff_top_n: int, cutoff_prob: float) -> Tensor:
     """(B, C) candidate mask of one frame: the top cutoff_top_n classes and,
     when cutoff_prob < 1, the smallest head of the sorted distribution that
@@ -92,16 +126,17 @@ def _keep_mask(lp_t: Tensor, cutoff_top_n: int, cutoff_prob: float) -> Tensor:
 
 
 def _fusable(b_dim: int, c_dim: int, beam_width: int, cutoff_top_n: int,
-             cutoff_prob: float) -> bool:
-    """Whether K7 takes this decode: no pruning, W <= 128, C <= 30."""
-    return (cutoff_top_n >= c_dim and cutoff_prob >= 1.0 and beam_width <= beam_ops.MAX_WIDTH
-            and c_dim <= beam_ops.MAX_CLASSES and b_dim > 0)
+             cutoff_prob: float, lm=None) -> bool:
+    """Whether K7 takes this decode: no LM, no pruning, W <= 128, C <= 30."""
+    return (lm is None and cutoff_top_n >= c_dim and cutoff_prob >= 1.0
+            and beam_width <= beam_ops.MAX_WIDTH and c_dim <= beam_ops.MAX_CLASSES
+            and b_dim > 0)
 
 
 def _beam_scan(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
                cutoff_top_n: int = 10 ** 9, cutoff_prob: float = 1.0,
-               carry0: Optional[Tuple[Tensor, ...]] = None, fused: bool = False,
-               top_k=None):
+               carry0=None, fused: bool = False, top_k=None, lm=None,
+               alpha: float = 0.0, beta: float = 0.0, space: int = -1):
     """log_probs (B, T, C) -> (backptr (T, B, W) i32, emit (T, B, W) i32,
     (h1_seq, h2_seq) (T, B, W) i32, totals (B, W) f32, carry).
 
@@ -110,16 +145,27 @@ def _beam_scan(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
     posteriors). ``fused`` sends a decode K7 can take (``_fusable``) to it.
     ``top_k`` replaces the selection function
     (default ``ops.topk.topk``; the plain version of K7 passes K7's own
-    float-order selection)."""
+    float-order selection).
+
+    ``lm`` (a PackedLM on the posteriors' device) fuses the LM: extending a
+    beam with ``space`` adds ``alpha * ln P(word | context) + beta`` for the
+    word it completes, and the totals include the trailing word's bonus
+    (the returned carry does not, so a stream can go on). The carry is then
+    (the 7-tuple core, the LM state of ``_init_lm_state``)."""
     b_dim, t_dim, c_dim = log_probs.shape
     w = beam_width
     sizes = torch.as_tensor(sizes, dtype=torch.int32, device=log_probs.device)
-    if fused and _fusable(b_dim, c_dim, w, cutoff_top_n, cutoff_prob):
+    if fused and _fusable(b_dim, c_dim, w, cutoff_top_n, cutoff_prob, lm):
         return beam_ops.fused_beam_scan(log_probs, sizes, w, blank, carry0=carry0)[:5]
     top_k = top_k or topk_ops.topk
     device = log_probs.device
     lp = log_probs.to(torch.float32).transpose(0, 1)      # (T, B, C)
-    p_b, p_nb, last, h1, h2, ph1, ph2 = (carry0 if carry0 is not None
+    if lm is None:
+        core0, lm_state = carry0, None
+    else:
+        core0, lm_state = (carry0 if carry0 is not None
+                           else (None, _init_lm_state(b_dim, w, lm.order, device)))
+    p_b, p_nb, last, h1, h2, ph1, ph2 = (core0 if core0 is not None
                                          else _init_carry(b_dim, w, device))
     classes = torch.arange(c_dim, device=device, dtype=torch.int32)
     slot = torch.arange(w, device=device, dtype=torch.int32)[None, :]
@@ -151,6 +197,17 @@ def _beam_scan(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
         if keep is not None:
             ext = torch.where(keep[:, None, :], ext, NEG)
 
+        if lm is not None:
+            # the word-boundary bonus of every space extension: the partial
+            # word scored against the beam's history; with no partial word,
+            # the previous word's bonus again (the host decoder splits the
+            # prefix into words, skipping empty ones)
+            cur1, cur2, ctx, in_word, memo, ctx_bos = lm_state
+            bonus_new, new_bos_cand = _lm_bonus(lm, lm_state, alpha, beta)
+            has_words = ctx[..., -2] != int(lm_device.CTX_ABSENT)
+            bonus = torch.where(in_word, bonus_new, torch.where(has_words, memo, 0.0))
+            ext[:, :, space] = ext[:, :, space] + bonus
+
         # merge: hj[b, r, q] when extend(q, last_r) collapses to stay r's
         # prefix
         live = total > NEG / 2
@@ -161,6 +218,10 @@ def _beam_scan(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
         e_at = torch.where(same, p_b[:, None, :], total[:, None, :]) + lp_last[:, :, None]
         if keep is not None:
             e_at = torch.where(last_kept[:, :, None], e_at, NEG)
+        if lm is not None:
+            # the space column of ext carries the bonus: mirror it for stays
+            # whose last char is the space (adding 0.0 elsewhere, as dsjax)
+            e_at = e_at + torch.where((last == space)[:, :, None], bonus[:, None, :], 0.0)
         # no match fills NEG, which also clamps a decayed p_nb
         absorbed = torch.where(hj, e_at, NEG).amax(dim=2)
         nb_stay = _logaddexp(stay_nb, absorbed)
@@ -199,6 +260,35 @@ def _beam_scan(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
 
         # frames past each utterance's length leave the state unchanged
         act = (t < sizes)[:, None]
+        if lm is not None:
+            # the word state is a function of the selected prefix: rebuilt
+            # from the parent's payloads and the char
+            p_cur1, p_cur2, p_in, p_memo, p_bonus_new = (
+                torch.gather(a, 1, idx) for a in (cur1, cur2, in_word, memo, bonus_new))
+            p_ctx, p_bos, p_newbos = (
+                torch.gather(a, 1, idx[..., None].expand(-1, -1, a.shape[-1]))
+                for a in (ctx, ctx_bos, new_bos_cand))
+            is_stay = char < 0
+            is_space = char == space
+            cu = char.clamp_min(0).long() + 1
+            seed = int(lm_device.CHAR_SEED)
+            new_cur1 = torch.where(is_stay, p_cur1, torch.where(
+                is_space, seed, (p_cur1 * int(lm_device.CHAR_A1) + cu) & _M32))
+            new_cur2 = torch.where(is_stay, p_cur2, torch.where(
+                is_space, seed, (p_cur2 * int(lm_device.CHAR_A2) + cu) & _M32))
+            new_in = torch.where(is_stay, p_in, ~is_space)
+            complete = is_space & p_in                      # a word just closed
+            # the committed word's canonical pair: h1 away from the sentinel
+            w1 = torch.where(p_cur1 == int(lm_device.EMPTY_KEY), p_cur1 ^ 1, p_cur1)
+            new_ctx = torch.where(complete[..., None],
+                                  torch.cat([p_ctx[..., 2:], w1[..., None], p_cur2[..., None]],
+                                            -1), p_ctx)
+            new_memo = torch.where(complete, p_bonus_new, p_memo)
+            # the completed word's own probe backoffs are the new carries
+            new_bos = torch.where(complete[..., None], p_newbos, p_bos)
+            lm_state = tuple(
+                torch.where(act[..., None] if n.dim() == 3 else act, n, o) for n, o in zip(
+                    (new_cur1, new_cur2, new_ctx, new_in, new_memo, new_bos), lm_state))
         p_b, p_nb, last, h1, h2, ph1, ph2 = (
             torch.where(act, n, o) for n, o in zip(
                 (new_p_b, new_p_nb, new_last, new_h1, new_h2, new_ph1, new_ph2),
@@ -208,12 +298,19 @@ def _beam_scan(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
         h1s.append(h1)
         h2s.append(h2)
     carry = (p_b, p_nb, last, h1, h2, ph1, ph2)
+    totals = _logaddexp(p_b, p_nb)
+    if lm is not None:
+        # the trailing word's bonus (a prefix not ending in a space gains one
+        # more word); the carry stays without it
+        trailing, _ = _lm_bonus(lm, lm_state, alpha, beta)
+        totals = totals + torch.where(lm_state[3], trailing, 0.0)
+        carry = (carry, lm_state)
 
     def seq(xs):
         return (torch.stack(xs) if xs
                 else torch.zeros((0, b_dim, w), dtype=torch.int32, device=device))
 
-    return seq(bps), seq(ems), (seq(h1s), seq(h2s)), _logaddexp(p_b, p_nb), carry
+    return seq(bps), seq(ems), (seq(h1s), seq(h2s)), totals, carry
 
 
 def _backtrack(backptr: Tensor, emit: Tensor, order: Tensor) -> Tuple[Tensor, Tensor]:
@@ -233,21 +330,22 @@ def _backtrack(backptr: Tensor, emit: Tensor, order: Tensor) -> Tuple[Tensor, Te
 
 def _decode_device(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
                    n_best: int, want_hists: bool = False, cutoff_top_n: int = 10 ** 9,
-                   cutoff_prob: float = 1.0, fused: bool = False):
+                   cutoff_prob: float = 1.0, fused: bool = False, lm=None, alpha: float = 0.0,
+                   beta: float = 0.0, space: int = -1):
     """Scan -> rank the beams by total score -> backtrack the top n_best:
     ((T, B, n_best) int16 chars, the (h1, h2) histories when asked for,
     (B, n_best) totals). The scan route ranks with K6 (T + 1 launches a
     decode); K7 ranks its own final beams (one launch, no K6). Either route
     then backtracks in one launch (``ops.beam.backtrack``)."""
     b_dim, _, c_dim = log_probs.shape
-    if fused and _fusable(b_dim, c_dim, beam_width, cutoff_top_n, cutoff_prob):
+    if fused and _fusable(b_dim, c_dim, beam_width, cutoff_top_n, cutoff_prob, lm):
         backptr, emit, hists, _, _, (ranked, order) = beam_ops.fused_beam_scan(
             log_probs, sizes, beam_width, blank)
         top_totals, order = ranked[:, :n_best], order[:, :n_best]
     else:
         backptr, emit, hists, totals, _ = _beam_scan(
             log_probs, sizes, beam_width, blank, cutoff_top_n=cutoff_top_n,
-            cutoff_prob=cutoff_prob)
+            cutoff_prob=cutoff_prob, lm=lm, alpha=alpha, beta=beta, space=space)
         # ties resolve to the lower slot index, as np.argsort(-scores)
         top_totals, order = topk_ops.topk(totals, n_best)
     rev, _ = beam_ops.backtrack(backptr, emit, order)
@@ -256,13 +354,15 @@ def _decode_device(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int
 
 def _decode_chunk_device(log_probs: Tensor, sizes: Tensor, beam_width: int, blank: int,
                          cutoff_top_n: int = 10 ** 9, cutoff_prob: float = 1.0, carry0=None,
-                         fused: bool = False):
+                         fused: bool = False, lm=None, alpha: float = 0.0, beta: float = 0.0,
+                         space: int = -1):
     """Streaming twin of _decode_device: scan one chunk from carry0, then
     backtrack every beam slot to the chunk start; the best slot is the
     first maximum of the totals."""
     backptr, emit, _, totals, carry = _beam_scan(
         log_probs, sizes, beam_width, blank, cutoff_top_n=cutoff_top_n,
-        cutoff_prob=cutoff_prob, carry0=carry0, fused=fused)
+        cutoff_prob=cutoff_prob, carry0=carry0, fused=fused, lm=lm, alpha=alpha, beta=beta,
+        space=space)
     order = torch.arange(beam_width, dtype=torch.int32, device=log_probs.device)
     rev, start = beam_ops.backtrack(backptr, emit, order[None].expand(log_probs.shape[0], -1))
     return rev, start, torch.argmax(totals, dim=1), carry
@@ -281,25 +381,31 @@ class _BeamStreamState:
 
 
 class DeviceBeamDecoder:
-    """Batched beam search on the posteriors' device, without an LM.
+    """Batched beam search on the posteriors' device, with optional LM fusion.
 
     ``decode`` has the contract of GreedyDecoder and dsjax's decoders:
     (strings, offsets), all beams per utterance by default (``n_best``
     caps them). ``decode_chunk`` streams one utterance chunk by chunk with
-    the full search state carried."""
+    the full search state carried, the LM word state included. With
+    ``lm_path`` (ARPA or DSLMBIN2) the LM is packed once
+    (``decode.lm_device``) and moved to the posteriors' device at their
+    first decode there; ``shared_lm`` takes tables packed already (the
+    tuner's workers share one set); ``reset_params`` changes alpha and beta
+    without rebuilding them."""
 
     # evaluate() may hand device tensors straight in
     accepts_device_arrays = True
 
     def __init__(self, labels: Sequence[str], beam_width: int = 16, blank_index: int = 0,
-                 lm_path: Optional[str] = None, cutoff_top_n: int = 10 ** 9,
-                 cutoff_prob: float = 1.0, ctc_offsets: bool = False):
-        if lm_path:
-            raise NotImplementedError(LM_NOT_PORTED)
+                 lm_path: Optional[str] = None, alpha: float = 0.0, beta: float = 0.0,
+                 cutoff_top_n: int = 10 ** 9, cutoff_prob: float = 1.0, shared_lm=None,
+                 ctc_offsets: bool = False):
         self.label_map = LabelMap(labels, blank_index)
         self.labels = list(labels)
         self.beam_width = beam_width
         self.blank_index = blank_index
+        self.alpha = alpha
+        self.beta = beta
         self.cutoff_top_n = cutoff_top_n
         self.cutoff_prob = cutoff_prob
         # ctc_offsets=True: report ctcdecode-parity timesteps, rebuilt on
@@ -307,14 +413,37 @@ class DeviceBeamDecoder:
         # (one (T, B, W) x2 and one (B, T, C) device-to-host copy a decode);
         # False: emission frames, no extra copy
         self.ctc_offsets = ctc_offsets
+        self._lm = None
+        if (lm_path or shared_lm is not None) and " " not in self.labels:
+            raise ValueError("LM fusion needs a space label (word boundaries)")
+        if shared_lm is not None:
+            self._lm = shared_lm
+        elif lm_path:
+            self._lm = lm_device.DeviceNgramLM(lm_path, labels, blank_index).device("cpu")
+        self._lm_placed = self._lm           # the tables on the last decode's device
+
+    def _lm_kwargs(self, lp: Tensor) -> dict:
+        """The scan's LM arguments, the tables on the posteriors' device
+        (copied there at the first decode on it)."""
+        if self._lm is None:
+            return {}
+        if self._lm_placed.ngrams.device != lp.device:
+            self._lm_placed = self._lm.to(lp.device)
+        return dict(lm=self._lm_placed, alpha=float(self.alpha), beta=float(self.beta),
+                    space=self.label_map.space_index)
+
+    def reset_params(self, alpha: float, beta: float) -> None:
+        """LM weight update without rebuilding the tables (tuner parity)."""
+        self.alpha = alpha
+        self.beta = beta
 
     def _fused_ok(self, lp: Tensor) -> bool:
         """Whether this decode may take K7: DSJAX_FUSED_BEAM=1, read here on
-        every decode, a decode the kernel takes (``_fusable``), and CUDA
-        tensors."""
+        every decode, a decode the kernel takes (``_fusable``: no LM among
+        its conditions), and CUDA tensors."""
         return (os.environ.get("DSJAX_FUSED_BEAM") == "1" and lp.is_cuda
                 and _fusable(lp.shape[0], lp.shape[-1], self.beam_width, self.cutoff_top_n,
-                             self.cutoff_prob))
+                             self.cutoff_prob, self._lm))
 
     @staticmethod
     def _log(probs) -> Tensor:
@@ -333,7 +462,7 @@ class DeviceBeamDecoder:
         rev_d, start_d, best_d, carry = _decode_chunk_device(
             lp, torch.full((b,), t, dtype=torch.int32, device=lp.device), self.beam_width,
             self.blank_index, cutoff_top_n=self.cutoff_top_n, cutoff_prob=self.cutoff_prob,
-            carry0=carry0, fused=self._fused_ok(lp))
+            carry0=carry0, fused=self._fused_ok(lp), **self._lm_kwargs(lp))
         rev = rev_d[:, 0].cpu().numpy()                  # (T, W) int16
         slot = start_d[0].cpu().numpy()
         old = state.strings if state is not None else [""] * self.beam_width
@@ -348,7 +477,8 @@ class DeviceBeamDecoder:
     def decode(self, probs, sizes=None, n_best: Optional[int] = None,
                with_scores: bool = False):
         """(strings, offsets); with_scores=True appends the (B, n_best) total
-        log-scores of the hypotheses."""
+        log-scores of the hypotheses (the trailing word's LM bonus
+        included)."""
         n_best = self.beam_width if n_best is None else n_best
         lp = self._log(probs)
         b, t = lp.shape[0], lp.shape[1]
@@ -358,7 +488,7 @@ class DeviceBeamDecoder:
             lp, sizes_t, self.beam_width, self.blank_index,
             n_best=min(n_best, self.beam_width), want_hists=self.ctc_offsets,
             cutoff_top_n=self.cutoff_top_n, cutoff_prob=self.cutoff_prob,
-            fused=self._fused_ok(lp))
+            fused=self._fused_ok(lp), **self._lm_kwargs(lp))
         rev_chars = rev_d.cpu().numpy()                  # (T, B, n_best)
         n_best = rev_chars.shape[2]
         b_dim = rev_chars.shape[1]

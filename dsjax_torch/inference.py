@@ -7,17 +7,19 @@ hyper-parameters beside it: the reference's Lightning checkpoints, or what
 ``dsjax_torch.model.convert.save_checkpoint`` writes (both through
 ``convert.load_checkpoint``). ``ModelBundle.forward`` takes (B, F, T)
 features, or (B, L_pad) raw audio with the STFT on the device before the
-model. ``load_decoder`` gives the greedy decoder or the device beam search
-(without an LM). The device defaults to ``cuda``; without a CUDA card the
-caller must ask for ``device="cpu"``.
+model. ``load_decoder`` gives the greedy decoder, the device beam search (with an
+n-gram LM fused into it under ``lm.device_beam``) or the host beam search
+with the LM. The device defaults to ``cuda``; without a CUDA card the caller
+must ask for ``device="cpu"``.
 
-Not ported yet (ROADMAP.md, Queue 1): decoding with an n-gram LM (a set
-``lm.lm_path`` raises), dsjax checkpoint directories, multi-device.
+Not ported yet (ROADMAP.md, Queue 1): dsjax checkpoint directories,
+multi-device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,7 +28,9 @@ import torch
 from dsjax_torch.audio.features import FeatureExtractor, spectrogram_torch
 from dsjax_torch.audio.io import load_audio
 from dsjax_torch.config import DecoderType, LMConfig, SpectConfig, SpectrogramWindow
-from dsjax_torch.decode.beam_device import LM_NOT_PORTED, DeviceBeamDecoder
+from dsjax_torch.decode.beam import BeamCTCDecoder
+from dsjax_torch.decode.beam_device import DeviceBeamDecoder
+from dsjax_torch.decode.lm import BINARY_MAGIC
 from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.labels import DEFAULT_LABELS
 from dsjax_torch.model.convert import (from_reference_state_dict, infer_architecture,
@@ -104,21 +108,42 @@ def load_model(model_path: str, precision: int = 32, device: Any = "cuda") -> Mo
 
 
 def load_decoder(labels: Sequence[str], cfg: LMConfig, want_offsets: bool = False):
-    """Greedy or beam decoder from config (reference: utils.py:37-54). The
-    beam search runs on the posteriors' device (DeviceBeamDecoder); with an
-    ``lm_path`` it raises, since the LM is not ported.
+    """Greedy or beam decoder from config (reference: utils.py:37-54), as
+    dsjax's load_decoder chooses:
+
+      * beam without an LM: the beam search on the posteriors' device;
+      * beam with an LM and ``lm.device_beam``: the same search with the LM
+        packed into device tables and fused into its scan, from an ARPA or
+        a DSLMBIN2 file; a DSLMBIN1 binary cannot give device tables (its
+        words are one-way hashes), so it warns and takes the host beam;
+      * beam with an LM otherwise: the native host beam with the LM
+        (``decode.beam.BeamCTCDecoder``, ``lm.lm_workers`` threads).
 
     ``want_offsets``: the caller shows per-char offsets (transcribe
-    offsets=true), so the beam rebuilds ctcdecode-parity timesteps (one
+    offsets=true), so a device beam rebuilds ctcdecode-parity timesteps (one
     posterior copy to the host a decode); WER-only paths keep the emission
     frames."""
-    if cfg.decoder_type == DecoderType.beam:
-        if cfg.lm_path:
-            raise NotImplementedError(LM_NOT_PORTED)
+    if cfg.decoder_type != DecoderType.beam:
+        return GreedyDecoder(labels)
+    if not cfg.lm_path:
         return DeviceBeamDecoder(labels, beam_width=cfg.beam_width,
                                  cutoff_top_n=cfg.cutoff_top_n, cutoff_prob=cfg.cutoff_prob,
                                  ctc_offsets=want_offsets)
-    return GreedyDecoder(labels)
+    if cfg.device_beam:
+        with open(cfg.lm_path, "rb") as f:
+            is_v1_binary = f.read(8) == BINARY_MAGIC
+        if not is_v1_binary:
+            return DeviceBeamDecoder(labels, beam_width=cfg.beam_width, lm_path=cfg.lm_path,
+                                     alpha=cfg.alpha, beta=cfg.beta,
+                                     cutoff_top_n=cfg.cutoff_top_n, cutoff_prob=cfg.cutoff_prob,
+                                     ctc_offsets=want_offsets)
+        warnings.warn("lm.device_beam=true but the LM is a DSLMBIN1 binary: falling back to "
+                      "the host beam. Rebuild the binary with python -m "
+                      "dsjax_torch.build_lm_binary (writes DSLMBIN2, which the device beam "
+                      "can load) or pass the ARPA file.")
+    return BeamCTCDecoder(labels, lm_path=cfg.lm_path, alpha=cfg.alpha, beta=cfg.beta,
+                          cutoff_top_n=cfg.cutoff_top_n, cutoff_prob=cfg.cutoff_prob,
+                          beam_width=cfg.beam_width, num_processes=cfg.lm_workers)
 
 
 def run_transcribe(audio_path: str, bundle: ModelBundle, decoder,

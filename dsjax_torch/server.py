@@ -7,9 +7,12 @@ Concurrent requests are padded into one batch, with the batch size rounded
 up to a power of two and T to a multiple of 64 frames, as dsjax does, so the
 two servers see the same shapes. Audio longer than chunk_size_seconds runs
 chunk by chunk with the RNN state carried, on a side pool. With
-``lm.decoder_type=beam`` batches decode with the device beam search, and a
+``lm.decoder_type=beam`` batches decode with the device beam search (the LM
+fused into it with ``lm.lm_path`` and ``lm.device_beam=true``), and a
 /stream session carries the beam state from chunk to chunk, so its
-transcript equals a one-shot beam decode of the chunks so far.
+transcript equals a one-shot beam decode of the chunks so far. The host
+beam with an LM (``lm.device_beam=false``) cannot stream: /stream collapses
+greedily for it.
 
     python -m dsjax_torch.server model.model_path=model.pt port=8888 [device=cpu]
 """
@@ -206,9 +209,14 @@ class BatchWorker(threading.Thread):
                     sess.text, sess.beam_state = self.decoder.decode_chunk(
                         probs, sess.beam_state)
                 else:
+                    # the greedy decoder, or the host beam, which cannot
+                    # stream and keeps its table in its label map
+                    int_to_char = getattr(self.decoder, "int_to_char", None)
+                    if int_to_char is None:
+                        int_to_char = self.decoder.label_map.int_to_char
                     for lbl in probs[0].argmax(dim=-1).tolist():
                         if lbl != blank and lbl != sess.prev_label:
-                            sess.text += self.decoder.int_to_char[lbl]
+                            sess.text += int_to_char[lbl]
                         sess.prev_label = lbl
             out = {"transcription": sess.text, "final": final}
             if final:

@@ -25,9 +25,7 @@ from dsjax.decode.beam_device import DeviceBeamDecoder as JaxBeamDecoder
 from dsjax.decode.beam_device import _backtrack as jax_backtrack
 from dsjax.decode.beam_device import _beam_scan as jax_beam_scan
 from dsjax.ops.beam_pallas import fused_beam_scan as jax_fused_beam_scan
-from dsjax_torch.config import DecoderType, LMConfig
 from dsjax_torch.decode.beam_device import DeviceBeamDecoder, _backtrack, _beam_scan
-from dsjax_torch.inference import load_decoder
 from dsjax_torch.labels import DEFAULT_LABELS
 from dsjax_torch.ops import beam
 from tests.test_beam_fuzz import _adversarial_probs
@@ -217,17 +215,6 @@ def test_fuzz_no_lm_groups_match_dsjax(seed, top_n, cprob):
     for i, (a, b) in enumerate(zip(got[1], want[1])):
         np.testing.assert_array_equal(a[0], b[0], err_msg=f"case {i} size {sizes[i]}")
     np.testing.assert_allclose(got[2], want[2], atol=TOTAL_ATOL, rtol=0)
-
-
-def test_lm_path_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        DeviceBeamDecoder(DEFAULT_LABELS, lm_path="lm.arpa")
-    cfg = LMConfig(decoder_type=DecoderType.beam, lm_path="lm.arpa")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        load_decoder(DEFAULT_LABELS, cfg)
-    dec = load_decoder(DEFAULT_LABELS, LMConfig(decoder_type=DecoderType.beam, beam_width=7),
-                       want_offsets=True)
-    assert (dec.beam_width, dec.ctc_offsets) == (7, True)
 
 
 def test_fused_route_needs_cuda_tensors(monkeypatch, rng):

@@ -23,7 +23,10 @@ launch a call), run at the flagship's width where f32 rows stream from L2,
 at a unit edge inside the last CTA, at B = 1, 20 and 64, at T = 0 and 1,
 and with one direction under a suffix mask with a zero-length row; their
 kernels are checked to spill nothing under their plans, and K1 to run
-beside K2 on a second stream.
+beside K2 on a second stream. The LM-fused beam scan selecting with K6 is
+held bit for bit against the same scan with the plain top-k, the device
+LM's scores on the card against the CPU's, and an LM decode makes T + 1 K6
+launches and no K7 launch even under DSJAX_FUSED_BEAM=1.
 """
 
 import numpy as np
@@ -474,6 +477,101 @@ def test_cuda_decode_without_the_library_raises(full_fp32, monkeypatch):
         monkeypatch.setenv("DSJAX_FUSED_BEAM", fused)
         with pytest.raises(RuntimeError, match="nvcc"):
             dec.decode(lp.exp(), sizes)
+
+
+@pytest.fixture(scope="module")
+def letter_lm(tmp_path_factory):
+    """A 3-gram over A-Z (tests/synthetic_lm.py: every word of 1-3 letters,
+    20k bigrams and 20k trigrams) as ARPA text."""
+    from tests.synthetic_lm import letter_trigram, write_arpa
+
+    path = tmp_path_factory.mktemp("lm") / "letters.arpa"
+    return write_arpa(path, letter_trigram(seed=3, n_words=0, n_bi=20000, n_tri=20000))
+
+
+def bits_equal(a, b):
+    """Equal tensors, floats bit for bit (signed zeros told apart)."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,t,w,top_n,alpha,beta", [(20, 60, 10, 10 ** 9, 0.8, 0.3),
+                                                    (6, 40, 32, 10 ** 9, 2.0, -1.0),
+                                                    (6, 40, 1, 10 ** 9, 0.8, 0.3),
+                                                    (8, 30, 16, 10, 0.8, 0.3)])
+def test_lm_scan_k6_matches_plain_top_k(full_fp32, letter_lm, b, t, w, top_n, alpha, beta):
+    """The LM-fused scan selecting with K6 (T launches) against the same
+    scan on the card with the plain top-k: every output and the whole
+    carry, the LM hashes included, bit for bit."""
+    from dsjax_torch.decode.beam_device import _beam_scan
+    from dsjax_torch.decode.lm_device import DeviceNgramLM
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.ops import topk
+
+    packed = DeviceNgramLM(letter_lm, DEFAULT_LABELS).device("cuda")
+    lp, sizes = beam_problem(b, t, len(DEFAULT_LABELS), seed=t + w)
+    kw = dict(cutoff_top_n=top_n, lm=packed, alpha=alpha, beta=beta, space=28)
+    before = topk.LAUNCHES
+    got = _beam_scan(lp, sizes, w, 0, **kw)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + t
+    want = _beam_scan(lp, sizes, w, 0, top_k=topk.topk_reference, **kw)
+    flat = lambda r: (r[0], r[1], *r[2], r[3], *r[4][0], *r[4][1])
+    for i, (g, x) in enumerate(zip(flat(got), flat(want))):
+        assert bits_equal(g, x), f"output {i}"
+
+
+def test_score_word_ln_on_the_card_matches_the_cpu(full_fp32, letter_lm):
+    """score_word_ln on 4096 sampled words and 2-word contexts: the card's
+    scores, pairs and backoff carries equal the CPU's bit for bit."""
+    from dsjax_torch.decode import lm_device
+    from dsjax_torch.labels import DEFAULT_LABELS
+
+    lm = lm_device.DeviceNgramLM(letter_lm, DEFAULT_LABELS)
+    rng = np.random.default_rng(5)
+    n = 4096
+    letters = rng.integers(2, 28, size=(3 * n, 4))
+    lens = rng.integers(1, 5, size=3 * n)
+    hashes = np.array([lm_device._word_hash(row[:k].tolist()) for row, k in zip(letters, lens)],
+                      np.int64).reshape(3, n, 2)
+    ctx = np.stack([hashes[1], hashes[2]], axis=1)                  # (n, 2, 2)
+    ctx[: n // 4, 0] = int(lm_device.CTX_ABSENT)                    # shorter histories
+    outs = []
+    for device in ("cpu", "cuda"):
+        packed = lm.device(device)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        outs.append([o.cpu() for o in lm_device.score_word_ln(
+            packed, t(hashes[0, :, 0]), t(hashes[0, :, 1]), t(ctx))])
+    for g, x in zip(*outs):
+        assert bits_equal(g, x)
+
+
+def test_lm_decode_launches_k6_and_never_k7(full_fp32, letter_lm, monkeypatch):
+    """An LM decode on the card: T + 1 K6 launches (a frame, then the
+    ranking), one backtrack, and no K7 even under DSJAX_FUSED_BEAM=1; the
+    CPU decode's strings and offsets."""
+    from dsjax_torch.decode.beam_device import DeviceBeamDecoder
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.ops import beam, topk
+
+    lp, sizes = beam_problem(6, 40, len(DEFAULT_LABELS), seed=8)
+    probs = lp.exp()
+    dec = DeviceBeamDecoder(DEFAULT_LABELS, beam_width=10, lm_path=letter_lm, alpha=0.8,
+                            beta=0.3)
+    want = dec.decode(probs.cpu(), sizes.cpu(), n_best=3, with_scores=True)
+    for fused in ("0", "1"):
+        monkeypatch.setenv("DSJAX_FUSED_BEAM", fused)
+        before = (topk.LAUNCHES, beam.LAUNCHES, beam.BACKTRACK_LAUNCHES)
+        got = dec.decode(probs, sizes, n_best=3, with_scores=True)
+        torch.cuda.synchronize()
+        assert (topk.LAUNCHES - before[0], beam.LAUNCHES - before[1],
+                beam.BACKTRACK_LAUNCHES - before[2]) == (lp.shape[1] + 1, 0, 1)
+        assert got[0] == want[0]
+        for a, b in zip(got[1], want[1]):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        np.testing.assert_allclose(got[2], want[2], atol=1e-5, rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

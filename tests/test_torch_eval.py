@@ -146,3 +146,34 @@ def test_evaluate_and_transcribe_clis(corpus):
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout)
     assert result["_meta"]["decoder"]["type"] == "greedy" and len(result["output"]) == 1
+
+
+@pytest.mark.parametrize("device_beam", ["true", "false"])
+def test_evaluate_with_lm_matches_dsjax(corpus, device_beam, tmp_path):
+    """evaluate with a word 2-gram over the corpus's vocabulary, fused into
+    the device beam (lm.device_beam=true) or on the host beam: the same
+    Ref/Hyp lines and WER/CER as dsjax's; transcribe with the LM too."""
+    from tests.synthetic_manifest import WORDS
+    from tests.synthetic_lm import write_arpa
+
+    path, manifest, root = corpus
+    rng = np.random.default_rng(8)
+    uni = {(w,): (round(float(-rng.uniform(1, 2)), 4), -0.3) for w in WORDS}
+    uni[("<unk>",)] = (-3.0, 0.0)
+    bi = {(a, b): (round(float(-rng.uniform(0.2, 1)), 4), -0.1)
+          for a, b in rng.choice(WORDS, size=(60, 2))}
+    lm = write_arpa(tmp_path / "words.arpa", [uni, bi])
+    lm_args = ["lm.decoder_type=beam", "lm.beam_width=8", f"lm.lm_path={lm}", "lm.alpha=1.5",
+               "lm.beta=0.5", f"lm.device_beam={device_beam}", "lm.lm_workers=2"]
+    argv = [f"model.model_path={path}", f"test_path={manifest}", "batch_size=4",
+            "num_workers=1"] + lm_args
+    got, got_out = run(evaluate, config.compose(config.EvalConfig, argv + ["device=cpu"]))
+    want, want_out = run(jax_evaluate, jax_config.compose(jax_config.EvalConfig, argv))
+    assert len(pairs(got_out)) == 2 * len(SECONDS)
+    assert pairs(got_out) == pairs(want_out)
+    assert got == want
+    argv = [f"model.model_path={path}", f"audio_path={os.path.join(root, 'wav', 'test_3.wav')}",
+            "lm.top_paths=2"] + lm_args
+    got, _ = run(transcribe, config.compose(config.TranscribeConfig, argv + ["device=cpu"]))
+    want, _ = run(jax_transcribe, jax_config.compose(jax_config.TranscribeConfig, argv))
+    assert got == want

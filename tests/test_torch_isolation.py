@@ -21,7 +21,10 @@ IMPORTS = ("dsjax_torch", "dsjax_torch.server", "dsjax_torch.inference",
            "dsjax_torch.data.sampler", "dsjax_torch.data.manifest", "dsjax_torch.ops.topk",
            "dsjax_torch.ops.beam", "dsjax_torch.decode.beam_device", "dsjax_torch.evaluate",
            "dsjax_torch.transcribe", "dsjax_torch.ops.gru", "dsjax_torch.ops.mm_chain",
-           "dsjax_torch.audio.native")
+           "dsjax_torch.audio.native", "dsjax_torch.decode.lm", "dsjax_torch.decode.beam",
+           "dsjax_torch.decode.lm_device", "dsjax_torch.decode.native_beam",
+           "dsjax_torch.search_lm_params", "dsjax_torch.select_lm_params",
+           "dsjax_torch.build_lm_binary")
 
 
 def _imports(path):
@@ -49,6 +52,7 @@ def _imports(path):
      os.path.join(ROOT, "tools", "torch_lstm_microbench.py"),
      os.path.join(ROOT, "tools", "torch_kernel_probe.py"),
      os.path.join(ROOT, "tests", "synthetic_manifest.py"),
+     os.path.join(ROOT, "tests", "synthetic_lm.py"),
      os.path.join(ROOT, "tests", "golden_gru.py")]
     + glob.glob(os.path.join(ROOT, "dsjax_torch", "**", "*.py"), recursive=True)),
     ids=lambda p: os.path.relpath(p, ROOT))

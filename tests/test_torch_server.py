@@ -323,3 +323,78 @@ def test_gru_server_transcribe_stream_and_mp3_match_dsjax(gru_servers):
     r = conn.getresponse()
     assert r.status == 200
     assert json.loads(r.read()) == jax_transcribe(jax_worker, [decode_bytes(blob)[0]])[0]
+
+
+@pytest.fixture(scope="module", params=["device LM beam", "host LM beam"])
+def lm_servers(request, tmp_path_factory):
+    """The same weights served with a 3-gram LM (tests/test_torch_lm.py's
+    seeded LM over A, B and C, and every 1-3 letter word of A-E) by the port
+    over HTTP and by dsjax's BatchWorker: lm.device_beam=true gives the
+    device beam with the LM fused, false the host beam."""
+    from dsjax.decode.beam import BeamCTCDecoder as JaxBeamCTCDecoder
+    from dsjax.decode.beam_device import DeviceBeamDecoder as JaxBeamDecoder
+    from dsjax_torch.decode.beam import BeamCTCDecoder
+    from dsjax_torch.decode.beam_device import DeviceBeamDecoder
+    from tests.synthetic_lm import seeded_trigram, write_arpa
+
+    tmp = tmp_path_factory.mktemp("lmserve")
+    ngrams = seeded_trigram(n_words=300, n_bi=1000, n_tri=1000)
+    for a in "ABCDE":
+        for w in (a, a + a, a + "B" + a):
+            ngrams[0].setdefault((w,), (-2.5, -0.2))
+    lm_path = write_arpa(tmp / "lm.arpa", ngrams)
+    state = reference_state(seed=21, hidden=32, layers=2, fc_scale=4.0)
+    path = str(tmp / "model.ckpt")
+    model_cfg, _ = convert.infer_architecture(state)
+    convert.save_checkpoint(path, convert.from_reference_state_dict(state), model_cfg,
+                            config.SpectConfig(), DEFAULT_LABELS)
+    device_beam = request.param == "device LM beam"
+    lm = dict(lm_path=lm_path, alpha=0.8, beta=0.3, beam_width=6)
+    cfg = config.compose(config.ServerConfig, [
+        f"model.model_path={path}", "host=127.0.0.1", "port=0", "device=cpu",
+        "lm.decoder_type=beam", f"lm.device_beam={str(device_beam).lower()}", "lm.lm_workers=2"]
+        + [f"lm.{k}={v}" for k, v in lm.items()])
+    for k, v in SETTINGS.items():
+        setattr(cfg, k, v)
+    httpd, worker = serve(cfg)
+    if device_beam:
+        assert isinstance(worker.decoder, DeviceBeamDecoder) and worker.decoder._lm is not None
+        jax_decoder = JaxBeamDecoder(DEFAULT_LABELS, **lm)
+    else:
+        assert isinstance(worker.decoder, BeamCTCDecoder) and worker.decoder.lm is not None
+        jax_decoder = JaxBeamCTCDecoder(DEFAULT_LABELS, num_processes=2, **lm)
+    jax_worker = JaxBatchWorker(jax_load_model(path), jax_decoder,
+                                jax_config.ServerConfig(**SETTINGS))
+    yield httpd.server_address[1], worker, jax_worker
+    shutdown(httpd, worker)
+    jax_worker._long_pool.shutdown(wait=True)
+
+
+def test_lm_transcribe_and_stream_match_dsjax(lm_servers):
+    """/transcribe with the LM, on either route, gives dsjax's transcripts.
+    A /stream session gives dsjax's: the device beam carries the LM word
+    state from chunk to chunk; the host beam, which cannot stream,
+    collapses greedily, reading its labels from its label map."""
+    port, worker, jax_worker = lm_servers
+    ys = [audio(60 + i, s) for i, s in enumerate([0.45, 0.7, 1.0])]
+    results = [None] * len(ys)
+
+    def client(i):
+        results[i] = post(port, "/transcribe", ys[i])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(ys))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert [status for status, _ in results] == [200] * len(ys), results
+    assert [got for _, got in results] == jax_transcribe(jax_worker, ys)
+
+    chunks = [audio(70 + i, 0.4) for i in range(3)]
+    got = [post(port, f"/stream?session=lm&final={int(i == 2)}", y)
+           for i, y in enumerate(chunks)]
+    assert [status for status, _ in got] == [200] * 3, got
+    assert [g for _, g in got] == [jax_worker.stream_chunk("lm", y, final=i == 2)
+                                   for i, y in enumerate(chunks)]
+    assert got[-1][1]["transcription"]
