@@ -122,6 +122,27 @@ Phases, each printing what it measured; any failure exits non-zero:
               (greedy) against the direct chunked forward; then
               ``python -m dsjax_torch.search_lm_params`` on a 2 x 2 grid
               with the device beam and ``select_lm_params`` on its JSON.
+ 22. augmented training  BASELINE.json config #4 (5 x GRU-1024 + Lookahead 20):
+              the device SpecAugment masks on the card at (B, F, T) =
+              (64, 161, 1024) bit for bit against the CPU's from the same
+              uniforms, the same for the same (seed, step) and others for the
+              next step; ``workflows.train`` in bf16 at B=64 for one epoch
+              of 2 steps on 10.23 s utterances with tempo/gain, noise
+              (4 seeded noise WAVs at 8 and 16 kHz, shorter and longer than
+              an utterance, noise_prob 1) and host SpecAugment (host
+              features forced), then the same with the masks in the step
+              (raw audio, spec_augment_device) under trainer.profile
+              (steps 0 and 1: a Chrome trace of 2 annotated steps); exact
+              K4-with-residuals, K5 and K4 counts (one direction a launch)
+              and finite losses on both routes; then each of the three
+              kernels at every (D, T, B) the two runs gave it (B=64, T
+              after tempo), on seeded inputs with the run's own masks,
+              against its plain version; the step median of each
+              route, each step alone on a ready batch, the host work of one
+              batch of 64 items by part (tempo, noise, STFT, host
+              SpecAugment; serially through ``__getitem__``) and its ratio
+              to the step, each loader thread's wall and CPU ms an item in
+              the run; the phase's wall seconds.
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
 f32, and for K2, K3, K4 with residuals and K5 in bf16 as well; torch.topk;
@@ -2117,6 +2138,334 @@ def phase_lm(torch, np, state, model_cfg, gpu_name):
     return {"formats": formats, "scan": scan, "evaluation": runs}
 
 
+AUG_UTTS, AUG_VAL_UTTS = 2 * TRAIN_B, 16       # one epoch of 2 steps, one validation forward
+AUG_MASKS = (TRAIN_B, 161, 1024)                # (B, F, T) of a training batch's features
+# (sample rate, seconds) of the noise WAVs: shorter and longer than an utterance
+AUG_NOISE = ((8000, 3.0), (16000, 6.5), (16000, 14.0), (8000, 21.0))
+AUG_STEP_REPS = 3
+
+
+@contextlib.contextmanager
+def timed_parts(ds, totals):
+    """Add each augmentation part's seconds, as ``ds.__getitem__`` calls it,
+    to totals: tempo/gain, noise, STFT and host SpecAugment."""
+    from dsjax_torch.audio import augment
+
+    def timer(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    saved = augment.random_tempo_gain, augment.spec_augment, ds.augment.noise, ds.extractor
+    augment.random_tempo_gain = timer("tempo", saved[0])
+    augment.spec_augment = timer("spec_augment", saved[1])
+    ds.augment.noise, ds.extractor = timer("noise", saved[2]), timer("stft", saved[3])
+    try:
+        yield
+    finally:
+        augment.random_tempo_gain, augment.spec_augment = saved[:2]
+        ds.augment.noise, ds.extractor = saved[2:]
+
+
+def host_batch(pipe, totals):
+    """TRAIN_B items of pipe's dataset loaded serially through __getitem__
+    (parts timed into totals), collated as the pipeline collates them."""
+    ds = pipe.dataset
+    items = []
+    with timed_parts(ds, totals):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        for i in range(TRAIN_B):
+            items.append(ds[i])
+        totals["item"] = time.perf_counter() - t0
+        totals["item_cpu"] = time.thread_time() - c0
+    return pipe._collate(items, TRAIN_B)
+
+
+@contextlib.contextmanager
+def path_scans(seen):
+    """Record in seen, for each GRU kernel the enclosed path launches on the
+    card (K4, K4 with residuals, K5), each distinct (directions, T, B, H,
+    dtype, reverse) it ran at, with the first such call's mask."""
+    from dsjax_torch.ops import gru
+
+    saved = gru.gru_scan_fwd, gru.gru_scan_bwd
+
+    def keep(name, x, gates, mask, reverse):
+        if x.is_cuda:
+            key = (*x.shape[:3], x.shape[3] // gates, x.dtype, tuple(reverse))
+            seen.setdefault(name, {}).setdefault(key, mask.clone())
+
+    def fwd(xp, mask, w_hh, b_hh, h0, reverse, save_residuals=False):
+        keep("gru_fwd_residuals" if save_residuals else "gru_fwd", xp, 3, mask, reverse)
+        return saved[0](xp, mask, w_hh, b_hh, h0, reverse, save_residuals=save_residuals)
+
+    def bwd(g_seq, mask, w_hh, h_prev, dy, dh_t, reverse):
+        keep("gru_bwd", g_seq, 4, mask, reverse)
+        return saved[1](g_seq, mask, w_hh, h_prev, dy, dh_t, reverse)
+
+    gru.gru_scan_fwd, gru.gru_scan_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        gru.gru_scan_fwd, gru.gru_scan_bwd = saved
+
+
+def hold_path_scans(torch, np, seen):
+    """Each GRU kernel at every shape seen on the path (path_scans), on
+    seeded inputs at phases 14's and 15's scales with the path's own masks,
+    against its plain version; returns {kernel: (max_abs_err, shapes)}."""
+    from dsjax_torch.ops import gru
+    from dsjax_torch.ops.lstm import _carried_h_prev
+
+    rng = np.random.default_rng(23)
+    result = {}
+    for name, calls in seen.items():
+        err, shapes = 0.0, []
+        for (n_dir, n_t, n_b, n_h, dtype, reverse), mask in calls.items():
+            dname = str(dtype).split(".")[1]
+
+            def dev(*shape, scale):
+                return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+                    np.float32)).to(mask.device, dtype)
+
+            xp, w, b = (dev(n_dir, n_t, n_b, 3 * n_h, scale=0.3),
+                        dev(n_dir, 3 * n_h, n_h, scale=0.03), dev(n_dir, 3 * n_h, scale=0.1))
+            h0 = dev(n_dir, n_b, n_h, scale=0.1)
+            args = (xp, mask, w, b, h0, reverse)
+            what = f"{name} {dname} on the path's (D, T, B, H) = ({n_dir}, {n_t}, {n_b}, {n_h})"
+            if name == "gru_fwd":
+                out, ref, tol = gru.gru_scan(*args), gru.gru_scan_reference(*args), TOLERANCE
+            elif name == "gru_fwd_residuals":
+                out = gru.gru_scan_fwd(*args, save_residuals=True)
+                ref, tol = gru.gru_scan_reference(*args, save_residuals=True), TOLERANCE
+            else:
+                y, _, g_seq = gru.gru_scan_reference(*args, save_residuals=True)
+                bwd_args = (g_seq, mask, w, _carried_h_prev(y, mask, h0, reverse),
+                            dev(n_dir, n_t, n_b, n_h, scale=1.0), dev(n_dir, n_b, n_h, scale=1.0),
+                            reverse)
+                out = gru.gru_scan_bwd(*bwd_args)
+                ref, tol = gru.gru_scan_backward_reference(*bwd_args), BWD_TOLERANCE
+            torch.cuda.synchronize()
+            err = max(err, check_all(torch, out, ref, tol[dname], what))
+            shapes.append((n_dir, n_t, n_b, n_h, dname))
+        result[name] = (err, sorted(shapes))
+    return result
+
+
+@contextlib.contextmanager
+def loader_items(records):
+    """Append (thread, wall s, that thread's CPU s) to records for each
+    augmented item the enclosed run loads through
+    SpectrogramDataset.__getitem__."""
+    from dsjax_torch.data.dataset import SpectrogramDataset
+
+    saved = SpectrogramDataset.__getitem__
+
+    def timed(self, index):
+        if self.augment is None:
+            return saved(self, index)
+        w0, c0 = time.perf_counter(), time.thread_time()
+        out = saved(self, index)
+        records.append((threading.get_ident(), time.perf_counter() - w0,
+                        time.thread_time() - c0))
+        return out
+
+    SpectrogramDataset.__getitem__ = timed
+    try:
+        yield
+    finally:
+        SpectrogramDataset.__getitem__ = saved
+
+
+def step_alone_ms(torch, trainer, state, batch):
+    """Median wall ms of trainer.train_step on a loaded batch (its copy to
+    the card included), each ended by a synchronize, after one warm-up."""
+    times = []
+    for _ in range(AUG_STEP_REPS + 1):
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        check(bool(torch.isfinite(loss)), f"step alone: loss {float(loss)}")
+    return statistics.median(times[1:])
+
+
+def phase_augmented_training(torch, np, gpu_name, card):
+    """22: BASELINE.json config #4 with augmentation (the masks on the card, then
+    workflows.train on the host route and on the device route under
+    trainer.profile, then its GRU kernels at the shapes those runs gave
+    them); returns ({route: {kernel: launches}}, hold_path_scans' result)."""
+    import warnings
+
+    from dsjax_torch.audio import augment
+    from dsjax_torch.audio.io import save_wav
+    from dsjax_torch.config import TrainConfig, compose
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.train.loop import Trainer
+    from dsjax_torch.workflows import _pipelines, train
+    from tests.synthetic_manifest import write_manifest
+
+    t_phase = time.perf_counter()
+    # (a) the masks on the card against the CPU's from the same uniforms
+    b, f_dim, t_dim = AUG_MASKS
+    rng = np.random.default_rng(22)
+    spec = torch.from_numpy(rng.standard_normal(AUG_MASKS).astype(np.float32))
+    valid = torch.from_numpy(np.concatenate([[t_dim, 1, 69, 2], rng.integers(
+        1, t_dim + 1, b - 4)]).astype(np.int32))
+    spec_d, valid_d = spec.cuda(), valid.cuda()
+    draws = augment.device_mask_draws(b, 1, 1, augment.step_generator(7, 0, "cuda"), "cuda")
+    check(all(d.is_cuda and d.dtype == torch.float32 for d in draws), "draws off the card")
+    got = augment.device_masks(spec_d, valid_d, *draws)
+    want = augment.device_masks(spec, valid, *(d.cpu() for d in draws))
+    check(bits_equal(torch, got.cpu(), want), "device masks: the card's differ from the CPU's")
+    zeroed = int((want == 0).sum())
+    check(zeroed > 0, "device masks masked nothing")
+    again = augment.spec_augment_device(spec_d, valid_d, augment.step_generator(7, 0, "cuda"))
+    later = augment.spec_augment_device(spec_d, valid_d, augment.step_generator(7, 1, "cuda"))
+    check(bits_equal(torch, again, got), "the same (seed, step) gave other masks")
+    check(not torch.equal(later, got), "the next step gave the same masks")
+    mask_ms = cuda_time(lambda: augment.spec_augment_device(
+        spec_d, valid_d, augment.step_generator(7, 0, "cuda")), 20)
+    print(f"augmentation masks on {gpu_name} ({card}): (B, F, T) = {AUG_MASKS}, ragged valid "
+          f"frames: bit for bit equal to the CPU's from the same uniforms ({zeroed} of "
+          f"{spec.numel()} values zeroed); same (seed, step) equal, the next step differs; "
+          f"spec_augment_device {mask_ms!r} ms a batch (seeding and draws included)")
+
+    labels = list(DEFAULT_LABELS)
+    runs, seen = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_path = write_manifest(tmp, "train", [TRAIN_SECONDS] * AUG_UTTS, seed=40)
+        val_path = write_manifest(tmp, "val", list(rng.uniform(3.0, TRAIN_SECONDS,
+                                                               AUG_VAL_UTTS)), seed=41)
+        noise_dir = os.path.join(tmp, "noise")
+        os.makedirs(noise_dir)
+        for i, (sr, seconds) in enumerate(AUG_NOISE):
+            save_wav(os.path.join(noise_dir, f"noise_{i}.wav"),
+                     (0.2 * rng.standard_normal(int(sr * seconds))).astype(np.float32), sr)
+        data_s = time.perf_counter() - t0
+        base = [f"data.train_path={train_path}", f"data.val_path={val_path}",
+                "model=unidirectional", "model.rnn_type=gru", "trainer.precision=16",
+                f"data.batch_size={TRAIN_B}", "data.num_workers=4", "trainer.device=cuda",
+                "trainer.devices=1", "trainer.max_epochs=1", "trainer.log_every_n_steps=1",
+                "trainer.enable_checkpointing=false",
+                f"checkpoint.dirpath={os.path.join(tmp, 'ckpt')}",
+                "data.augmentation.speed_volume_perturb=true",
+                f"data.augmentation.noise_dir={noise_dir}", "data.augmentation.noise_prob=1.0",
+                "data.augmentation.spec_augment=true"]
+        profiles = os.path.join(tmp, "profiles")
+        routes = {"host": [], "device": [
+            "data.device_features=true", "data.augmentation.spec_augment_device=true",
+            "trainer.profile=true", "trainer.profile_start_step=0",
+            "trainer.profile_num_steps=1", f"trainer.profile_dir={profiles}"]}
+        for route, extra in routes.items():
+            log_dir = os.path.join(tmp, f"logs_{route}")
+            cfg = compose(TrainConfig, base + extra + [f"trainer.log_dir={log_dir}"])
+            train_pipe = _pipelines(cfg, labels)[0]
+            check(train_pipe.dataset.device_features == (route == "device"),
+                  f"{route} route: device_features {train_pipe.dataset.device_features}")
+            items = []
+            reset_counts()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught, path_scans(seen), \
+                    loader_items(items):
+                warnings.simplefilter("always")
+                state = train(cfg)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = read_counts()
+            warned = any("time warp" in str(w.message) for w in caught)
+            check(warned == (route == "device"), f"{route} route: time warp warning {warned}")
+            layers = cfg.model.hidden_layers
+            steps, val_forwards = -(-AUG_UTTS // TRAIN_B), -(-AUG_VAL_UTTS // TRAIN_B)
+            launches = {k: counts[k] for k in ("gru_fwd", "gru_fwd_residuals", "gru_bwd")}
+            check(state.step == steps, f"{route} route: {state.step} steps, expected {steps}")
+            check(not state.model.bidirectional and all(
+                len(m.reverse) == 1 for m in state.model.modules() if hasattr(m, "reverse")),
+                f"{route} route: a layer runs two directions")
+            check(launches == {"gru_fwd": layers * val_forwards,
+                               "gru_fwd_residuals": layers * steps, "gru_bwd": layers * steps}
+                  and sum(counts.values()) == sum(launches.values()) + counts["gru_steps"],
+                  f"{route} route: launches {counts} for {steps} steps and {val_forwards} "
+                  f"validation forwards of {layers} one-direction GRU layers")
+            records = [json.loads(line) for line in open(os.path.join(log_dir, "metrics.jsonl"))]
+            losses = [r["loss"] for r in records if "loss" in r]
+            check(len(losses) == steps and all(np.isfinite(losses)), f"{route}: losses {losses}")
+            # seconds from the loop's start to each step's end (StepTimer's
+            # utt/s over all steps so far): the first waits for the loader
+            loop_s = [(k + 1) * TRAIN_B / r["utt_per_sec"]
+                      for k, r in enumerate(r for r in records if "loss" in r)]
+            step_ms = [1e3 * (b2["time"] - a2["time"]) for a2, b2 in zip(records, records[1:])
+                       if "loss" in a2 and "loss" in b2]
+            trace = None
+            if route == "device":
+                names = os.listdir(profiles)
+                check(len(names) == 1, f"device route: trace files {names}")
+                trace = os.path.join(profiles, names[0])
+                with open(trace) as f:
+                    events = json.load(f)["traceEvents"]
+                spans = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+                               and e["name"].startswith("train_step"))
+                check(spans == ["train_step 0", "train_step 1"], f"trace spans {spans}")
+                trace = (names[0], os.path.getsize(trace), spans,
+                         sum(e.get("cat") == "kernel" for e in events))
+            parts = {}
+            batch = host_batch(train_pipe, parts)
+            check((batch.inputs is None) == (route == "device"), f"{route}: batch kind")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # the time warp warning, checked above
+                trainer = Trainer(cfg, labels)
+            alone = step_alone_ms(torch, trainer, state, batch)
+            check(len(items) == AUG_UTTS, f"{route}: {len(items)} augmented items loaded")
+            runs[route] = {"launches": launches, "losses": losses, "step_ms": step_ms,
+                           "loop_s": loop_s, "items": items,
+                           "alone_ms": alone, "parts": parts, "train_s": train_s,
+                           "trace": trace}
+
+    held = hold_path_scans(torch, np, seen)
+    check(sorted(held) == ["gru_bwd", "gru_fwd", "gru_fwd_residuals"],
+          f"the augmented path ran GRU kernels {sorted(held)}")
+    for name, (err, shapes) in sorted(held.items()):
+        print(f"kernel {name} at the augmented path's shapes (D, T, B, H, dtype) {shapes}, seeded "
+              f"inputs, the path's masks: max_abs_err {err!r} against its plain version")
+    model = (f"{cfg.model.hidden_layers}x GRU-{cfg.model.hidden_size} + Lookahead "
+             f"{cfg.model.lookahead_context}, bf16")
+    for route, r in runs.items():
+        parts = r["parts"]
+        item_ms = 1e3 * parts["item"]
+        split = ", ".join(f"{k} {1e3 * v!r} ms" for k, v in parts.items()
+                          if k not in ("item", "item_cpu"))
+        rest = item_ms - 1e3 * sum(v for k, v in parts.items() if k not in ("item", "item_cpu"))
+        per_thread = {}
+        for thread, wall, cpu in r["items"]:
+            per_thread.setdefault(thread, []).append((wall, cpu))
+        loader = "; ".join(
+            f"{len(v)} items, wall {1e3 * statistics.mean(w for w, _ in v)!r} ms and CPU "
+            f"{1e3 * statistics.mean(c for _, c in v)!r} ms an item"
+            for v in per_thread.values())
+        print(f"augmented training, {route} route on {gpu_name} ({card}): {model}, "
+              f"B={TRAIN_B} x {TRAIN_SECONDS} s before tempo, "
+              f"{len(r['losses'])} steps: step median {statistics.median(r['step_ms'])!r} ms "
+              f"of {r['step_ms']} (between loss syncs, loader waits included"
+              f"{', under the profiler' if r['trace'] else ''}); the loop's start to each "
+              f"step's end {r['loop_s']} s, {r['loop_s'][-1] / len(r['loop_s'])!r} s a step "
+              f"over the loop; the step alone on a loaded "
+              f"batch {r['alone_ms']!r} ms (median of {AUG_STEP_REPS}); losses {r['losses']}; "
+              f"launches {r['launches']}; run {r['train_s']!r} s; host work of one batch of "
+              f"{TRAIN_B} items, serially through __getitem__: {item_ms!r} ms ({split}, "
+              f"loading and the rest {rest!r} ms; the thread's CPU "
+              f"{1e3 * parts['item_cpu']!r} ms), {item_ms / r['alone_ms']!r} x the step alone; "
+              f"the run's loader threads, each item through __getitem__: {loader}"
+              + (f"; trace {r['trace'][0]} ({r['trace'][1]} bytes, spans {r['trace'][2]}, "
+                 f"{r['trace'][3]} kernel events)" if r["trace"] else ""))
+    print(f"phase 22: corpus and noise written in {data_s!r} s; phase wall "
+          f"{time.perf_counter() - t_phase!r} s")
+    return {route: r["launches"] for route, r in runs.items()}, held
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -2186,6 +2535,8 @@ def run(torch, np):
     print("LM phase: PyTorch defaults")
     lm = phase_lm(torch, np, state, model_cfg, gpu_name)
     del state
+    print("augmented training phase: PyTorch defaults")
+    aug_launches, aug_held = phase_augmented_training(torch, np, gpu_name, card)
 
     def row(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2213,6 +2564,14 @@ def run(torch, np):
                 "with_forward_library_ms": f32["with_forward_library_ms"],
                 "bf16_with_forward_ms": bf16["with_forward_ms"],
                 "bf16_with_forward_library_ms": bf16["with_forward_library_ms"]}
+
+    def augmented(name):
+        # phase 22: config #4's counts on each augmentation route, and the
+        # kernel held against its plain version at that path's shapes
+        return {"launches_in_augmented_training": {route: counts[name] for route, counts
+                                                   in aug_launches.items()},
+                "augmented_training_max_abs_err": aug_held[name][0],
+                "augmented_training_shapes": aug_held[name][1]}
 
     def attributes(key, res):
         # a training scan's step kernel as built: registers, shared memory
@@ -2260,6 +2619,7 @@ def run(torch, np):
                     gru_serving["gru_fwd"], gru_kernel["float32"],
                     steps=gru_serving["gru_steps"],
                     launches_in_training=gru_train_launches["gru_fwd"],
+                    **augmented("gru_fwd"),
                     **bf16_extra(gru_kernel["bfloat16"]),
                     **persistent_extra(gru_kernel["float32"], gru_kernel["bfloat16"])))
     for key, name, source, replaces in (
@@ -2268,6 +2628,7 @@ def run(torch, np):
             ("bwd", "gru_bwd", "dsjax_torch/csrc/gru_bwd.cu", "dsjax/ops/gru_pallas.py:161")):
         rows.append(row(name, source, replaces,
                         gru_train_launches[name], gru_train_kernels[(key, "float32")],
+                        **augmented(name),
                         **bf16_extra(gru_train_kernels[(key, "bfloat16")]),
                         **pair_extra(key, gru_train_kernels[(key, "float32")],
                                      gru_train_kernels[(key, "bfloat16")]),

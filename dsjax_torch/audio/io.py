@@ -1,7 +1,8 @@
-"""Audio I/O: WAV read/write, mono downmix, resampling.
+"""Audio I/O: WAV read/write, mono downmix, resampling, trim, tempo, gain.
 
 Copy of the host half of dsjax/audio/io.py (numpy/scipy; held against it
-by tests/test_torch_frontend.py). FLAC and compressed formats decode through
+by tests/test_torch_frontend.py, and trim, apply_gain and stretch_tempo by
+tests/test_torch_augment.py). FLAC and compressed formats decode through
 the port's native host library (``dsjax_torch.audio.native``, copies of
 dsjax's C++ decoders), built at the first such file.
 """
@@ -124,6 +125,71 @@ def resample(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     g = math.gcd(int(orig_sr), int(target_sr))
     up, down = target_sr // g, orig_sr // g
     return sps.resample_poly(y, up, down).astype(np.float32)
+
+
+def trim(y: np.ndarray, sample_rate: int, start_s: float, end_s: float) -> np.ndarray:
+    """Crop [start_s, end_s) seconds (sox `trim` equivalent,
+    reference: data_loader.py:363-374)."""
+    i0 = max(0, int(round(start_s * sample_rate)))
+    i1 = min(len(y), int(round(end_s * sample_rate)))
+    return y[i0:i1]
+
+
+def apply_gain(y: np.ndarray, gain_db: float) -> np.ndarray:
+    """sox `gain` equivalent: scale by 10^(dB/20)."""
+    return (y * (10.0 ** (gain_db / 20.0))).astype(np.float32)
+
+
+def stretch_tempo(y: np.ndarray, sample_rate: int, tempo: float) -> np.ndarray:
+    """Time-stretch preserving pitch (sox `tempo` / WSOLA equivalent).
+
+    Output length ~= len(y)/tempo. Used by speed perturbation
+    (reference: data_loader.py:377-404).
+    """
+    if abs(tempo - 1.0) < 1e-6 or len(y) == 0:
+        return y.astype(np.float32)
+    win = int(0.025 * sample_rate)          # 25 ms analysis window
+    win -= win % 2
+    hop_out = win // 2                      # 50% overlap synthesis hop
+    hop_in = int(round(hop_out * tempo))
+    seek = int(0.005 * sample_rate)         # +-5 ms WSOLA seek window
+    n_out_frames = max(1, (int(len(y) / tempo) - win) // hop_out + 1)
+    window = np.hanning(win).astype(np.float32)
+    out = np.zeros(n_out_frames * hop_out + win, dtype=np.float32)
+    norm = np.zeros_like(out)
+    pos_in = 0.0
+    prev_tail: Optional[np.ndarray] = None
+    for i in range(n_out_frames):
+        center = int(pos_in)
+        if prev_tail is not None and seek > 0:
+            lo = max(0, center - seek)
+            hi = min(len(y) - win, center + seek)
+            if hi > lo:
+                best, best_corr = center, -np.inf
+                for cand in range(lo, hi + 1, max(1, seek // 8)):
+                    seg = y[cand:cand + hop_out]
+                    if len(seg) < hop_out:
+                        break
+                    c = float(np.dot(seg, prev_tail))
+                    if c > best_corr:
+                        best_corr, best = c, cand
+                center = best
+        frame = y[center:center + win]
+        if len(frame) < win:
+            frame = np.pad(frame, (0, win - len(frame)))
+        wf = frame * window
+        out[i * hop_out:i * hop_out + win] += wf
+        norm[i * hop_out:i * hop_out + win] += window
+        prev_tail = y[center + hop_out:center + hop_out + hop_out]
+        if len(prev_tail) < hop_out:
+            prev_tail = np.pad(prev_tail, (0, hop_out - len(prev_tail)))
+        pos_in += hop_in
+        if pos_in >= len(y):
+            out = out[: i * hop_out + win]
+            norm = norm[: i * hop_out + win]
+            break
+    norm = np.where(norm > 1e-6, norm, 1.0)
+    return (out / norm).astype(np.float32)
 
 
 def duration(path: str) -> float:

@@ -11,11 +11,12 @@ loader/data_loader.py:189-279), in two modes:
     only loads and reflect-pads the waveform and ships it as int16 PCM;
     ``collate_audio`` pads it to a bucketed frame count and the STFT runs
     on the device (``audio.features.spectrogram_torch``).
-Held against dsjax's pipeline by tests/test_torch_data.py and
-tests/test_torch_frontend.py.
-
-Not ported yet (ROADMAP.md, Queue 1 item 5): augmentation (tempo/gain,
-noise, SpecAugment). Asking for it raises.
+With ``aug_cfg`` the training set augments as dsjax's does: tempo/gain
+and noise on the waveform before the STFT or the device padding, host
+SpecAugment on the host spectrogram (which therefore forces host features,
+unless ``spec_augment_device`` moves the masks into the step).
+Held against dsjax's pipeline by tests/test_torch_data.py,
+tests/test_torch_frontend.py and tests/test_torch_augment.py.
 """
 
 from __future__ import annotations
@@ -25,24 +26,12 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from dsjax_torch.audio.augment import AugmentPipeline
 from dsjax_torch.audio.features import FeatureExtractor, num_frames, pad_audio_for_device
 from dsjax_torch.audio.io import load_audio, read_wav
 from dsjax_torch.config import AugmentationConfig, SpectConfig
 from dsjax_torch.data.manifest import parse_input
 from dsjax_torch.labels import LabelMap
-
-def check_augmentation(aug: Optional[AugmentationConfig]) -> None:
-    """Raise for any augmentation the port does not carry yet."""
-    if aug is None:
-        return
-    asked = [name for name, on in (("speed_volume_perturb", aug.speed_volume_perturb),
-                                   ("spec_augment", aug.spec_augment),
-                                   ("spec_augment_device", aug.spec_augment_device),
-                                   ("noise_dir", bool(aug.noise_dir))) if on]
-    if asked:
-        raise NotImplementedError(
-            f"data.augmentation.{', '.join(asked)}: augmentation is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 5)")
 
 
 @dataclasses.dataclass
@@ -148,19 +137,25 @@ class SpectrogramDataset:
     on the host. device_features=True: ``__getitem__`` -> (audio (L_pad,),
     n_frames, ids), the reflect-padded waveform as int16 PCM when
     ``audio_int16`` (exact for 16-bit sources), and the STFT and
-    normalization run on the device.
+    normalization run on the device. Host SpecAugment needs the
+    spectrogram, so enabling it forces host features.
     """
 
     def __init__(self, spect_cfg: SpectConfig, input_path: str,
                  labels: Sequence[str], normalize: bool = True,
                  aug_cfg: Optional[AugmentationConfig] = None,
-                 device_features: bool = False, audio_int16: bool = True):
-        check_augmentation(aug_cfg)
+                 seed: int = 0, device_features: bool = False,
+                 audio_int16: bool = True):
         self.ids = parse_input(input_path)
         self.label_map = LabelMap(labels)
         self.spect_cfg = spect_cfg
         self.extractor = FeatureExtractor(spect_cfg, normalize=normalize)
-        self.device_features = device_features
+        self.augment = AugmentPipeline(aug_cfg, spect_cfg, seed=seed) if aug_cfg else None
+        # host SpecAugment needs the spectrogram; its on-device variant
+        # (spec_augment_device) keeps the raw-audio path
+        self.device_features = device_features and not (
+            aug_cfg is not None and aug_cfg.spec_augment
+            and not aug_cfg.spec_augment_device)
         self.audio_int16 = audio_int16
 
     def __len__(self) -> int:
@@ -169,18 +164,27 @@ class SpectrogramDataset:
     def __getitem__(self, index: int):
         wav_path, transcript_path = self.ids[index]
         y = load_audio(str(wav_path), self.spect_cfg.sample_rate)
+        if self.augment is not None:
+            y = self.augment.apply_waveform(y)
         transcript = self.parse_transcript(str(transcript_path))
         if self.device_features:
             yp, n_frames = pad_audio_for_device(y, self.spect_cfg)
             if self.audio_int16:
-                # without augmentation the signal stays within full scale;
-                # the peak rescale is dsjax's, for mixes that exceed it
+                # tempo/gain augmentation saturates at full scale upstream
+                # (reference sox -b 16 parity, audio/augment.py); a noise
+                # mix can still exceed it (the reference keeps those
+                # float) — peak-rescale rather than hard-clip, a constant
+                # gain the per-utterance feature normalization mostly
+                # absorbs, vs. clipping's harmonic distortion
                 peak = float(np.max(np.abs(yp), initial=0.0))
                 if peak > 1.0:
                     yp = yp / peak
                 yp = np.clip(np.rint(yp * 32768.0), -32768, 32767).astype(np.int16)
             return yp, n_frames, transcript
-        return self.extractor(y), transcript
+        spect = self.extractor(y)
+        if self.augment is not None:
+            spect = self.augment.apply_spectrogram(spect)
+        return spect, transcript
 
     def parse_transcript(self, transcript_path: str) -> List[int]:
         with open(transcript_path, "r", encoding="utf8") as f:

@@ -6,19 +6,22 @@ dsjax/train/logging.py.
     TensorBoardLogger in the reference (configs/lightning_config.py:28-51).
   * TFEventWriter: a minimal tfevents scalar writer (no tensorflow import).
   * StepTimer: per-step wall timing with utterances per second.
-
-dsjax's ``profile_steps`` (a jax.profiler trace, ``trainer.profile``) is not
-ported yet: the trainer refuses ``trainer.profile=true``.
+  * profile_steps: a torch.profiler trace of the enclosed steps, written as
+    one Chrome trace file (``trainer.profile``; dsjax writes an XProf trace
+    with jax.profiler).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import socket
 import struct
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
+
+import torch
 
 # ---------------------------------------------------------------------------
 # Minimal tfevents writer (TFRecord framing + hand-encoded Event protos).
@@ -131,6 +134,22 @@ class MetricsLogger:
     def close(self) -> None:
         self._fh.close()
         self._tb.close()
+
+
+@contextlib.contextmanager
+def profile_steps(log_dir: str) -> Iterator[None]:
+    """Trace the enclosed steps with torch.profiler (the host and, where a
+    card is present, its kernels) and write one Chrome trace,
+    ``log_dir/<host>.<pid>.<ns>.pt.trace.json``, when the block ends."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"{socket.gethostname()}.{os.getpid()}."
+                                 f"{time.time_ns()}.pt.trace.json")
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(path)
 
 
 class StepTimer:

@@ -9,29 +9,36 @@ Validation runs the eval forward (K1), greedy decoding and WER/CER. With
 ``data.device_features=true`` (dsjax's default) a batch arrives as int16 raw
 audio and the spectrogram is computed on the device at the top of the step
 (``audio.features.spectrogram_torch``), as dsjax's ``Trainer._features``
-does inside its compiled step.
+does inside its compiled step; with ``data.augmentation.spec_augment`` and
+``spec_augment_device`` the step then masks it (``audio.augment``, draws
+from a generator on the device seeded by (seed, global step)).
+``trainer.profile`` traces a window of steps with ``torch.profiler``
+(``train.logging.profile_steps``).
 
 The state lives in a ``TrainState`` that the methods update in place and
 return, so calls read like dsjax's functional ones: ``state, loss =
 trainer.train_step(state, batch)``.
 
-Settings the port does not carry raise instead of being ignored:
-augmentation, more than one device or process, ``trainer.profile``,
-and the fields that select or tune JAX (``refuse_unported``).
+Settings the port does not carry raise instead of being ignored: more
+than one device or process, and the fields that select or tune JAX
+(``refuse_unported``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
+import warnings
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from dsjax_torch.audio.augment import spec_augment_device, step_generator
 from dsjax_torch.audio.features import spectrogram_torch
 from dsjax_torch.config import TrainConfig, TrainerConfig
-from dsjax_torch.data.dataset import Batch, check_augmentation
+from dsjax_torch.data.dataset import Batch
 from dsjax_torch.data.loader import DevicePrefetcher, Staged, stage
 from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.inference import resolve_device
@@ -51,7 +58,6 @@ _JAX_ONLY = ("platform", "num_cpu_devices", "mesh_data", "mesh_model", "mesh_dcn
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise for every setting the port's training slice does not carry, so
     none is silently ignored."""
-    check_augmentation(cfg.data.augmentation)
     tr, default = cfg.trainer, TrainerConfig()
     for name in _JAX_ONLY:
         if getattr(tr, name) != getattr(default, name):
@@ -66,10 +72,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
         raise NotImplementedError(f"trainer.devices=-1 asks for all "
                                   f"{torch.cuda.device_count()} cards, {multi}: set "
                                   f"trainer.devices=1")
-    if tr.profile:
-        raise NotImplementedError("trainer.profile (a device trace of a few steps) is not "
-                                  "ported yet (ROADMAP.md, Queue 1 item 7): see "
-                                  "tools/torch_profile_train.py")
     if tr.deterministic or cfg.checkpoint.filename:
         raise ValueError("trainer.deterministic and checkpoint.filename are read neither "
                          "by dsjax nor by the port: leave them at their defaults")
@@ -92,6 +94,16 @@ class Trainer:
         self.dtype = torch.bfloat16 if cfg.trainer.precision == 16 else torch.float32
         if cfg.trainer.detect_anomaly:
             torch.autograd.set_detect_anomaly(True)
+        aug = cfg.data.augmentation
+        if aug.spec_augment and aug.spec_augment_device:
+            # close the silent-narrowing trap: the device variant applies
+            # freq/time masks only (audio/augment.py spec_augment_device)
+            warnings.warn(
+                "spec_augment_device=true runs SpecAugment's frequency/time "
+                "masks inside the training step but SKIPS the sparse-image-"
+                "warp time warp (host-only). Set spec_augment_device=false "
+                "(with device_features=false) to keep the full augmentation.",
+                stacklevel=2)
         self.decoder = GreedyDecoder(labels)
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
@@ -129,6 +141,15 @@ class Trainer:
             return spectrogram_torch(x, input_lengths, self.cfg.data.spect, normalize=True)
         return x
 
+    def _device_augment(self, feats: Tensor, input_lengths: Tensor, step: int) -> Tensor:
+        """On-device SpecAugment masks (AugmentationConfig.spec_augment_device),
+        drawn from a generator on the device seeded by (seed, global step)."""
+        aug = self.cfg.data.augmentation
+        if not (aug.spec_augment and aug.spec_augment_device):
+            return feats
+        return spec_augment_device(feats, input_lengths,
+                                   step_generator(self.cfg.seed, step, feats.device))
+
     def _backward(self, state: TrainState, batch: Batch,
                   staged: Optional[Staged] = None) -> Tensor:
         """Forward, loss and backward on one batch; gradients accumulate in
@@ -136,7 +157,10 @@ class Trainer:
         staged = staged if staged is not None else self.put_batch(batch)
         x, input_lengths, targets, target_lengths, valid = staged.wait(self.device)
         state.model.train()
-        out, out_lens, _ = state.model(self._features(x, input_lengths), input_lengths)
+        feats = self._features(x, input_lengths)
+        if x.dim() == 2:  # raw-audio mode: augment on the device, keyed by the step
+            feats = self._device_augment(feats, input_lengths, state.step)
+        out, out_lens, _ = state.model(feats, input_lengths)
         logp = torch.log_softmax(out.float(), dim=-1)
         nll = ctc_loss(logp, out_lens, targets, target_lengths, reduction="none",
                        zero_infinity=True)
@@ -234,103 +258,122 @@ class Trainer:
             state: Optional[TrainState] = None,
             log_fn: Callable[[str], None] = print,
             metrics_logger=None) -> TrainState:
-        from dsjax_torch.train.logging import StepTimer
+        from dsjax_torch.train.logging import StepTimer, profile_steps
 
-        cfg = self.cfg
         state = state if state is not None else self.init_state()
+        cfg, tr = self.cfg, self.cfg.trainer
         start_epoch = state.epoch
         n_val = _limit(len(val_pipeline), cfg.trainer.limit_val_batches)
         timer = StepTimer()
-        for epoch in range(start_epoch, cfg.trainer.max_epochs):
-            train_pipeline.sampler.set_epoch(epoch)
-            # recompute per epoch: after a mid-epoch auto-resume the first
-            # epoch is shorter (sampler.start_index > 0) but later epochs,
-            # whose start_index resets to 0, must run full length
-            n_train = _limit(len(train_pipeline), cfg.trainer.limit_train_batches)
-            state.epoch = epoch
-            t0 = time.time()
-            losses = []
-            timer.start()
-            accum = max(1, cfg.trainer.accumulate_grad_batches)
-            micro: List[Batch] = []
-            micro_batches = 0
-            # copy batches to the device ahead of the step
-            use_dp = cfg.data.device_prefetch > 0 and accum == 1
-            if use_dp:
-                import itertools
-
-                # bound the SOURCE so the producer never copies batches
-                # past the n_train limit
-                train_iter = DevicePrefetcher(
-                    itertools.islice(iter(train_pipeline), n_train),
-                    self.put_batch, depth=cfg.data.device_prefetch)
-            else:
-                train_iter = train_pipeline
-            for i, item in enumerate(train_iter):
-                batch, staged = item if use_dp else (item, None)
-                if i >= n_train:
-                    break
-                # ragged_split pipelines yield each batch as a list of
-                # length-quantile sub-batches -> one summed-grad step
-                subs = batch if isinstance(batch, list) else [batch]
-                if accum > 1:
-                    micro.extend(subs)
-                    micro_batches += 1
-                    if micro_batches < accum and i + 1 < n_train:
-                        continue
-                    # scale by REAL batches accumulated, not sub-batches:
-                    # ragged_split partitions one sum-reduced loss
-                    state, loss = self.train_step_accum(state, micro, n_accum=micro_batches)
-                    micro = []
-                    micro_batches = 0
-                elif len(subs) > 1:
-                    state, loss = self.train_step_accum(state, subs, n_accum=1)
-                else:
-                    state, loss = self.train_step(state, batch, staged=staged)
-                losses.append(loss)
-                # mid-epoch validation (Lightning val_check_interval parity)
-                vci = cfg.trainer.val_check_interval
-                if 0 < vci < 1.0:
-                    every_val = max(1, int(n_train * vci))
-                    if (i + 1) % every_val == 0 and (i + 1) < n_train:
-                        wer_i, cer_i = self.validate(state, val_pipeline, max_batches=n_val)
-                        log_fn(f"epoch {epoch} step {i + 1}: wer {wer_i:.2f} cer {cer_i:.2f}")
-                        if metrics_logger is not None:
-                            metrics_logger.log(state.step, wer=wer_i, cer=cer_i, epoch=epoch)
-                # mid-epoch checkpointing with the sampler position, for a
-                # mid-epoch resume (reference: samplers' start_index)
-                every = cfg.checkpoint.every_n_steps
-                if (checkpoint_handler is not None and every > 0
-                        and (i + 1) % every == 0 and (i + 1) < n_train):
-                    checkpoint_handler.save(
-                        state, {"loss": float(loss)},
-                        extra={"start_index": train_pipeline.sampler.start_index + i + 1,
-                               "epoch": epoch},
-                        last_only=True)
-                if (i + 1) % max(1, cfg.trainer.log_every_n_steps) == 0:
-                    loss_val = float(loss)  # device sync only when logging
-                    timer.tick(sum(b.size for b in subs)
-                               * max(1, cfg.trainer.log_every_n_steps))
-                    log_fn(f"epoch {epoch} step {i + 1}/{n_train} "
-                           f"loss {loss_val:.3f} "
-                           f"({timer.utterances_per_sec:.1f} utt/s)")
-                    if metrics_logger is not None:
-                        metrics_logger.log(state.step, loss=loss_val,
-                                           utt_per_sec=timer.utterances_per_sec, epoch=epoch)
-            train_time = time.time() - t0
-            mean_loss = float(np.mean([float(l) for l in losses])) if losses else 0.0
-            wer, cer = self.validate(state, val_pipeline, max_batches=n_val)
-            log_fn(f"epoch {epoch}: loss {mean_loss:.3f} "
-                   f"wer {wer:.2f} cer {cer:.2f} ({train_time:.1f}s)")
-            if metrics_logger is not None:
-                metrics_logger.log(state.step, wer=wer, cer=cer, mean_loss=mean_loss,
-                                   epoch=epoch)
-            if checkpoint_handler is not None and cfg.trainer.enable_checkpointing:
-                # saved with epoch + 1, so a resume continues at the NEXT epoch
-                state.epoch = epoch + 1
-                checkpoint_handler.save(
-                    state, {"wer": wer, "cer": cer, "loss": mean_loss, "epoch": epoch})
+        tracing = False
+        # trainer.profile's window, closed at its last step or when fit ends
+        with contextlib.ExitStack() as trace:
+            for epoch in range(start_epoch, cfg.trainer.max_epochs):
+                train_pipeline.sampler.set_epoch(epoch)
+                # recompute per epoch: after a mid-epoch auto-resume the first
+                # epoch is shorter (sampler.start_index > 0) but later epochs,
+                # whose start_index resets to 0, must run full length
+                n_train = _limit(len(train_pipeline), cfg.trainer.limit_train_batches)
                 state.epoch = epoch
-            # sampler start_index reset after completing an epoch
-            train_pipeline.sampler.start_index = 0
+                t0 = time.time()
+                losses = []
+                timer.start()
+                accum = max(1, cfg.trainer.accumulate_grad_batches)
+                micro: List[Batch] = []
+                micro_batches = 0
+                # copy batches to the device ahead of the step
+                use_dp = cfg.data.device_prefetch > 0 and accum == 1
+                if use_dp:
+                    import itertools
+
+                    # bound the SOURCE so the producer never copies batches
+                    # past the n_train limit
+                    train_iter = DevicePrefetcher(
+                        itertools.islice(iter(train_pipeline), n_train),
+                        self.put_batch, depth=cfg.data.device_prefetch)
+                else:
+                    train_iter = train_pipeline
+                for i, item in enumerate(train_iter):
+                    batch, staged = item if use_dp else (item, None)
+                    if i >= n_train:
+                        break
+                    # trainer.profile traces the optimizer steps whose pre-step
+                    # counts run from profile_start_step to profile_start_step +
+                    # profile_num_steps, as dsjax's fit does
+                    pre_step = state.step
+                    if tr.profile and not tracing and pre_step == tr.profile_start_step:
+                        trace.enter_context(profile_steps(tr.profile_dir))
+                        tracing = True
+                    # ragged_split pipelines yield each batch as a list of
+                    # length-quantile sub-batches -> one summed-grad step
+                    subs = batch if isinstance(batch, list) else [batch]
+                    if accum > 1:
+                        micro.extend(subs)
+                        micro_batches += 1
+                        if micro_batches < accum and i + 1 < n_train:
+                            continue
+                    with (torch.profiler.record_function(f"train_step {pre_step}") if tracing
+                          else contextlib.nullcontext()):
+                        if accum > 1:
+                            # scale by REAL batches accumulated, not sub-batches:
+                            # ragged_split partitions one sum-reduced loss
+                            state, loss = self.train_step_accum(state, micro,
+                                                                n_accum=micro_batches)
+                            micro = []
+                            micro_batches = 0
+                        elif len(subs) > 1:
+                            state, loss = self.train_step_accum(state, subs, n_accum=1)
+                        else:
+                            state, loss = self.train_step(state, batch, staged=staged)
+                    if tracing and pre_step == tr.profile_start_step + tr.profile_num_steps:
+                        if self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                        trace.close()
+                        tracing = False
+                    losses.append(loss)
+                    # mid-epoch validation (Lightning val_check_interval parity)
+                    vci = cfg.trainer.val_check_interval
+                    if 0 < vci < 1.0:
+                        every_val = max(1, int(n_train * vci))
+                        if (i + 1) % every_val == 0 and (i + 1) < n_train:
+                            wer_i, cer_i = self.validate(state, val_pipeline, max_batches=n_val)
+                            log_fn(f"epoch {epoch} step {i + 1}: wer {wer_i:.2f} cer {cer_i:.2f}")
+                            if metrics_logger is not None:
+                                metrics_logger.log(state.step, wer=wer_i, cer=cer_i, epoch=epoch)
+                    # mid-epoch checkpointing with the sampler position, for a
+                    # mid-epoch resume (reference: samplers' start_index)
+                    every = cfg.checkpoint.every_n_steps
+                    if (checkpoint_handler is not None and every > 0
+                            and (i + 1) % every == 0 and (i + 1) < n_train):
+                        checkpoint_handler.save(
+                            state, {"loss": float(loss)},
+                            extra={"start_index": train_pipeline.sampler.start_index + i + 1,
+                                   "epoch": epoch},
+                            last_only=True)
+                    if (i + 1) % max(1, cfg.trainer.log_every_n_steps) == 0:
+                        loss_val = float(loss)  # device sync only when logging
+                        timer.tick(sum(b.size for b in subs)
+                                   * max(1, cfg.trainer.log_every_n_steps))
+                        log_fn(f"epoch {epoch} step {i + 1}/{n_train} "
+                               f"loss {loss_val:.3f} "
+                               f"({timer.utterances_per_sec:.1f} utt/s)")
+                        if metrics_logger is not None:
+                            metrics_logger.log(state.step, loss=loss_val,
+                                               utt_per_sec=timer.utterances_per_sec, epoch=epoch)
+                train_time = time.time() - t0
+                mean_loss = float(np.mean([float(l) for l in losses])) if losses else 0.0
+                wer, cer = self.validate(state, val_pipeline, max_batches=n_val)
+                log_fn(f"epoch {epoch}: loss {mean_loss:.3f} "
+                       f"wer {wer:.2f} cer {cer:.2f} ({train_time:.1f}s)")
+                if metrics_logger is not None:
+                    metrics_logger.log(state.step, wer=wer, cer=cer, mean_loss=mean_loss,
+                                       epoch=epoch)
+                if checkpoint_handler is not None and cfg.trainer.enable_checkpointing:
+                    # saved with epoch + 1, so a resume continues at the NEXT epoch
+                    state.epoch = epoch + 1
+                    checkpoint_handler.save(
+                        state, {"wer": wer, "cer": cer, "loss": mean_loss, "epoch": epoch})
+                    state.epoch = epoch
+                # sampler start_index reset after completing an epoch
+                train_pipeline.sampler.start_index = 0
         return state

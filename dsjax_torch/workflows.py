@@ -37,7 +37,7 @@ from dsjax_torch.train.state import TrainState
 def _pipelines(cfg: TrainConfig, labels: List[str]) -> Tuple[DataPipeline, DataPipeline]:
     train_ds = SpectrogramDataset(cfg.data.spect, cfg.data.train_path, labels,
                                   normalize=True, aug_cfg=cfg.data.augmentation,
-                                  device_features=cfg.data.device_features)
+                                  seed=cfg.seed, device_features=cfg.data.device_features)
     val_ds = SpectrogramDataset(cfg.data.spect, cfg.data.val_path, labels,
                                 normalize=True, device_features=cfg.data.device_features)
     train_sampler = BucketBatchSampler(len(train_ds), cfg.data.batch_size, seed=cfg.seed)

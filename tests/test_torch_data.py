@@ -236,11 +236,7 @@ def test_checkpoint_handler_keeps_best_k_and_last(tmp_path):
 
 
 @pytest.mark.parametrize("override, exc", [
-    ("data.augmentation.spec_augment=true", NotImplementedError),
-    ("data.augmentation.speed_volume_perturb=true", NotImplementedError),
-    ("data.augmentation.noise_dir=/noise", NotImplementedError),
     ("trainer.devices=2", NotImplementedError),
-    ("trainer.profile=true", NotImplementedError),
     ("trainer.mesh_data=1", ValueError),
     ("trainer.platform=cpu", ValueError),
     ("trainer.matmul_precision=float32", ValueError),
@@ -255,6 +251,40 @@ def test_unported_settings_raise(override, exc):
     cfg = config.compose(config.TrainConfig, base + [override])
     with pytest.raises(exc):
         Trainer(cfg, list(DEFAULT_LABELS)).init_state()
+
+
+@pytest.mark.parametrize("overrides", [
+    ["data.augmentation.spec_augment=true"],
+    ["data.augmentation.speed_volume_perturb=true"],
+    ["data.augmentation.noise_dir={noise}", "data.augmentation.noise_prob=1.0"],
+    ["trainer.profile=true"],
+    ["data.device_features=true", "data.augmentation.spec_augment=true",
+     "data.augmentation.spec_augment_device=true"],
+], ids=["spec_augment", "speed_volume_perturb", "noise_dir", "profile", "spec_augment_device"])
+def test_ported_settings_build(tmp_path, overrides):
+    """The settings the port once refused build a Trainer on the CPU and
+    take a training step (trainer.profile writes its trace, the rest none)."""
+    from dsjax_torch import workflows
+    from dsjax_torch.audio.io import save_wav
+    from dsjax_torch.train.loop import Trainer
+
+    noise = tmp_path / "noise"
+    noise.mkdir()
+    save_wav(str(noise / "n.wav"), np.random.default_rng(0).standard_normal(4000) * 0.2, 16000)
+    train = write_manifest(str(tmp_path), "train", [0.6, 0.5], seed=2)
+    profiles = tmp_path / "profiles"
+    base = [f"data.train_path={train}", f"data.val_path={train}", "data.batch_size=2",
+            "data.num_workers=1", "trainer.device=cpu", "data.device_features=false",
+            "model.hidden_size=16", "model.hidden_layers=1", "trainer.precision=32",
+            "trainer.max_epochs=1", "trainer.profile_start_step=0",
+            "trainer.profile_num_steps=0", f"trainer.profile_dir={profiles}"]
+    cfg = config.compose(config.TrainConfig,
+                         base + [o.format(noise=noise) for o in overrides])
+    trainer = Trainer(cfg, list(DEFAULT_LABELS))
+    state = trainer.fit(*workflows._pipelines(cfg, list(DEFAULT_LABELS)), log_fn=lambda _: None)
+    assert state.step == 1
+    traces = os.listdir(profiles) if profiles.exists() else []
+    assert len(traces) == (overrides == ["trainer.profile=true"])
 
 
 def test_cuda_trainer_without_a_card_raises(monkeypatch):

@@ -24,7 +24,8 @@ IMPORTS = ("dsjax_torch", "dsjax_torch.server", "dsjax_torch.inference",
            "dsjax_torch.audio.native", "dsjax_torch.decode.lm", "dsjax_torch.decode.beam",
            "dsjax_torch.decode.lm_device", "dsjax_torch.decode.native_beam",
            "dsjax_torch.search_lm_params", "dsjax_torch.select_lm_params",
-           "dsjax_torch.build_lm_binary")
+           "dsjax_torch.build_lm_binary", "dsjax_torch.audio.augment",
+           "dsjax_torch.noise_inject")
 
 
 def _imports(path):

@@ -23,8 +23,11 @@
     step is about lr * sign(g), which magnifies noise in near-zero
     gradients).
   * ``python -m dsjax_torch.train`` end to end on the CPU.
+  * ``trainer.profile``: the trace of dsjax's window of steps, one span a
+    step, closed when fit returns inside the window; nothing when off.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -347,3 +350,43 @@ def test_gru_training_saves_what_the_server_loads_and_refuses_other_models(tmp_p
         other_cfg = config.compose(config.TrainConfig, base + other)
         with pytest.raises(ValueError, match="does not match"):
             restore_from_path(path, Trainer(other_cfg, list(DEFAULT_LABELS)).init_state())
+
+
+def annotated_steps(trace_path):
+    """The names of the train_step spans (record_function) of a Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted(e["name"] for e in events
+                  if e.get("cat") == "user_annotation" and e["name"].startswith("train_step"))
+
+
+@pytest.mark.parametrize("profile, start, num, want", [
+    ("true", 1, 1, ["train_step 1", "train_step 2"]),
+    ("false", 1, 1, None),
+    ("true", 1, 10, ["train_step 1", "train_step 2"]),    # the window outlasts the run
+], ids=["window", "off", "past_the_end"])
+def test_fit_profile_writes_a_trace_of_the_window(tmp_path, profile, start, num, want):
+    """trainer.profile traces the steps whose pre-step counts run from
+    profile_start_step to profile_start_step + profile_num_steps, as
+    dsjax's fit does, into one Chrome trace under profile_dir with a span a
+    step; a window the run ends inside is closed when fit returns."""
+    from dsjax_torch import workflows
+    from dsjax_torch.train.loop import Trainer
+
+    train = write_manifest(str(tmp_path), "train", [0.6, 0.5, 0.7, 0.4, 0.5, 0.6], seed=6)
+    profiles = tmp_path / "profiles"
+    cfg = config.compose(config.TrainConfig, [
+        f"data.train_path={train}", f"data.val_path={train}", "data.batch_size=2",
+        "data.num_workers=1", "model.hidden_size=16", "model.hidden_layers=1",
+        "trainer.precision=32", "trainer.device=cpu", "trainer.max_epochs=1",
+        f"trainer.profile={profile}", f"trainer.profile_start_step={start}",
+        f"trainer.profile_num_steps={num}", f"trainer.profile_dir={profiles}"])
+    trainer = Trainer(cfg, list(DEFAULT_LABELS))
+    state = trainer.fit(*workflows._pipelines(cfg, list(DEFAULT_LABELS)), log_fn=lambda _: None)
+    assert state.step == 3
+    if want is None:
+        assert not profiles.exists()
+        return
+    traces = os.listdir(profiles)
+    assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+    assert annotated_steps(profiles / traces[0]) == want
