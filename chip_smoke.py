@@ -143,6 +143,22 @@ Phases, each printing what it measured; any failure exits non-zero:
               SpecAugment; serially through ``__getitem__``) and its ratio
               to the step, each loader thread's wall and CPU ms an item in
               the run; the phase's wall seconds.
+ 23. multi-device training  (a) ``workflows.train`` under torchrun's
+              environment for one NCCL rank, in this process: phase 8's
+              flagship, bf16, B=64, one epoch of 3 steps with validation and
+              a checkpoint, between two plain runs of the same batches; the
+              backend, world size and DDP wrapper, exact K2/K3/K1 counts,
+              losses against the plain runs within the spread of the two
+              plain runs, the checkpoint through load_model, the DDP step's
+              ms beside the plain one's (metrics.jsonl medians); (b) ``python
+              -m torch.distributed.run --standalone --nproc_per_node 1 -m
+              dsjax_torch.train`` at phase 9's size trains and writes a
+              checkpoint; (c) two gloo ranks sharing the card
+              (tests/torch_ddp_worker.py; NCCL refuses two ranks on one
+              device) at phase 9's size, B=4 a rank padded to 64 and 48
+              frames, TF32 off, against one process on the union batch:
+              losses, gradients, SGD updates, running stats (equal across the
+              ranks) and the device SpecAugment masks.
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
 f32, and for K2, K3, K4 with residuals and K5 in bf16 as well; torch.topk;
@@ -165,6 +181,7 @@ import http.client
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2466,6 +2483,362 @@ def phase_augmented_training(torch, np, gpu_name, card):
     return {route: r["launches"] for route, r in runs.items()}, held
 
 
+# phase 23: the DDP path. (a) one NCCL rank in this process at phase 8's
+# size; (b) torchrun's entry point at phase 9's; (c) two gloo ranks on the
+# one card at phase 9's, held against the union batch (tests/torch_ddp_worker.py)
+DDP_HIDDEN = 256
+TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT")
+DDP_LOSS_RTOL = 1e-5          # phase 9's loss tolerance (card against CPU)
+DDP_STATS_TOL = (1e-5, 1e-4)  # (atol, rtol) tests/test_torch_train.py's running stats
+# (a): the bf16 step's gradients are not repeatable on the card
+# (F.ctc_loss's CUDA backward accumulates with atomics, and the bf16
+# backward rounds what it is handed), so the DDP run's gradients and losses
+# are held to the plain runs' own spread: every DDP run within GRAD_SPREAD
+# (gradients) or LOSS_SPREAD (the epoch's losses) x the largest distance
+# between two plain runs of its nearest plain run (bit for bit where the
+# plain runs repeat bit for bit). The distances between gradient vectors of
+# millions of entries concentrate; those between two later losses do not,
+# so the losses take more plain runs and a wider factor, lest the check
+# fail by chance
+DDP_GRAD_RUNS, GRAD_SPREAD = 3, 2.0
+DDP_PLAIN_EPOCHS, LOSS_SPREAD = 5, 3.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_environment(**env):
+    """torchrun's variables set in this process for the block, restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def without_torchrun_env():
+    return {k: v for k, v in os.environ.items() if k not in TORCHRUN_ENV}
+
+
+def metrics_steps(np, path):
+    """(losses, step ms between consecutive loss syncs of an epoch) of a
+    metrics.jsonl."""
+    records = [json.loads(line) for line in open(path)]
+    losses = [r["loss"] for r in records if "loss" in r]
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(records, records[1:])
+               if "loss" in a and "loss" in b and a["epoch"] == b["epoch"]]
+    check(len(losses) > 0 and all(np.isfinite(losses)), f"losses {losses} in {path}")
+    return losses, step_ms
+
+
+def phase_ddp_one_rank(torch, np, gpu_name, card, tmp):
+    """23(a): workflows.train under torchrun's environment for one NCCL rank,
+    in this process (so the launch counters see it): the flagship in bf16 at
+    B=64, T=1024, one epoch of 3 steps with validation and a checkpoint,
+    after one plain single-process run of the same batches and before
+    DDP_PLAIN_EPOCHS - 1 more."""
+    from dsjax_torch import workflows
+    from dsjax_torch.config import TrainConfig, compose
+    from dsjax_torch.inference import load_model
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.train.checkpoint import CheckpointHandler
+    from dsjax_torch.train.loop import Trainer
+    from tests.synthetic_manifest import write_manifest
+
+    rng = np.random.default_rng(3)
+    train_path = write_manifest(tmp, "train", [TRAIN_SECONDS] * TRAIN_UTTS, seed=4)
+    val_path = write_manifest(tmp, "val", list(rng.uniform(3.0, TRAIN_SECONDS, VAL_UTTS)),
+                              seed=5)
+    base = [f"data.train_path={train_path}", f"data.val_path={val_path}",
+            "data.device_features=false", f"data.batch_size={TRAIN_B}", "data.num_workers=4",
+            "trainer.precision=16", "trainer.device=cuda", "trainer.devices=1",
+            "trainer.max_epochs=1", "trainer.log_every_n_steps=1"]
+    runs = {}
+
+    def plain(name):
+        log_dir = os.path.join(tmp, f"logs_{name}")
+        workflows.train(compose(TrainConfig, base + [
+            f"trainer.log_dir={log_dir}", "trainer.limit_val_batches=0",
+            "trainer.enable_checkpointing=false",
+            f"checkpoint.dirpath={os.path.join(tmp, 'ckpt_' + name)}"]))
+        torch.cuda.synchronize()
+        runs[name] = metrics_steps(np, os.path.join(log_dir, "metrics.jsonl"))
+
+    seen = {}
+
+    class Recording(Trainer):
+        def fit(self, *args, **kwargs):
+            seen.update(backend=torch.distributed.get_backend(),
+                        world=torch.distributed.get_world_size(), device=str(self.device))
+            state = super().fit(*args, **kwargs)
+            seen.update(wrapper=type(self._ddp).__name__,
+                        wraps_the_state_model=self._ddp.module is state.model)
+            return state
+
+    plain("plain_0")
+    ckpt = os.path.join(tmp, "ckpt_ddp")
+    cfg = compose(TrainConfig, base + [f"trainer.log_dir={os.path.join(tmp, 'logs_ddp')}",
+                                       f"checkpoint.dirpath={ckpt}"])
+    workflows.Trainer = Recording
+    try:
+        with torchrun_environment(WORLD_SIZE=1, RANK=0, LOCAL_RANK=0, LOCAL_WORLD_SIZE=1,
+                                  MASTER_ADDR="127.0.0.1", MASTER_PORT=free_port()):
+            reset_counts()
+            t0 = time.perf_counter()
+            state = workflows.train(cfg)
+            torch.cuda.synchronize()
+            ddp_s = time.perf_counter() - t0
+            counts = read_counts()
+    finally:
+        workflows.Trainer = Trainer
+    check(not torch.distributed.is_initialized(), "workflows.train left its group open")
+    runs["ddp"] = metrics_steps(np, os.path.join(tmp, "logs_ddp", "metrics.jsonl"))
+    for i in range(1, DDP_PLAIN_EPOCHS):
+        plain(f"plain_{i}")
+    check(seen == {"backend": "nccl", "world": 1, "device": "cuda:0",
+                   "wrapper": "DistributedDataParallel", "wraps_the_state_model": True},
+          f"the DDP run: {seen}")
+    layers, steps = cfg.model.hidden_layers, -(-TRAIN_UTTS // TRAIN_B)
+    val_forwards = -(-VAL_UTTS // TRAIN_B)
+    launches = {k: counts[k] for k in ("lstm_fwd", "lstm_fwd_residuals", "lstm_bwd")}
+    # phase 8's counts for one epoch: a launch a layer a step and a layer a
+    # validation forward
+    check(state.step == steps and launches == {
+        "lstm_fwd": layers * val_forwards, "lstm_fwd_residuals": layers * steps,
+        "lstm_bwd": layers * steps}
+        and sum(counts.values()) == sum(launches.values()) + counts["lstm_steps"],
+        f"DDP run: {state.step} steps, launches {counts}")
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    ld, msd = runs.pop("ddp")
+    plain_losses = [l for l, _ in runs.values()]
+    check(all(len(l) == steps for l in plain_losses + [ld]), f"losses {plain_losses} {ld}")
+    # the first step's loss is the forward of the same weights and batch
+    check(all(l[0] == ld[0] for l in plain_losses),
+          f"first-step losses {ld[0]}, {[l[0] for l in plain_losses]}")
+    loss_spread = max(rel(a, b) for i, a in enumerate(plain_losses)
+                      for b in plain_losses[i + 1:])
+    loss_nearest = min(rel(ld, l) for l in plain_losses)
+    check(loss_nearest <= LOSS_SPREAD * loss_spread,
+          f"DDP losses {ld} {loss_nearest} from the nearest plain run's; plain runs "
+          f"{plain_losses} up to {loss_spread} apart")
+    grads = ddp_gradient_spread(torch, cfg, list(DEFAULT_LABELS))
+
+    trainer = Trainer(cfg, list(DEFAULT_LABELS))
+    batch = next(iter(workflows._pipelines(cfg, list(DEFAULT_LABELS))[1]))
+    want, want_lens = trainer.eval_step(state, batch)
+    path = CheckpointHandler(ckpt).path()
+    got, got_lens, _ = load_model(path, precision=16, device="cuda").forward(
+        batch.inputs, batch.input_lengths)
+    torch.cuda.synchronize()
+    check(torch.equal(got_lens, want_lens), "out_lens of the DDP checkpoint differ")
+    load_err = (got - want).abs().max().item()
+    check(load_err <= 1e-6, f"the DDP checkpoint's posteriors differ by {load_err}")
+    plain_ms_runs = [ms for _, ms in runs.values()]
+    ddp_ms, plain_ms = statistics.median(msd), statistics.median(sum(plain_ms_runs, []))
+    print(f"DDP, one NCCL rank on {gpu_name} ({card}): {seen}; 5x BiLSTM-1024 bf16, "
+          f"B={TRAIN_B} x {TRAIN_SECONDS} s, {steps} steps: step median {ddp_ms!r} ms of "
+          f"{msd} against the plain process's {plain_ms!r} ms of {plain_ms_runs} "
+          f"({ddp_ms / plain_ms!r} x; metrics.jsonl, between loss syncs); losses {ld} against "
+          f"{plain_losses}: the first step's bit for bit, then {loss_nearest!r} from the "
+          f"nearest plain run (largest relative step difference; <= {LOSS_SPREAD} x "
+          f"{loss_spread!r}, the plain runs' largest distance; Adam's first step, about "
+          f"lr x sign(g), magnifies the gradients' run-to-run spread); "
+          f"{grads}; launches {launches}; run {ddp_s!r} s; checkpoint loaded with load_model: "
+          f"posteriors max_abs_err {load_err!r} (<= 1e-6)")
+    return launches
+
+
+def ddp_gradient_spread(torch, cfg, labels):
+    """grad_step on the first training batch from the seeded weights,
+    DDP_GRAD_RUNS times in one process and as many as one NCCL rank; every
+    DDP run's gradients within GRAD_SPREAD x the largest distance between two
+    plain runs of the nearest plain run's (relative L2 over all parameters),
+    and every loss bit for bit equal. Returns what it saw."""
+    from dsjax_torch import workflows
+    from dsjax_torch.parallel import distributed
+    from dsjax_torch.train.loop import Trainer
+
+    batch = next(iter(workflows._pipelines(cfg, labels)[0]))
+
+    def run(ddp):
+        env = dict(WORLD_SIZE=1, RANK=0, LOCAL_RANK=0, LOCAL_WORLD_SIZE=1,
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=free_port()) if ddp else {}
+        with torchrun_environment(**env):
+            joined = distributed.initialize("cuda") if ddp else False
+            try:
+                trainer = Trainer(cfg, labels)
+                grads, loss = trainer.grad_step(trainer.init_state(), batch)
+                check(ddp == (trainer._ddp is not None), f"DDP wrapper {trainer._ddp}")
+                flat = torch.cat([g.float().flatten() for g in grads.values()])
+                torch.cuda.synchronize()
+            finally:
+                if joined:
+                    distributed.destroy()
+        return flat, float(loss)
+
+    plain = [run(False) for _ in range(DDP_GRAD_RUNS)]
+    ddp = [run(True) for _ in range(DDP_GRAD_RUNS)]
+
+    def dist(a, b):
+        return float((a[0] - b[0]).norm() / b[0].norm())
+
+    def spread(runs):
+        return max(dist(a, b) for i, a in enumerate(runs) for b in runs[i + 1:])
+
+    within = spread(plain)
+    nearest = [min(dist(d, p) for p in plain) for d in ddp]
+    losses = {r[1] for r in plain + ddp}
+    check(len(losses) == 1, f"grad_step losses {sorted(losses)}")
+    check(max(nearest) <= GRAD_SPREAD * within,
+          f"DDP gradients {nearest} from the nearest plain run's; plain runs up to "
+          f"{within} apart")
+    return (f"gradients of the first batch, {DDP_GRAD_RUNS} plain and {DDP_GRAD_RUNS} DDP "
+            f"runs: plain runs up to {within!r} apart, DDP runs {spread(ddp)!r} "
+            f"(relative L2), each DDP run {nearest} from its nearest plain run (<= "
+            f"{GRAD_SPREAD} x {within!r}); loss {losses.pop()!r} in all")
+
+
+def phase_ddp_torchrun(np, gpu_name, card, tmp):
+    """23(b): ``python -m torch.distributed.run --standalone --nproc_per_node 1
+    -m dsjax_torch.train`` at phase 9's size trains an epoch and writes a
+    checkpoint."""
+    from dsjax_torch.train.checkpoint import CheckpointHandler
+    from tests.synthetic_manifest import write_manifest
+
+    path = write_manifest(tmp, "small", [2.0, 3.1, 2.6, 1.4, 3.5, 2.2, 0.8, 2.9] * 2, seed=6)
+    ckpt = os.path.join(tmp, "ckpt_torchrun")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "dsjax_torch.train", f"data.train_path={path}", f"data.val_path={path}",
+         "data.batch_size=8", "data.device_features=false", f"model.hidden_size={DDP_HIDDEN}",
+         "model.hidden_layers=2", "trainer.precision=32", "trainer.device=cuda",
+         "trainer.max_epochs=1", "trainer.log_every_n_steps=1", f"checkpoint.dirpath={ckpt}",
+         f"trainer.log_dir={os.path.join(tmp, 'logs_torchrun')}"],
+        cwd=ROOT, env=without_torchrun_env(), capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"torchrun: rc {out.returncode}\n{out.stdout[-2000:]}\n"
+                               f"{out.stderr[-4000:]}")
+    ends = re.findall(r"^epoch 0: loss (\S+) wer (\S+) cer (\S+)", out.stdout, re.M)
+    check(len(ends) == 1 and np.isfinite(float(ends[0][0])), f"torchrun output:\n{out.stdout}")
+    handler = CheckpointHandler(ckpt)
+    check(handler.latest_step() == 2, f"torchrun checkpoint at step {handler.latest_step()}")
+    print(f"DDP through torchrun on {gpu_name} ({card}), one rank, H={DDP_HIDDEN} x 2 layers "
+          f"f32, B=8: 2 steps, epoch loss/wer/cer {ends[0]}, checkpoint "
+          f"{os.path.relpath(handler.path(), tmp)}; {wall!r} s with the launcher's start")
+
+
+def phase_ddp_two_ranks(torch, np, gpu_name, card, tmp):
+    """23(c): two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device), each with LOCAL_RANK=0, H=256 x 2 layers f32, B=4 a rank with
+    rank 0's rows padded to 64 frames and rank 1's to 48, TF32 off: against
+    one process on the union batch on the card."""
+    from dsjax_torch.config import TrainConfig, compose
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.train.loop import Trainer
+    from tests import torch_ddp_worker as worker
+
+    argv = worker.cfg_argv(DDP_HIDDEN, "cuda")
+    weights = Trainer(compose(TrainConfig, worker.cfg_argv(DDP_HIDDEN, "cpu")),
+                      list(DEFAULT_LABELS)).init_state(seed=0).model.state_dict()
+    weights_path = os.path.join(tmp, "ddp_weights.pt")
+    torch.save(weights, weights_path)
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(2):
+        env = dict(without_torchrun_env(), WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0",
+                   LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "tests", "torch_ddp_worker.py"),
+             "--weights", weights_path, "--out", os.path.join(tmp, f"rank{r}.pt"),
+             "--device", "cuda", "--backend", "gloo", "--hidden", str(DDP_HIDDEN), "--fp32"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0 and "DONE" in log, f"rank {r}: rc {p.returncode}\n{log[-4000:]}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    ref = worker.reference(argv, weights)
+    errs = {}
+    for out in ranks:
+        check((out["world"], out["backend"], out["device"], out["ddp_wrapped"])
+              == (2, "gloo", "cuda:0", "DistributedDataParallel"), f"rank {out['rank']}: {out}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+            [out["grad"]["loss"]] + out["losses"], [ref["grad"]["loss"]] + ref["losses"]))
+        check(loss_err <= DDP_LOSS_RTOL, f"rank {out['rank']}: losses {out['losses']} against "
+                                         f"{ref['losses']}")
+        # gradients and the SGD steps' updates, each within STEP_TOL x its
+        # largest magnitude (phase 9's, cuDNN's algorithms differ by batch)
+        for what, got, want in (
+                ("gradient", out["grad"]["grads"], ref["grad"]["grads"]),
+                ("update", {k: v - weights[k] for k, v in out["params"].items()},
+                 {k: v - weights[k] for k, v in ref["params"].items()})):
+            for k, w in want.items():
+                e = float((got[k] - w).abs().max() / max(float(w.abs().max()), 1e-30))
+                check(e <= STEP_TOL, f"rank {out['rank']}: {what} {k} {e} x its largest")
+                errs[what] = max(errs.get(what, 0.0), e)
+        for k, w in ref["buffers"].items():
+            check(bool(torch.allclose(out["buffers"][k], w, atol=DDP_STATS_TOL[0],
+                                      rtol=DDP_STATS_TOL[1])), f"running stat {k}")
+            errs["stats"] = max(errs.get("stats", 0.0),
+                                float((out["buffers"][k] - w).abs().max()))
+        check(torch.equal(out["masks"], ref["masks"][out["rank"] * worker.ROWS:
+                                                     (out["rank"] + 1) * worker.ROWS]),
+              "device masks")
+        errs["loss"] = max(errs.get("loss", 0.0), loss_err)
+    check(all(torch.equal(ranks[0]["buffers"][k], ranks[1]["buffers"][k])
+              for k in ranks[0]["buffers"]), "running stats differ across the ranks")
+    print(f"DDP, two gloo ranks sharing {gpu_name} ({card}), H={DDP_HIDDEN} x 2 layers f32, "
+          f"B=4 a rank (64 and 48 frames), TF32 off, against one process on the union batch: "
+          f"losses {ranks[0]['losses']} ({ref['losses']}), max relative {errs['loss']!r} "
+          f"(<= {DDP_LOSS_RTOL}); gradients {errs['gradient']!r} and SGD updates "
+          f"{errs['update']!r} x their largest (<= {STEP_TOL}); running stats max_abs_err "
+          f"{errs['stats']!r} (atol {DDP_STATS_TOL[0]}, rtol {DDP_STATS_TOL[1]}), equal across "
+          f"the ranks; WER/CER {[r['wer_cer'] for r in ranks]} ({ref['wer_cer']}); device "
+          f"SpecAugment masks equal to the union batch's rows; {wall!r} s for both "
+          f"processes (a correctness run, not a scaling number: gloo stages every CUDA "
+          f"collective through the host)")
+
+
+def phase_ddp_training(torch, np, gpu_name, card, full_fp32, defaults_back):
+    """23: the DDP path, (a) and (b) at PyTorch's defaults, (c) with TF32
+    off; returns (a)'s {kernel: launches}."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_ddp_one_rank(torch, np, gpu_name, card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_ddp_torchrun(np, gpu_name, card, tmp)
+        full_fp32()
+        try:
+            phase_ddp_two_ranks(torch, np, gpu_name, card, tmp)
+        finally:
+            defaults_back()
+    print(f"phase 23: wall {time.perf_counter() - t0!r} s")
+    return launches
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -2537,6 +2910,9 @@ def run(torch, np):
     del state
     print("augmented training phase: PyTorch defaults")
     aug_launches, aug_held = phase_augmented_training(torch, np, gpu_name, card)
+    print("multi-device training phase: PyTorch defaults (the two-rank comparison with TF32 "
+          "off)")
+    ddp_launches = phase_ddp_training(torch, np, gpu_name, card, full_fp32, defaults_back)
 
     def row(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2582,6 +2958,7 @@ def run(torch, np):
     rows = [row("lstm_fwd", "dsjax_torch/csrc/lstm_fwd.cu", "dsjax/ops/lstm_pallas.py:62",
                 launches, kernel["float32"], steps=steps,
                 launches_in_training=train_launches["lstm_fwd"],
+                launches_in_ddp_training=ddp_launches["lstm_fwd"],
                 launches_in_evaluation=eval_runs["greedy"]["counts"]["lstm_fwd"],
                 **bf16_extra(kernel["bfloat16"]),
                 **persistent_extra(kernel["float32"], kernel["bfloat16"]))]
@@ -2592,6 +2969,7 @@ def run(torch, np):
              "dsjax/ops/lstm_pallas.py:225")):
         rows.append(row(name, source, replaces, train_launches[name],
                         train_kernels[(key, "float32")],
+                        launches_in_ddp_training=ddp_launches[name],
                         **bf16_extra(train_kernels[(key, "bfloat16")]),
                         **pair_extra(key, train_kernels[(key, "float32")],
                                      train_kernels[(key, "bfloat16")]),

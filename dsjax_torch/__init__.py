@@ -16,7 +16,10 @@ vanilla RNN layers; bidirectional, or unidirectional with Lookahead):
     CTC, the backward through the recurrent layers (the forwards saving
     residuals, ``csrc/lstm_bwd.cu`` and ``csrc/gru_bwd.cu``), AdamW or SGD,
     validation and checkpoints the server loads
-    (``python -m dsjax_torch.train ...``);
+    (``python -m dsjax_torch.train ...``), on one card or data-parallel on
+    several, one process a card under torchrun (``parallel/``:
+    ``python -m torch.distributed.run --nproc_per_node N -m
+    dsjax_torch.train ...``);
   * evaluation and transcription (``python -m dsjax_torch.evaluate ...``,
     ``python -m dsjax_torch.transcribe ...``): WER/CER over a manifest and
     the result JSON of a file, greedy or with the device beam search,

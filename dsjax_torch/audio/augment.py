@@ -223,14 +223,18 @@ def device_masks(spec: Tensor, valid_frames: Tensor, u_fw: Tensor, u_fp: Tensor,
 
 def spec_augment_device(spec: Tensor, valid_frames: Tensor, generator: torch.Generator,
                         freq_mask_param: int = 27, time_mask_param: int = 70,
-                        n_freq_masks: int = 1, n_time_masks: int = 1) -> Tensor:
+                        n_freq_masks: int = 1, n_time_masks: int = 1,
+                        world: int = 1, rank: int = 0) -> Tensor:
     """On-device SpecAugment masks of a (B, F, T) batch, the counterpart of
     dsjax's ``spec_augment_device``: positions from ``generator``. The
     spline time warp is host-only (``time_warp``); this variant applies
     frequency and time masks only, which dominate SpecAugment's effect
-    (Park et al. 2019, Table 8 ablations)."""
-    draws = device_mask_draws(spec.shape[0], n_freq_masks, n_time_masks, generator,
-                              spec.device)
+    (Park et al. 2019, Table 8 ablations). With ``world`` ranks the draws
+    are the global batch's (world x B rows, as dsjax draws them for its
+    sharded batch from one key) and ``spec`` is row block ``rank`` of it."""
+    b = spec.shape[0]
+    draws = device_mask_draws(world * b, n_freq_masks, n_time_masks, generator, spec.device)
+    draws = tuple(d[rank * b:(rank + 1) * b] for d in draws)
     return device_masks(spec, valid_frames, *draws, freq_mask_param=freq_mask_param,
                         time_mask_param=time_mask_param)
 

@@ -8,11 +8,14 @@ on the same command lines (including the group swaps ``optim=sgd`` and
 ``model=unidirectional``). The additions are ``ServerConfig.device`` and
 ``TrainerConfig.device``, the torch device the server or the trainer runs
 the model on. Fields that select or tune JAX itself (``platform``,
-``num_cpu_devices``, the trainer's ``mesh_*``, ``matmul_precision``,
-``donate_state``) are kept so the same command lines parse; the server,
-evaluation and transcription read none of them, and the trainer refuses a
-value other than the default. ``EvalConfig`` and ``TranscribeConfig`` also
-gain ``device``; ``EvalConfig`` drops dsjax's unread ``save_output``.
+``num_cpu_devices``, ``matmul_precision``, ``donate_state``) are kept so
+the same command lines parse; the server, evaluation and transcription
+read none of them, and the trainer refuses a value other than the
+default. Under torchrun ``trainer.devices`` counts a node's processes, one
+a card, and the trainer's ``mesh_*`` must describe the world size
+(``parallel/mesh.py``); tensor parallelism (``mesh_model`` > 1) raises.
+``EvalConfig`` and ``TranscribeConfig`` also gain ``device``;
+``EvalConfig`` drops dsjax's unread ``save_output``.
 
 Override values follow YAML's scalar rules (``8`` is an int, ``true`` a
 bool, ``null`` None), implemented here: PyYAML is imported only to read an
@@ -133,7 +136,9 @@ class TrainerConfig:
     max_epochs: int = 70
     precision: int = 16                 # 16: bfloat16 compute, float32 parameters
     gradient_clip_val: float = 400.0
-    devices: int = -1                   # -1 = all local devices
+    # cards on this node, one process each (torchrun's LOCAL_WORLD_SIZE):
+    # -1 = all; without torchrun -1 or 1
+    devices: int = -1
     limit_train_batches: float = 1.0    # fraction (<=1.0) or count (>1)
     limit_val_batches: float = 1.0
     log_every_n_steps: int = 50
@@ -147,7 +152,9 @@ class TrainerConfig:
     resume_from_checkpoint: str = ""
     deterministic: bool = False
     detect_anomaly: bool = False        # raise at the first NaN/Inf in backward
-    mesh_data: int = -1                 # dsjax's TPU mesh; the port refuses others
+    # dsjax's mesh as checks: mesh_data -1 or world size / mesh_dcn,
+    # mesh_dcn (nodes) dividing the world size, mesh_model 1
+    mesh_data: int = -1
     mesh_model: int = 1
     mesh_dcn: int = 1
     platform: str = ""                  # dsjax's JAX platform
@@ -158,7 +165,8 @@ class TrainerConfig:
     profile_dir: str = "profiles"
     profile_start_step: int = 10
     profile_num_steps: int = 4
-    device: str = "cuda"                # "cpu" only when asked for
+    # "cpu" only when asked for; "cuda" is cuda:LOCAL_RANK under torchrun
+    device: str = "cuda"
 
 
 @dataclass

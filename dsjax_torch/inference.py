@@ -13,7 +13,7 @@ with the LM. The device defaults to ``cuda``; without a CUDA card the caller
 must ask for ``device="cpu"``.
 
 Not ported yet (ROADMAP.md, Queue 1): dsjax checkpoint directories,
-multi-device.
+evaluation sharded across cards.
 """
 
 from __future__ import annotations

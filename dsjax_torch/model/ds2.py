@@ -34,6 +34,7 @@ from torch import nn
 from dsjax_torch.config import BiDirectionalConfig, RNNType, SpectConfig, UniDirectionalConfig
 from dsjax_torch.ops.gru import gru_scan
 from dsjax_torch.ops.lstm import _flip, lstm_scan
+from dsjax_torch.parallel import distributed
 
 Tensor = torch.Tensor
 Carry = Tuple[Tensor, ...]         # LSTM (h, c), GRU and RNN (h,), each (D, B, H)
@@ -62,6 +63,26 @@ def hardtanh_0_20(x: Tensor) -> Tensor:
     return torch.clamp(x, 0.0, 20.0)
 
 
+def global_moments(xf: Tensor, axes: Tuple[int, ...]) -> Tuple[Tensor, Tensor, Tensor]:
+    """(mean, biased variance, N / (N - 1)) of f32 ``xf`` over ``axes`` and
+    every rank of the default group, N the global count.
+
+    One all-reduce of [n_r E_r[x], n_r E_r[x^2], n_r] in f64, divided by
+    the global N, so ranks holding different counts weigh by them and N is
+    exact. At world size 1, n E[x] / n is E[x] exactly in f64, so the
+    moments are the single-process path's bit for bit. The backward
+    all-reduces their gradients (``distributed.all_reduce_sum``)."""
+    f = xf.shape[[a for a in range(xf.dim()) if a not in axes][0]]
+    n = math.prod(xf.shape[a] for a in axes)
+    local = torch.cat([xf.mean(dim=axes).double() * n, (xf * xf).mean(dim=axes).double() * n,
+                       xf.new_full((1,), n, dtype=torch.float64)])
+    total = distributed.all_reduce_sum(local)
+    count = total[2 * f:].detach()
+    mean = (total[:f] / count).float()
+    var = (total[f:2 * f] / count).float() - mean * mean
+    return mean, var, (count / torch.clamp_min(count - 1, 1)).float()
+
+
 class TorchBatchNorm(nn.Module):
     """BatchNorm over the given reduction axes with torch's semantics.
 
@@ -69,6 +90,13 @@ class TorchBatchNorm(nn.Module):
     stats by momentum 0.1, the variance with its unbiased estimate; the
     statistics include padded (zeroed) positions. Eval uses the running
     stats, with mean and rsqrt cast to the compute dtype before use.
+
+    Inside a process group (``parallel.distributed``, world size 1
+    included) training takes the statistics of the global batch, as dsjax's
+    do (its means run over a batch sharded across the mesh): one
+    differentiable all-reduce of the ranks' sums and counts
+    (``global_moments``). The count is the global one in the unbiased
+    factor, so every rank's running stats move alike.
     """
 
     def __init__(self, num_features: int, axes: Tuple[int, ...], eps: float = 1e-5,
@@ -89,12 +117,16 @@ class TorchBatchNorm(nn.Module):
         shape[feat_axis] = -1
         if self.training:
             xf = x.float()
-            mean = xf.mean(dim=self.axes)
-            var = (xf * xf).mean(dim=self.axes) - mean * mean
-            n = math.prod(x.shape[a] for a in self.axes)
+            if distributed.active():
+                mean, var, unbias = global_moments(xf, self.axes)
+            else:
+                mean = xf.mean(dim=self.axes)
+                var = (xf * xf).mean(dim=self.axes) - mean * mean
+                n = math.prod(x.shape[a] for a in self.axes)
+                unbias = n / max(n - 1, 1)
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                unbiased = var * (n / max(n - 1, 1))
+                unbiased = var * unbias
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         else:
             mean, var = self.running_mean, self.running_var

@@ -5,7 +5,11 @@ counterpart of dsjax's root ``train.py``), for example
         data.device_features=false trainer.max_epochs=2
 
 ``trainer.device`` defaults to cuda and raises without a card; pass
-``trainer.device=cpu`` to train on the CPU.
+``trainer.device=cpu`` to train on the CPU. Data-parallel over the cards of
+one or more nodes, one process a card, under torchrun:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m dsjax_torch.train ...
 """
 
 import sys

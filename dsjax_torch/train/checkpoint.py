@@ -16,7 +16,9 @@ plus the optimizer state, the step and epoch counters, the metrics and the
 host-side extras (the sampler's mid-epoch ``start_index``). A save that is
 both last and best is written once and hard-linked. Files are written
 beside their target and renamed into place, so a reader never sees half a
-file.
+file. Inside a process group only rank 0 writes (``meta.json`` and every
+save, as dsjax's handler does) and every rank waits at a barrier after each
+save; on resume every rank reads the same files.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import os
 from typing import Any, Dict, List, Optional, Tuple
 
 from dsjax_torch.model.convert import from_reference_state_dict, load_checkpoint, save_checkpoint
+from dsjax_torch.parallel import distributed
 from dsjax_torch.train.state import TrainState
 
 
@@ -68,8 +71,9 @@ class CheckpointHandler:
             meta["config"] = _plain(cfg)
         if labels is not None:
             meta["labels"] = list(labels)
-        with open(os.path.join(self.dirpath, "meta.json"), "w") as f:
-            json.dump(meta, f)
+        if distributed.is_main_process():
+            with open(os.path.join(self.dirpath, "meta.json"), "w") as f:
+                json.dump(meta, f)
 
     # -- save ----------------------------------------------------------
 
@@ -95,7 +99,14 @@ class CheckpointHandler:
              extra: Optional[Dict[str, Any]] = None, last_only: bool = False) -> None:
         """Save last and, unless ``last_only`` (a mid-epoch save that does
         not compete in the ranking), best-k. ``extra`` carries host-side
-        state such as the sampler's start_index."""
+        state such as the sampler's start_index. Rank 0 writes; every rank
+        returns after the files are in place."""
+        if distributed.is_main_process():
+            self._save(state, metrics, extra, last_only)
+        distributed.barrier()
+
+    def _save(self, state: TrainState, metrics: Dict[str, float],
+              extra: Optional[Dict[str, Any]], last_only: bool) -> None:
         metrics = {k: float(v) for k, v in metrics.items()}
         extra = dict(extra or {})
         step = state.step

@@ -15,13 +15,25 @@ from a generator on the device seeded by (seed, global step)).
 ``trainer.profile`` traces a window of steps with ``torch.profiler``
 (``train.logging.profile_steps``).
 
+Under torchrun (``parallel.distributed.initialize``, which
+``workflows.train`` calls) every rank runs this loop on its own card and
+its own batches, and each step gives dsjax's answers on the global batch:
+the model is wrapped in ``DistributedDataParallel`` (one gradient
+all-reduce an optimizer step, averaged over the ranks, which is the
+gradient of dsjax's ``loss / dp``), the host arrays are zero-padded to the
+ranks' common shapes before they are staged (``multihost.agree_shapes``),
+BatchNorm takes global statistics (``model/ds2.py:TorchBatchNorm``), the
+device SpecAugment masks are drawn for the global batch, the logged loss is
+the ranks' sum over the world size, and validation sums the WER/CER counts
+over the ranks. Outside torchrun none of this runs.
+
 The state lives in a ``TrainState`` that the methods update in place and
 return, so calls read like dsjax's functional ones: ``state, loss =
 trainer.train_step(state, batch)``.
 
 Settings the port does not carry raise instead of being ignored: more
-than one device or process, and the fields that select or tune JAX
-(``refuse_unported``).
+than one card in one process, tensor parallelism (``trainer.mesh_model``)
+and the fields that select or tune JAX (``refuse_unported``).
 """
 
 from __future__ import annotations
@@ -44,6 +56,9 @@ from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.inference import resolve_device
 from dsjax_torch.model.ctc import ctc_loss
 from dsjax_torch.model.ds2 import DeepSpeech2
+from dsjax_torch.parallel import distributed
+from dsjax_torch.parallel.mesh import check_mesh
+from dsjax_torch.parallel.multihost import agree_count, agree_shapes, sum_ints
 from dsjax_torch.train.metrics import CharErrorRate, WordErrorRate, update_batch
 from dsjax_torch.train.state import (TrainState, clip_by_global_norm, epoch_lr,
                                      make_optimizer, set_lr)
@@ -51,27 +66,42 @@ from dsjax_torch.train.state import (TrainState, clip_by_global_norm, epoch_lr,
 Tensor = torch.Tensor
 
 # TrainerConfig fields that select or tune JAX itself
-_JAX_ONLY = ("platform", "num_cpu_devices", "mesh_data", "mesh_model", "mesh_dcn",
-             "matmul_precision", "donate_state")
+_JAX_ONLY = ("platform", "num_cpu_devices", "matmul_precision", "donate_state")
+
+TORCHRUN = "python -m torch.distributed.run --nproc_per_node <cards> -m dsjax_torch.train ..."
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise for every setting the port's training slice does not carry, so
-    none is silently ignored."""
+    none is silently ignored. ``trainer.devices`` counts a node's cards:
+    under torchrun -1 or LOCAL_WORLD_SIZE (one process a card), outside it
+    -1 or 1; the ``mesh_*`` settings must describe the world size
+    (``parallel.mesh.check_mesh``)."""
     tr, default = cfg.trainer, TrainerConfig()
     for name in _JAX_ONLY:
         if getattr(tr, name) != getattr(default, name):
             raise ValueError(f"trainer.{name} selects or tunes JAX; the port does not read "
                              f"it: leave it at {getattr(default, name)!r}")
-    multi = ("more than one device or process: multi-device training is not ported yet "
-             "(ROADMAP.md, Queue 1 item 6)")
-    if tr.devices not in (-1, 1) or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(multi)
-    if (tr.devices == -1 and torch.device(tr.device).type == "cuda"
+    if distributed.launched() and not distributed.active():
+        raise RuntimeError("torchrun's environment is set but this process has not joined "
+                           "its group: call dsjax_torch.parallel.distributed.initialize() "
+                           "first (workflows.train does)")
+    check_mesh(tr.mesh_data, tr.mesh_model, tr.mesh_dcn, distributed.world_size())
+    if distributed.active():
+        local = int(os.environ["LOCAL_WORLD_SIZE"])
+        if tr.devices not in (-1, local):
+            raise ValueError(f"trainer.devices={tr.devices} but torchrun started {local} "
+                             f"process(es) on this node, one a card: leave it at -1 or set "
+                             f"{local}")
+    elif tr.devices not in (-1, 1):
+        raise NotImplementedError(f"trainer.devices={tr.devices}: one process trains on one "
+                                  f"card; launch one process a card with {TORCHRUN}")
+    elif (tr.devices == -1 and torch.device(tr.device).type == "cuda"
             and torch.cuda.device_count() > 1):
         raise NotImplementedError(f"trainer.devices=-1 asks for all "
-                                  f"{torch.cuda.device_count()} cards, {multi}: set "
-                                  f"trainer.devices=1")
+                                  f"{torch.cuda.device_count()} cards, but one process trains "
+                                  f"on one card: set trainer.devices=1, or launch one process "
+                                  f"a card with {TORCHRUN}")
     if tr.deterministic or cfg.checkpoint.filename:
         raise ValueError("trainer.deterministic and checkpoint.filename are read neither "
                          "by dsjax nor by the port: leave them at their defaults")
@@ -91,6 +121,9 @@ class Trainer:
         self.cfg = cfg
         self.labels = list(labels)
         self.device = resolve_device(cfg.trainer.device)
+        self.world, self.rank = distributed.world_size(), distributed.rank()
+        if self.device.type == "cuda" and self.device.index is None and distributed.active():
+            self.device = torch.device("cuda", distributed.local_rank())
         self.dtype = torch.bfloat16 if cfg.trainer.precision == 16 else torch.float32
         if cfg.trainer.detect_anomaly:
             torch.autograd.set_detect_anomaly(True)
@@ -107,6 +140,7 @@ class Trainer:
         self.decoder = GreedyDecoder(labels)
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
+        self._ddp = None  # the DistributedDataParallel wrapper of the state's model
 
     # ------------------------------------------------------------------
     # state
@@ -124,15 +158,39 @@ class Trainer:
     # steps
     # ------------------------------------------------------------------
 
-    def put_batch(self, batch: Batch) -> Staged:
+    def put_batch(self, batch: Batch, agree: bool = True) -> Staged:
         """Host batch -> device tensors. On CUDA the host arrays are pinned
         and copied without blocking on the trainer's side stream, so a
         DevicePrefetcher thread can run this ahead of the step. A
-        device-feature batch ships its raw audio (int16) as the inputs."""
+        device-feature batch ships its raw audio (int16) as the inputs.
+        With more than one rank and ``agree`` the arrays are first
+        zero-padded to the ranks' common shapes (a collective: every rank
+        calls this in step); the eval forward runs no collective and skips it."""
         x = batch.inputs if batch.inputs is not None else batch.audio
-        return stage((x, batch.input_lengths.astype(np.int32),
-                      batch.targets.astype(np.int32), batch.target_lengths.astype(np.int32),
-                      batch.valid_mask), self.device, self._copy_stream)
+        arrays = (x, batch.input_lengths.astype(np.int32), batch.targets.astype(np.int32),
+                  batch.target_lengths.astype(np.int32), batch.valid_mask)
+        return stage(agree_shapes(arrays) if agree else arrays, self.device, self._copy_stream)
+
+    def _module(self, state: TrainState) -> torch.nn.Module:
+        """What the training forward calls: the model, or inside a process
+        group its DDP wrapper (made at the first step, a collective). The
+        running stats are equal on every rank by construction, so buffers
+        are not broadcast; ``state.model`` stays the bare model, so
+        checkpoints and the server see no ``module.`` prefix."""
+        if not distributed.active():
+            return state.model
+        if self._ddp is None or self._ddp.module is not state.model:
+            from torch.nn.parallel import DistributedDataParallel
+
+            with warnings.catch_warnings():
+                # newer torch renames broadcast_buffers (forward_sync_buffers
+                # still syncs at init); the card's torch has only this name
+                warnings.filterwarnings("ignore", "`broadcast_buffers` is deprecated",
+                                        FutureWarning)
+                self._ddp = DistributedDataParallel(
+                    state.model, device_ids=[self.device.index] if self.device.type == "cuda"
+                    else None, broadcast_buffers=False, gradient_as_bucket_view=True)
+        return self._ddp
 
     def _features(self, x: Tensor, input_lengths: Tensor) -> Tensor:
         """(B, L_pad) raw audio -> (B, F, T) features on the device; host
@@ -143,31 +201,43 @@ class Trainer:
 
     def _device_augment(self, feats: Tensor, input_lengths: Tensor, step: int) -> Tensor:
         """On-device SpecAugment masks (AugmentationConfig.spec_augment_device),
-        drawn from a generator on the device seeded by (seed, global step)."""
+        drawn from a generator on the device seeded by (seed, global step),
+        for the global batch of which this rank holds a row block."""
         aug = self.cfg.data.augmentation
         if not (aug.spec_augment and aug.spec_augment_device):
             return feats
         return spec_augment_device(feats, input_lengths,
-                                   step_generator(self.cfg.seed, step, feats.device))
+                                   step_generator(self.cfg.seed, step, feats.device),
+                                   world=self.world, rank=self.rank)
 
     def _backward(self, state: TrainState, batch: Batch,
-                  staged: Optional[Staged] = None) -> Tensor:
+                  staged: Optional[Staged] = None, sync: bool = True) -> Tensor:
         """Forward, loss and backward on one batch; gradients accumulate in
-        the parameters' .grad and the BatchNorm running stats move."""
+        the parameters' .grad and the BatchNorm running stats move. Under
+        DDP the backward of the rank's loss sum all-reduces the gradients,
+        averaged over the ranks, unless ``sync`` is False (a micro-batch
+        before the last of an optimizer step); the returned loss is the
+        ranks' sum over the world size, dsjax's ``loss / dp``."""
         staged = staged if staged is not None else self.put_batch(batch)
         x, input_lengths, targets, target_lengths, valid = staged.wait(self.device)
+        module = self._module(state)
         state.model.train()
-        feats = self._features(x, input_lengths)
-        if x.dim() == 2:  # raw-audio mode: augment on the device, keyed by the step
-            feats = self._device_augment(feats, input_lengths, state.step)
-        out, out_lens, _ = state.model(feats, input_lengths)
-        logp = torch.log_softmax(out.float(), dim=-1)
-        nll = ctc_loss(logp, out_lens, targets, target_lengths, reduction="none",
-                       zero_infinity=True)
-        # batch-pad rows (Batch.valid=False) carry zero loss and gradient
-        loss = torch.sum(nll * valid)
-        loss.backward()
-        return loss.detach()
+        with (contextlib.nullcontext() if sync or module is state.model else module.no_sync()):
+            feats = self._features(x, input_lengths)
+            if x.dim() == 2:  # raw-audio mode: augment on the device, keyed by the step
+                feats = self._device_augment(feats, input_lengths, state.step)
+            out, out_lens, _ = module(feats, input_lengths)
+            logp = torch.log_softmax(out.float(), dim=-1)
+            nll = ctc_loss(logp, out_lens, targets, target_lengths, reduction="none",
+                           zero_infinity=True)
+            # batch-pad rows (Batch.valid=False) carry zero loss and gradient
+            loss = torch.sum(nll * valid)
+            loss.backward()
+        loss = loss.detach()
+        if module is not state.model:
+            torch.distributed.all_reduce(loss)
+            loss = loss / self.world
+        return loss
 
     def _update(self, state: TrainState, n_accum: int) -> TrainState:
         """Scale the accumulated gradients by 1 / n_accum, clip, and step
@@ -184,10 +254,21 @@ class Trainer:
         state.step += 1
         return state
 
+    @staticmethod
+    def _agree_micro_batches(n: int) -> None:
+        """The first collective of every optimizer step: the ranks' counts of
+        micro-batches, which must be equal, since each micro-batch issues
+        the same BatchNorm and gradient all-reduces on every rank."""
+        agree_count(n, "the micro-batches of an optimizer step (ragged_split gives a bin "
+                       "of fewer than 2 x ragged_split utterances one sub-batch)")
+
     def train_step(self, state: TrainState, batch: Batch,
                    staged: Optional[Staged] = None) -> Tuple[TrainState, Tensor]:
         """One optimizer step. ``staged`` short-circuits put_batch with
-        tensors a DevicePrefetcher already copied."""
+        tensors a DevicePrefetcher already copied. With more than one rank
+        it first agrees its count of one micro-batch with the other ranks,
+        whichever of this and ``train_step_accum`` they took."""
+        self._agree_micro_batches(1)
         state.optimizer.zero_grad(set_to_none=True)
         loss = self._backward(state, batch, staged)
         return self._update(state, 1), loss
@@ -215,17 +296,24 @@ class Trainer:
         contributes its mean). ragged_split sub-batches of one batch are
         partitions of a single sum-reduced loss, so they sum WITHOUT
         scaling (n_accum=1); callers mixing both pass the real-batch
-        count. 0 (default) = len(batches), the plain accumulation case."""
+        count. 0 (default) = len(batches), the plain accumulation case.
+
+        Under DDP the gradients are all-reduced once, in the last backward;
+        every rank must hold as many batches (a short bin gives fewer
+        ragged_split sub-batches), else every rank raises."""
+        self._agree_micro_batches(len(batches))
         state.optimizer.zero_grad(set_to_none=True)
         loss = None
-        for b in batches:
-            loss = self._backward(state, b)
+        for i, b in enumerate(batches):
+            loss = self._backward(state, b, sync=i == len(batches) - 1)
         return self._update(state, n_accum or len(batches)), loss
 
     @torch.inference_mode()
     def eval_step(self, state: TrainState, batch: Batch) -> Tuple[Tensor, Tensor]:
-        """The eval forward (K1 on CUDA): (probs (B, T', C) f32, out_lens)."""
-        x, input_lengths = self.put_batch(batch).wait(self.device)[:2]
+        """The eval forward (K1 on CUDA) of this rank's rows: (probs (B, T',
+        C) f32, out_lens). It runs no collective, so its shapes need no
+        agreement."""
+        x, input_lengths = self.put_batch(batch, agree=False).wait(self.device)[:2]
         state.model.eval()
         out, out_lens, _ = state.model(self._features(x, input_lengths), input_lengths)
         return out, out_lens
@@ -252,6 +340,10 @@ class Trainer:
             if verbose:
                 for t, r in zip(transcripts, references):
                     print(f"Ref:  {r}\nHyp:  {t}\n")
+        # each rank decoded its own rows: exact integer sums over the ranks
+        # (torchmetrics dist_reduce_fx="sum" parity, dsjax's validate)
+        wer.distance, wer.denom, cer.distance, cer.denom = sum_ints(
+            [wer.distance, wer.denom, cer.distance, cer.denom])
         return wer.compute(), cer.compute()
 
     def fit(self, train_pipeline, val_pipeline, checkpoint_handler=None,
@@ -281,8 +373,10 @@ class Trainer:
                 accum = max(1, cfg.trainer.accumulate_grad_batches)
                 micro: List[Batch] = []
                 micro_batches = 0
-                # copy batches to the device ahead of the step
-                use_dp = cfg.data.device_prefetch > 0 and accum == 1
+                # copy batches to the device ahead of the step; with more
+                # than one rank put_batch is a collective of the host group,
+                # which stays on this thread (as dsjax's prefetch gate)
+                use_dp = cfg.data.device_prefetch > 0 and accum == 1 and self.world == 1
                 if use_dp:
                     import itertools
 

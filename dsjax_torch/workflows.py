@@ -1,10 +1,13 @@
-"""Workflow layer: training, evaluation and transcription on one torch
-device, the counterpart of dsjax/workflows.py (reference:
+"""Workflow layer: training, evaluation and transcription, the
+counterpart of dsjax/workflows.py (reference:
 deepspeech_pytorch/{training,testing,inference}.py).
 
   * ``train`` takes a composed ``TrainConfig`` and wires the data pipelines,
     the trainer, checkpoints and metrics logging
-    (``python -m dsjax_torch.train key=value ...``);
+    (``python -m dsjax_torch.train key=value ...``); under torchrun
+    (``python -m torch.distributed.run --nproc_per_node N -m
+    dsjax_torch.train ...``) it first joins the process group and each rank
+    trains on its own card and its own share of the batches;
   * ``evaluate`` takes an ``EvalConfig`` and prints WER/CER over a manifest
     (``python -m dsjax_torch.evaluate ...``);
   * ``transcribe`` takes a ``TranscribeConfig`` and prints the result JSON
@@ -25,9 +28,12 @@ from dsjax_torch.audio.features import stft_params
 from dsjax_torch.config import EvalConfig, TrainConfig, TranscribeConfig
 from dsjax_torch.data.dataset import SpectrogramDataset
 from dsjax_torch.data.loader import DataPipeline, DevicePrefetcher, stage
-from dsjax_torch.data.sampler import BucketBatchSampler, OrderedBatchSampler
+from dsjax_torch.data.sampler import (BucketBatchSampler, DistributedBucketSampler,
+                                      DistributedOrderedSampler, OrderedBatchSampler)
 from dsjax_torch.inference import decode_results, load_decoder, load_model, run_transcribe
 from dsjax_torch.labels import load_labels
+from dsjax_torch.ops import _build
+from dsjax_torch.parallel import distributed
 from dsjax_torch.train.checkpoint import CheckpointHandler, restore_from_path
 from dsjax_torch.train.loop import Trainer
 from dsjax_torch.train.metrics import CharErrorRate, WordErrorRate, update_batch
@@ -40,8 +46,15 @@ def _pipelines(cfg: TrainConfig, labels: List[str]) -> Tuple[DataPipeline, DataP
                                   seed=cfg.seed, device_features=cfg.data.device_features)
     val_ds = SpectrogramDataset(cfg.data.spect, cfg.data.val_path, labels,
                                 normalize=True, device_features=cfg.data.device_features)
-    train_sampler = BucketBatchSampler(len(train_ds), cfg.data.batch_size, seed=cfg.seed)
-    val_sampler = OrderedBatchSampler(len(val_ds), cfg.data.batch_size, seed=cfg.seed)
+    world, rank = distributed.world_size(), distributed.rank()
+    if world > 1:
+        train_sampler = DistributedBucketSampler(len(train_ds), cfg.data.batch_size,
+                                                 seed=cfg.seed, num_replicas=world, rank=rank)
+        val_sampler = DistributedOrderedSampler(len(val_ds), cfg.data.batch_size,
+                                                seed=cfg.seed, num_replicas=world, rank=rank)
+    else:
+        train_sampler = BucketBatchSampler(len(train_ds), cfg.data.batch_size, seed=cfg.seed)
+        val_sampler = OrderedBatchSampler(len(val_ds), cfg.data.batch_size, seed=cfg.seed)
 
     def mk(ds, sampler, split):
         return DataPipeline(ds, sampler, bucket_frames=cfg.data.bucket_frames,
@@ -55,11 +68,27 @@ def _pipelines(cfg: TrainConfig, labels: List[str]) -> Tuple[DataPipeline, DataP
 
 def train(cfg: TrainConfig) -> TrainState:
     """Full training workflow (reference: training.py:13-47). Returns the
-    final state."""
+    final state. Under torchrun's environment it joins the process group
+    before any device use and leaves it when training ends or fails."""
+    # replaces the reference's TorchElastic rendezvous; a no-op without it
+    joined = distributed.initialize(cfg.trainer.device)
+    try:
+        return _train(cfg)
+    finally:
+        if joined:
+            distributed.destroy()
+
+
+def _train(cfg: TrainConfig) -> TrainState:
     np.random.seed(cfg.seed % (2 ** 32))
     labels = load_labels(cfg.data.labels_path if os.path.isfile(cfg.data.labels_path)
                          else None)
     trainer = Trainer(cfg, labels)
+    if distributed.active() and trainer.device.type == "cuda":
+        # one nvcc build a node: its local rank 0 builds, the others wait
+        if distributed.local_rank() == 0:
+            _build.build()
+        distributed.barrier()
     ckpt_dir = cfg.checkpoint.dirpath or os.path.join(os.getcwd(), "checkpoints")
     handler = CheckpointHandler(ckpt_dir, monitor=cfg.checkpoint.monitor,
                                 save_top_k=cfg.checkpoint.save_top_k,
@@ -85,7 +114,8 @@ def train(cfg: TrainConfig) -> TrainState:
         # mid-epoch resume: skip the bins already consumed this epoch
         train_pipe.sampler.start_index = int(resume_extra["start_index"])
     metrics_logger = None
-    if cfg.trainer.log_dir:
+    # rank 0 only: the logged loss and WER/CER are already reduced over ranks
+    if cfg.trainer.log_dir and distributed.is_main_process():
         from dsjax_torch.train.logging import MetricsLogger
 
         metrics_logger = MetricsLogger(cfg.trainer.log_dir)

@@ -237,7 +237,7 @@ def test_checkpoint_handler_keeps_best_k_and_last(tmp_path):
 
 @pytest.mark.parametrize("override, exc", [
     ("trainer.devices=2", NotImplementedError),
-    ("trainer.mesh_data=1", ValueError),
+    ("trainer.mesh_data=2", ValueError),
     ("trainer.platform=cpu", ValueError),
     ("trainer.matmul_precision=float32", ValueError),
     ("trainer.donate_state=false", ValueError),

@@ -25,7 +25,9 @@ IMPORTS = ("dsjax_torch", "dsjax_torch.server", "dsjax_torch.inference",
            "dsjax_torch.decode.lm_device", "dsjax_torch.decode.native_beam",
            "dsjax_torch.search_lm_params", "dsjax_torch.select_lm_params",
            "dsjax_torch.build_lm_binary", "dsjax_torch.audio.augment",
-           "dsjax_torch.noise_inject")
+           "dsjax_torch.noise_inject", "dsjax_torch.parallel",
+           "dsjax_torch.parallel.distributed", "dsjax_torch.parallel.multihost",
+           "dsjax_torch.parallel.mesh")
 
 
 def _imports(path):
@@ -54,7 +56,8 @@ def _imports(path):
      os.path.join(ROOT, "tools", "torch_kernel_probe.py"),
      os.path.join(ROOT, "tests", "synthetic_manifest.py"),
      os.path.join(ROOT, "tests", "synthetic_lm.py"),
-     os.path.join(ROOT, "tests", "golden_gru.py")]
+     os.path.join(ROOT, "tests", "golden_gru.py"),
+     os.path.join(ROOT, "tests", "torch_ddp_worker.py")]
     + glob.glob(os.path.join(ROOT, "dsjax_torch", "**", "*.py"), recursive=True)),
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_import_of_the_jax_package(path):
