@@ -159,6 +159,27 @@ Phases, each printing what it measured; any failure exits non-zero:
               frames, TF32 off, against one process on the union batch:
               losses, gradients, SGD updates, running stats (equal across the
               ranks) and the device SpecAugment masks.
+ 24. data-parallel inference  the flagship over the replicas of one
+              ModelBundle in this process: every visible card when there are
+              two or more, else two replicas sharing cuda:0 (``device=
+              "cuda:0,cuda:0"``); an evaluation batch of 20 utterances of
+              about 10 s (padded to a multiple of the replicas), int16 raw
+              audio through the STFT on the card, TF32 off: the posteriors,
+              row shards gathered onto cuda:0, against one card's within
+              TOLERANCE, out_lens equal, 5 K1 launches a shard; on both
+              forwards' posteriors the strings of greedy, the scan-route beam
+              (T + 1 K6 launches), K7's route (one K7 and one backtrack) and
+              the device-LM beam on phase 21's seeded 3-gram (as DSLMBIN2)
+              identical; the server on the replicas answers 8 concurrent
+              /transcribe requests with the one-card server's strings;
+              ``workflows.evaluate`` (``python -m dsjax_torch.evaluate``'s
+              entry point) over 24 WAVs gives the one-card WER, CER and
+              hypotheses; CUDA-event and wall ms of one evaluation batch
+              (forward and greedy or scan-route beam decode), one card and
+              the replicas, medians of 5 after a warm-up, and K1 alone at a
+              shard's rows and at the batch's. Phases 2-23 run their
+              bundles, servers and evaluations on cuda:0 alone.
+              ``tools/torch_data_parallel.py`` runs this phase by itself.
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
 f32, and for K2, K3, K4 with residuals and K5 in bf16 as well; torch.topk;
@@ -168,7 +189,7 @@ forward plus backward under autograd (the backward rows' with_forward_ms
 and with_forward_library_ms), and computes each kernel's bound: the larger
 of its operations over the H100's peak for their type and its bytes over
 3.35 TB/s. The parity phases (3, 4, 6, 7, 9, 10, 11, 12's posterior
-comparison, 14-17 and 20) turn TF32 off (cuDNN convolutions and matmuls in
+comparison, 14-17, 20 and 24) turn TF32 off (cuDNN convolutions and matmuls in
 full float32); serving, training and evaluation run PyTorch's defaults. The
 last two lines are a JSON object of kernel results and {"ok": true,
 "device": {...}}.
@@ -351,7 +372,7 @@ def phase_parity(torch, np):
     check((model_cfg.hidden_size, model_cfg.hidden_layers) == (1024, 5), "not the flagship")
     model = DeepSpeech2(classes, SpectConfig(), model_cfg)
     model.load_state_dict(from_reference_state_dict(state))
-    bundle = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), device="cuda")
+    bundle = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), "cuda:0")
     x, lengths = flagship_input()
     before = lstm.LAUNCHES
     probs, out_lens, carry = bundle.forward(x, lengths)
@@ -475,7 +496,7 @@ def phase_serving(torch, np, state, model_cfg, gpu_name):
         # forward below can rebuild it shape for shape: a long collection
         # window, closed early by the 8th request (max_batch)
         cfg = compose(ServerConfig, [f"model.model_path={path}", "host=127.0.0.1", "port=0",
-                                     "device=cuda", "max_batch=8", "batch_timeout_ms=2000",
+                                     "device=cuda:0", "max_batch=8", "batch_timeout_ms=2000",
                                      "chunk_size_seconds=10", "warmup_seconds=10"])
         reset_counts()
         t0 = time.perf_counter()
@@ -823,7 +844,7 @@ def phase_training(torch, np, gpu_name, card, rnn="lstm", epochs=EPOCHS):
         trainer = Trainer(cfg, list(DEFAULT_LABELS))
         batch = next(iter(_pipelines(cfg, list(DEFAULT_LABELS))[1]))
         want, want_lens = trainer.eval_step(state, batch)
-        bundle = load_model(last, precision=16, device="cuda")
+        bundle = load_model(last, precision=16, device="cuda:0")
         got, got_lens, _ = bundle.forward(batch.inputs, batch.input_lengths)
         torch.cuda.synchronize()
         check(torch.equal(got_lens, want_lens), "out_lens of the loaded checkpoint differ")
@@ -1141,7 +1162,7 @@ def phase_feature_paths(torch, np, state, model_cfg, root):
 
     model = DeepSpeech2(len(DEFAULT_LABELS), SpectConfig(), model_cfg)
     model.load_state_dict(from_reference_state_dict(state))
-    bundle = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), device="cuda")
+    bundle = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), "cuda:0")
     ys = [load_audio(os.path.join(root, "wav", f"eval_{i}.wav")) for i in range(6)]
     items = [pad_audio_for_device(y, bundle.spect_cfg) for y in ys]
     n_valid = np.array([n for _, n in items], np.int32)
@@ -1194,7 +1215,7 @@ def phase_evaluation(torch, np, state, model_cfg, gpu_name, full_fp32, defaults_
             os.environ["DSJAX_FUSED_BEAM"] = fused
             cfg = compose(EvalConfig, [f"model.model_path={path}", f"test_path={manifest}",
                                        f"batch_size={EVAL_BATCH}", "num_workers=4",
-                                       "device=cuda", f"lm.decoder_type={decoder}",
+                                       "device=cuda:0", f"lm.decoder_type={decoder}",
                                        f"lm.beam_width={EVAL_WIDTH}"])
             out = io.StringIO()
             reset_counts()
@@ -1261,7 +1282,7 @@ def phase_beam_serving(torch, np, state, model_cfg, gpu_name):
         save_checkpoint(path, from_reference_state_dict(state), model_cfg, SpectConfig(),
                         DEFAULT_LABELS)
         cfg = compose(ServerConfig, [f"model.model_path={path}", "host=127.0.0.1", "port=0",
-                                     "device=cuda", "max_batch=8", "batch_timeout_ms=2000",
+                                     "device=cuda:0", "max_batch=8", "batch_timeout_ms=2000",
                                      "warmup_seconds=2", "lm.decoder_type=beam",
                                      f"lm.beam_width={EVAL_WIDTH}"])
         reset_counts()
@@ -1543,7 +1564,7 @@ def phase_gru_parity(torch, np, tmp):
     for name in ("bigru", "unigru"):
         path, model_cfg = gru_checkpoint(tmp, name)
         paths[name] = (path, model_cfg)
-        bundle = load_model(path, device="cuda")
+        bundle = load_model(path, device="cuda:0")
         before = gru.LAUNCHES
         probs, out_lens, carry = bundle.forward(x, lengths)
         torch.cuda.synchronize()
@@ -1611,7 +1632,7 @@ def phase_gru_serving(torch, np, paths, gpu_name):
     stream_ys = [synth(rng, np, 1.0) for _ in range(5)]
     reset_counts()
     cfg = compose(ServerConfig, [f"model.model_path={paths['bigru'][0]}", "host=127.0.0.1",
-                                 "port=0", "device=cuda", "max_batch=8", "batch_timeout_ms=2000",
+                                 "port=0", "device=cuda:0", "max_batch=8", "batch_timeout_ms=2000",
                                  "warmup_seconds=10"])
     server, worker = serve(cfg)
     try:
@@ -1637,7 +1658,7 @@ def phase_gru_serving(torch, np, paths, gpu_name):
         shutdown(server, worker)
     layers = paths["bigru"][1].hidden_layers
     cfg = compose(ServerConfig, [f"model.model_path={paths['unigru'][0]}", "host=127.0.0.1",
-                                 "port=0", "device=cuda", "max_batch=1", "warmup_seconds=1"])
+                                 "port=0", "device=cuda:0", "max_batch=1", "warmup_seconds=1"])
     server, worker = serve(cfg)
     try:
         port = server.server_address[1]
@@ -1977,7 +1998,7 @@ def phase_lm_evaluation(torch, np, path, manifest, arpa, model_cfg, gpu_name):
     for name, device_beam in (("device LM beam", "true"), ("host LM beam", "false")):
         os.environ["DSJAX_FUSED_BEAM"] = "1"
         cfg = compose(EvalConfig, [f"model.model_path={path}", f"test_path={manifest}",
-                                   f"batch_size={EVAL_BATCH}", "num_workers=4", "device=cuda"]
+                                   f"batch_size={EVAL_BATCH}", "num_workers=4", "device=cuda:0"]
                       + lm_eval_args(arpa, device_beam))
         out = io.StringIO()
         reset_counts()
@@ -2032,7 +2053,7 @@ def phase_lm_serving(torch, np, path, arpa, binary, gpu_name):
     seconds = [round(float(s), 2) for s in rng.uniform(1.0, 8.0, 8)]
     ys = [synth(rng, np, s) for s in seconds]
     stream_ys = [synth(rng, np, 1.0) for _ in range(3)]
-    base = [f"model.model_path={path}", "host=127.0.0.1", "port=0", "device=cuda",
+    base = [f"model.model_path={path}", "host=127.0.0.1", "port=0", "device=cuda:0",
             "max_batch=8", "batch_timeout_ms=2000", "warmup_seconds=2"]
     cfg = compose(ServerConfig, base + lm_eval_args(arpa, "true"))
     server, worker = serve(cfg)
@@ -2115,7 +2136,7 @@ def phase_lm_tuner(np, path, manifest_dir, arpa):
         [sys.executable, "-m", "dsjax_torch.search_lm_params", f"model_path={path}",
          f"test_path={manifest}", f"lm_path={arpa}", "grid=true", "grid_steps=2",
          "device_beam=true", f"beam_width={EVAL_WIDTH}", "batch_size=4", "n_jobs=2",
-         "device=cuda", f"output_path={out}"], cwd=ROOT, capture_output=True, text=True,
+         "device=cuda:0", f"output_path={out}"], cwd=ROOT, capture_output=True, text=True,
         timeout=600)
     tune_s = time.perf_counter() - t0
     check(run.returncode == 0, f"search_lm_params exited {run.returncode}:\n{run.stderr[-3000:]}")
@@ -2642,7 +2663,7 @@ def phase_ddp_one_rank(torch, np, gpu_name, card, tmp):
     batch = next(iter(workflows._pipelines(cfg, list(DEFAULT_LABELS))[1]))
     want, want_lens = trainer.eval_step(state, batch)
     path = CheckpointHandler(ckpt).path()
-    got, got_lens, _ = load_model(path, precision=16, device="cuda").forward(
+    got, got_lens, _ = load_model(path, precision=16, device="cuda:0").forward(
         batch.inputs, batch.input_lengths)
     torch.cuda.synchronize()
     check(torch.equal(got_lens, want_lens), "out_lens of the DDP checkpoint differ")
@@ -2839,6 +2860,286 @@ def phase_ddp_training(torch, np, gpu_name, card, full_fp32, defaults_back):
     return launches
 
 
+# phase 24: data-parallel inference in one process. Every visible card when
+# there are two or more, else two replicas sharing cuda:0 (their launches run
+# in turn on its current stream: the path is driven, not scaled)
+DP_UTTS, DP_SECONDS = EVAL_BATCH, (9.5, 10.5)   # evaluation's batch of ~10 s utterances
+DP_EVAL_UTTS = 24                               # two evaluation batches, the second padded
+DP_TIME_REPS = 5
+
+
+def dp_audio(np, spect_cfg, seconds, rng):
+    """(B, L_pad) int16 audio of synthetic utterances and their frame counts,
+    padded to the longest, as evaluation's raw-audio batches."""
+    from dsjax_torch.audio.features import pad_audio_for_device
+
+    ys = [synth(rng, np, s) for s in seconds]
+    n_valid = np.array([pad_audio_for_device(y, spect_cfg)[1] for y in ys], np.int32)
+    items = [pad_audio_for_device(y, spect_cfg, int(n_valid.max())) for y in ys]
+    return (np.stack([np.clip(np.rint(yp * 32768.0), -32768, 32767).astype(np.int16)
+                      for yp, _ in items]), n_valid)
+
+
+def dp_strings(torch, decoder, probs, lens):
+    """Top strings of one decode, with the launch counts it made."""
+    reset_counts()
+    strings = [s[0] for s in decoder.decode(probs, lens, n_best=1)[0]]
+    torch.cuda.synchronize()
+    return strings, read_counts()
+
+
+def dp_batch_ms(torch, bundles, audio, n_valid, decoder):
+    """For each bundle, CUDA-event ms (the longest span over its cards) and
+    wall ms of one evaluation batch: the raw-audio forward and
+    ``decoder``'s decode to strings; medians of DP_TIME_REPS after a
+    warm-up, the bundles timed in turns (in reverse order every other rep)
+    so that drift in the host's speed falls on both."""
+    times = [([], []) for _ in bundles]
+    for rep in range(DP_TIME_REPS + 1):
+        order = list(enumerate(bundles))
+        for i, bundle in order if rep % 2 else order[::-1]:
+            devs = list(dict.fromkeys(bundle.devices))
+            torch.cuda.synchronize()
+            marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                     for _ in devs]
+            t0 = time.perf_counter()
+            for d, (start, _) in zip(devs, marks):
+                start.record(torch.cuda.current_stream(d))
+            probs, out_lens, _ = bundle.forward(audio, n_valid)
+            decoder.decode(probs, out_lens, n_best=1)
+            for d, (_, end) in zip(devs, marks):
+                end.record(torch.cuda.current_stream(d))
+            torch.cuda.synchronize()
+            if rep:
+                times[i][1].append((time.perf_counter() - t0) * 1000.0)
+                times[i][0].append(max(s.elapsed_time(e) for s, e in marks))
+    return [(statistics.median(ev), statistics.median(wall)) for ev, wall in times]
+
+
+def dp_k1_ms(torch, np, t_dim, rows):
+    """K1's CUDA-event median ms, f32, two directions, every row at full
+    length, at T = t_dim and B = rows: a shard's scan beside the batch's."""
+    from dsjax_torch.ops import lstm
+
+    rng = np.random.default_rng(rows)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda")
+    xp = dev(rng.standard_normal((2, t_dim, rows, 4 * H)) * 0.3)
+    w = dev(rng.standard_normal((2, 4 * H, H)) * 0.03)
+    b = dev(rng.standard_normal((2, 4 * H)) * 0.1)
+    h0 = torch.zeros((2, rows, H), device="cuda")
+    mask = torch.ones((t_dim, rows), device="cuda")
+    return cuda_time(lambda: lstm.lstm_scan(xp, mask, w, b, h0, h0, (False, True)), 10)
+
+
+def dp_server(torch, np, path, spec, ys):
+    """8 concurrent /transcribe requests to the server on ``spec``'s
+    devices, twice: (transcripts, launch counts and latencies of the second
+    round; the first pays each card's first use of the requests' shapes)."""
+    from dsjax_torch.config import ServerConfig, compose
+    from dsjax_torch.server import serve, shutdown
+
+    cfg = compose(ServerConfig, [f"model.model_path={path}", "host=127.0.0.1", "port=0",
+                                 f"device={spec}", "max_batch=8", "batch_timeout_ms=2000",
+                                 "warmup_seconds=2"])
+    server, worker = serve(cfg)
+    try:
+        port = server.server_address[1]
+        results = [None] * len(ys)
+
+        def client(i):
+            results[i] = post(port, "/transcribe", ys[i])
+
+        for _ in range(2):
+            torch.cuda.synchronize()
+            reset_counts()
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(ys))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+                check(not t.is_alive(), f"a /transcribe request to the server on {spec} hung")
+            torch.cuda.synchronize()
+            counts = read_counts()
+        shards = worker.bundle.shards(len(ys))
+    finally:
+        shutdown(server, worker)
+    for status, payload, _ in results:
+        check(status == 200, f"/transcribe on {spec} -> {status} {payload}")
+    return ([r[1]["output"][0]["transcription"] for r in results], counts, shards,
+            sorted(r[2] for r in results))
+
+
+def dp_evaluate(torch, path, manifest, spec):
+    from dsjax_torch.config import EvalConfig, compose
+    from dsjax_torch.workflows import evaluate
+
+    cfg = compose(EvalConfig, [f"model.model_path={path}", f"test_path={manifest}",
+                               f"batch_size={EVAL_BATCH}", "num_workers=4", f"device={spec}"])
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        wer, cer = evaluate(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    hyps = [line for line in lines if line.startswith("Hyp:")]
+    check(len(hyps) == DP_EVAL_UTTS, f"evaluate on {spec} printed {len(hyps)} hypotheses")
+    return dict(wer=wer, cer=cer, hyps=hyps, counts=read_counts(), wall=wall)
+
+
+def phase_data_parallel(torch, np, state, model_cfg, gpu_name, card):
+    """24: the flagship over the bundle's replicas against one card, TF32
+    off: the forward of an evaluation batch, each decoder, the server and
+    ``workflows.evaluate``; exact launch counts; the batch's times."""
+    from dsjax_torch.config import SpectConfig
+    from dsjax_torch.decode.beam_device import DeviceBeamDecoder
+    from dsjax_torch.decode.greedy import GreedyDecoder
+    from dsjax_torch.decode.native_beam import build_lm_binary
+    from dsjax_torch.inference import load_model
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.model.convert import from_reference_state_dict, save_checkpoint
+    from tests.synthetic_lm import letter_trigram, write_arpa
+    from tests.synthetic_manifest import write_manifest
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    spec = "cuda" if count >= 2 else "cuda:0,cuda:0"
+    layers = model_cfg.hidden_layers
+    rng = np.random.default_rng(24)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.pt")
+        save_checkpoint(path, from_reference_state_dict(state), model_cfg, SpectConfig(),
+                        DEFAULT_LABELS)
+        one = load_model(path, 32, "cuda:0")
+        dp = load_model(path, 32, spec)
+        n = len(dp.devices)
+        print(f"data parallel: {count} visible card(s): {n} replicas on "
+              f"{[str(d) for d in dp.devices]} ("
+              f"{'every visible card' if count >= 2 else 'two replicas sharing one card'})")
+        check(n >= 2 and len(one.devices) == 1, f"replicas {dp.devices} and {one.devices}")
+        b_dim = -(-DP_UTTS // n) * n
+        audio, n_valid = dp_audio(np, dp.spect_cfg, rng.uniform(*DP_SECONDS, b_dim), rng)
+
+        reset_counts()
+        probs, out_lens, _ = dp.forward(audio, n_valid)
+        torch.cuda.synchronize()
+        dp_counts = read_counts()
+        reset_counts()
+        want, want_lens, _ = one.forward(audio, n_valid)
+        torch.cuda.synchronize()
+        one_counts = read_counts()
+        check(probs.device == out_lens.device == torch.device("cuda:0"),
+              f"the data-parallel forward gathered its posteriors on {probs.device}, "
+              f"not cuda:0")
+        check(dp_counts["lstm_fwd"] == n * layers and one_counts["lstm_fwd"] == layers,
+              f"K1 launches {dp_counts['lstm_fwd']} over {n} shards and {one_counts['lstm_fwd']} "
+              f"on one card, expected {n * layers} and {layers}")
+        check(torch.equal(out_lens, want_lens), "out_lens differ")
+        atol, rtol = TOLERANCE["float32"]
+        err, ok = within(probs, want, atol, rtol)
+        check(ok, f"data-parallel posteriors differ from one card's by {err}")
+        t_dim = want.shape[1]
+        print(f"data parallel forward on {gpu_name} ({card}): flagship f32 TF32 off, {b_dim} "
+              f"utterances of {DP_SECONDS} s (T'={t_dim}) as {n} shards of {b_dim // n}: "
+              f"max_abs_err {err!r} against one card (atol {atol}, rtol {rtol}), out_lens "
+              f"equal; K1 launches {dp_counts['lstm_fwd']} ({layers} a shard)")
+
+        # the decoders on both forwards' posteriors, each decoded once on cuda:0
+        arpa = write_arpa(os.path.join(tmp, "letters.arpa"), letter_trigram(seed=21))
+        binary = os.path.join(tmp, "letters.bin")
+        build_lm_binary(arpa, binary)
+        decoders = {
+            "greedy": (GreedyDecoder(DEFAULT_LABELS), "0", (0, 0, 0)),
+            "beam, scan with K6": (DeviceBeamDecoder(DEFAULT_LABELS, beam_width=EVAL_WIDTH),
+                                   "0", (t_dim + 1, 0, 1)),
+            "beam, K7": (DeviceBeamDecoder(DEFAULT_LABELS, beam_width=EVAL_WIDTH), "1",
+                         (0, 1, 1)),
+            "device LM beam": (DeviceBeamDecoder(DEFAULT_LABELS, beam_width=EVAL_WIDTH,
+                                                 lm_path=binary, alpha=LM_ALPHA, beta=LM_BETA),
+                               "1", (t_dim + 1, 0, 1)),
+        }
+        decode_counts = {}
+        for name, (decoder, fused, expected) in decoders.items():
+            os.environ["DSJAX_FUSED_BEAM"] = fused
+            try:
+                got, got_counts = dp_strings(torch, decoder, probs, out_lens)
+                ref, ref_counts = dp_strings(torch, decoder, want, want_lens)
+            finally:
+                os.environ.pop("DSJAX_FUSED_BEAM")
+            flips = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+            check(not flips, f"{name}: the data-parallel strings differ from one card's in rows "
+                             f"{flips}: {[(got[i], ref[i]) for i in flips]}")
+            for counts in (got_counts, ref_counts):
+                have = (counts["topk"], counts["beam_scan"], counts["beam_backtrack"])
+                check(have == expected, f"{name}: topk, beam_scan and beam_backtrack launches "
+                                        f"{have}, expected {expected}")
+            decode_counts[name] = got_counts
+            print(f"data parallel {name}: {b_dim} strings identical to one card's; launches "
+                  f"(topk, beam_scan, beam_backtrack) {expected}")
+
+        # the server, 8 concurrent requests, against the one-card server
+        ys = [synth(rng, np, s) for s in rng.uniform(1.0, 8.0, 8)]
+        got, srv_counts, srv_shards, srv_lat = dp_server(torch, np, path, spec, ys)
+        ref, _, _, ref_lat = dp_server(torch, np, path, "cuda:0", ys)
+        check(got == ref, f"the data-parallel server's transcripts differ from one card's:\n"
+                          f"{got}\n{ref}")
+        check(srv_counts["lstm_fwd"] == srv_shards * layers,
+              f"the server's batch of 8: {srv_counts['lstm_fwd']} K1 launches, expected "
+              f"{layers} a shard over {srv_shards}")
+        print(f"data parallel server: 8 concurrent /transcribe identical to the one-card "
+              f"server's; a batch of 8 in {srv_shards} shards, K1 launches "
+              f"{srv_counts['lstm_fwd']}; p50 of a second round {statistics.median(srv_lat)!r} "
+              f"ms (one card {statistics.median(ref_lat)!r} ms)")
+
+        # workflows.evaluate, the entry point of python -m dsjax_torch.evaluate
+        manifest = write_manifest(tmp, "dp", [round(float(s), 2) for s in
+                                              rng.uniform(2.0, 10.0, DP_EVAL_UTTS)], seed=25)
+        dp_eval = dp_evaluate(torch, path, manifest, spec)
+        one_eval = dp_evaluate(torch, path, manifest, "cuda:0")
+        check((dp_eval["wer"], dp_eval["cer"]) == (one_eval["wer"], one_eval["cer"])
+              and dp_eval["hyps"] == one_eval["hyps"],
+              f"evaluate over {n} replicas: WER/CER {dp_eval['wer'], dp_eval['cer']}, one card "
+              f"{one_eval['wer'], one_eval['cer']}")
+        batches = -(-DP_EVAL_UTTS // EVAL_BATCH)
+        check(dp_eval["counts"]["lstm_fwd"] == batches * n * layers,
+              f"evaluate over {n} replicas: {dp_eval['counts']['lstm_fwd']} K1 launches for "
+              f"{batches} batches")
+        print(f"data parallel evaluate: {DP_EVAL_UTTS} utterances of 2-10 s, batch {EVAL_BATCH} "
+              f"padded to {-(-EVAL_BATCH // n) * n}: WER {dp_eval['wer']!r} CER "
+              f"{dp_eval['cer']!r} and hypotheses identical to one card's; wall "
+              f"{dp_eval['wall']!r} s (one card {one_eval['wall']!r} s); K1 launches "
+              f"{dp_eval['counts']['lstm_fwd']}")
+
+        batch_ms = {}
+        for name in ("greedy", "beam, scan with K6"):
+            decoder = decoders[name][0]
+            batch_ms[name] = dict(zip(("one card", "data parallel"),
+                                      dp_batch_ms(torch, (one, dp), audio, n_valid, decoder)))
+    k1_ms = {rows: dp_k1_ms(torch, np, t_dim, rows) for rows in (b_dim // n, b_dim)}
+    wall = time.perf_counter() - t_phase
+    for name, ms in batch_ms.items():
+        (one_ev, one_wall), (dp_ev, dp_wall) = ms["one card"], ms["data parallel"]
+        print(f"data parallel times on {gpu_name} ({card}), one evaluation batch ({b_dim} x "
+              f"{DP_SECONDS} s, raw audio, forward and {name} decode, TF32 off), medians of "
+              f"{DP_TIME_REPS}: one card {one_ev!r} ms CUDA events, {one_wall!r} ms wall; {n} "
+              f"replicas on {[str(d) for d in dp.devices]} {dp_ev!r} ms CUDA events (the "
+              f"longest card's span), {dp_wall!r} ms wall"
+              + ("; the replicas share one card, so these record the overhead of the "
+                 "data-parallel path, not scaling" if count < 2 else ""))
+    print(f"data parallel: K1 alone (f32, 2 directions, T={t_dim}, median of 10): "
+          + ", ".join(f"B={rows} {ms!r} ms" for rows, ms in k1_ms.items()))
+    print(f"phase 24: wall {wall!r} s")
+    return {"devices": [str(d) for d in dp.devices], "visible_cards": count,
+            "forward": {"lstm_fwd": dp_counts["lstm_fwd"], "max_abs_err": err},
+            "decoders": decode_counts, "server_lstm_fwd": srv_counts["lstm_fwd"],
+            "evaluate_lstm_fwd": dp_eval["counts"]["lstm_fwd"],
+            "batch_ms": {name: {form: {"cuda_events": ev, "wall": wall_ms}
+                                for form, (ev, wall_ms) in ms.items()}
+                         for name, ms in batch_ms.items()},
+            "k1_ms": {f"B={rows}": ms for rows, ms in k1_ms.items()}}
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -2907,6 +3208,10 @@ def run(torch, np):
     defaults_back()
     print("LM phase: PyTorch defaults")
     lm = phase_lm(torch, np, state, model_cfg, gpu_name)
+    full_fp32()
+    print("data-parallel phase: TF32 off")
+    data_parallel = phase_data_parallel(torch, np, state, model_cfg, gpu_name, card)
+    defaults_back()
     del state
     print("augmented training phase: PyTorch defaults")
     aug_launches, aug_held = phase_augmented_training(torch, np, gpu_name, card)
@@ -2960,6 +3265,8 @@ def run(torch, np):
                 launches_in_training=train_launches["lstm_fwd"],
                 launches_in_ddp_training=ddp_launches["lstm_fwd"],
                 launches_in_evaluation=eval_runs["greedy"]["counts"]["lstm_fwd"],
+                launches_in_data_parallel=data_parallel["forward"]["lstm_fwd"],
+                data_parallel=data_parallel,
                 **bf16_extra(kernel["bfloat16"]),
                 **persistent_extra(kernel["float32"], kernel["bfloat16"]))]
     for key, name, source, replaces in (
@@ -2975,24 +3282,28 @@ def run(torch, np):
                                      train_kernels[(key, "bfloat16")]),
                         **attributes(key, train_kernels)))
     first_topk, first_beam = TOPK_SHAPES[0], BEAM_SHAPES[0]
+    dp_decoders = data_parallel["decoders"]
     lm_device_counts = lm["evaluation"]["device LM beam"]["counts"]
     rows.append(row("topk", "dsjax_torch/csrc/topk.cu", "dsjax/ops/topk_pallas.py:139",
                     eval_runs["beam, scan with K6"]["counts"]["topk"],
                     topk_res[f"({first_topk[0]}, {first_topk[1]}) -> {first_topk[2]}"],
                     device_ms=topk_res[f"({first_topk[0]}, {first_topk[1]}) -> {first_topk[2]}"]
                     ["device_ms"], shapes=topk_res,
-                    launches_on_the_lm_path=lm_device_counts["topk"], lm_scans=lm["scan"]))
+                    launches_on_the_lm_path=lm_device_counts["topk"], lm_scans=lm["scan"],
+                    launches_in_data_parallel=dp_decoders["beam, scan with K6"]["topk"]))
     b, t, w, c = first_beam
     rows.append(row("beam_scan", "dsjax_torch/csrc/beam_scan.cu", "dsjax/ops/beam_pallas.py:121",
                     eval_runs["beam, K7"]["counts"]["beam_scan"],
-                    beam_res[f"B={b} T={t} W={w} C={c}"], shapes=beam_res))
+                    beam_res[f"B={b} T={t} W={w} C={c}"], shapes=beam_res,
+                    launches_in_data_parallel=dp_decoders["beam, K7"]["beam_scan"]))
     # not a Pallas kernel: dsjax runs the backtrack as a lax.scan
     rows.append(row("beam_backtrack", "dsjax_torch/csrc/beam_scan.cu",
                     "dsjax/decode/beam_device.py:450", eval_runs["beam, K7"]["counts"]
                     ["beam_backtrack"], backtrack_res, device_ms=backtrack_res["device_ms"],
                     launches_on_the_scan_route=eval_runs["beam, scan with K6"]["counts"]
                     ["beam_backtrack"], shape=backtrack_res["shape"],
-                    launches_on_the_lm_path=lm_device_counts["beam_backtrack"]))
+                    launches_on_the_lm_path=lm_device_counts["beam_backtrack"],
+                    launches_in_data_parallel=dp_decoders["beam, K7"]["beam_backtrack"]))
     rows.append(row("gru_fwd", "dsjax_torch/csrc/gru_fwd.cu", "dsjax/ops/gru_pallas.py:40",
                     gru_serving["gru_fwd"], gru_kernel["float32"],
                     steps=gru_serving["gru_steps"],

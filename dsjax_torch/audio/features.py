@@ -110,7 +110,12 @@ def spectrogram_torch(yp_batch: torch.Tensor, n_valid: torch.Tensor, cfg: SpectC
     if not yp_batch.dtype.is_floating_point:
         yp_batch = yp_batch.to(torch.float32) * (1.0 / 32768.0)
     yp_batch = yp_batch.to(torch.float32)
-    window = torch.from_numpy(periodic_window(cfg.window, n_fft)).to(yp_batch.device)
+    # pinned and copied without blocking: a pageable copy would wait for the
+    # card's stream, which holds the other replicas' work on a shared card
+    window = torch.from_numpy(periodic_window(cfg.window, n_fft))
+    if yp_batch.is_cuda:
+        window = window.pin_memory()
+    window = window.to(yp_batch.device, non_blocking=True)
     b = yp_batch.shape[0]
     chunks = yp_batch.reshape(b, yp_batch.shape[1] // hop, hop)
     frames = torch.cat([chunks[:, :-1, :], chunks[:, 1:, :]], dim=-1)   # (B, T, n_fft)

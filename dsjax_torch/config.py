@@ -8,11 +8,14 @@ on the same command lines (including the group swaps ``optim=sgd`` and
 ``model=unidirectional``). The additions are ``ServerConfig.device`` and
 ``TrainerConfig.device``, the torch device the server or the trainer runs
 the model on. Fields that select or tune JAX itself (``platform``,
-``num_cpu_devices``, ``matmul_precision``, ``donate_state``) are kept so
-the same command lines parse; the server, evaluation and transcription
-read none of them, and the trainer refuses a value other than the
-default. Under torchrun ``trainer.devices`` counts a node's processes, one
-a card, and the trainer's ``mesh_*`` must describe the world size
+``matmul_precision``, ``donate_state``) are kept so the same command lines
+parse; the server, evaluation and transcription read none of them, and the
+trainer refuses a value other than the default. ``num_cpu_devices`` of the
+inference configs is read as in dsjax: with ``device=cpu`` the model gets
+that many CPU replicas (dsjax's fake CPU devices), over which batches shard
+(``inference.local_devices``); ``trainer.num_cpu_devices`` stays refused.
+Under torchrun ``trainer.devices`` counts a node's processes, one a card,
+and the trainer's ``mesh_*`` must describe the world size
 (``parallel/mesh.py``); tensor parallelism (``mesh_model`` > 1) raises.
 ``EvalConfig`` and ``TranscribeConfig`` also gain ``device``;
 ``EvalConfig`` drops dsjax's unread ``save_output``.
@@ -205,7 +208,9 @@ class InferenceConfig:
     lm: LMConfig = field(default_factory=LMConfig)
     model: ModelLoadConfig = field(default_factory=ModelLoadConfig)
     platform: str = ""                # dsjax's JAX platform; not read here
-    num_cpu_devices: int = 0          # dsjax's fake CPU devices; not read here
+    # with device=cpu, this many CPU replicas when > 0 (dsjax's fake CPU
+    # devices); batches shard over them
+    num_cpu_devices: int = 0
 
 
 @dataclass
@@ -213,7 +218,7 @@ class TranscribeConfig(InferenceConfig):
     audio_path: str = ""
     offsets: bool = False
     chunk_size_seconds: float = -1.0
-    device: str = "cuda"              # "cpu" only when asked for
+    device: str = "cuda"              # "cpu" only when asked for; see ServerConfig
 
 
 @dataclass
@@ -225,7 +230,7 @@ class EvalConfig(InferenceConfig):
     # the STFT on the device from int16 raw audio (dsjax's default);
     # evaluate() takes host features when the window overlap is not 50%
     device_features: bool = True
-    device: str = "cuda"              # "cpu" only when asked for
+    device: str = "cuda"              # "cpu" only when asked for; see ServerConfig
 
 
 @dataclass
@@ -240,7 +245,9 @@ class ServerConfig(InferenceConfig):
     warmup_seconds: float = 10.0
     # /stream sessions idle longer than this are garbage-collected
     stream_session_ttl: float = 300.0
-    device: str = "cuda"              # "cpu" only when asked for
+    # "cpu" only when asked for; "cuda" is every visible card, "cuda:k" one,
+    # "cuda:0,cuda:1" a list, where a card may repeat
+    device: str = "cuda"
 
 
 # polymorphic groups: "optim=sgd" swaps the group's dataclass

@@ -1,24 +1,31 @@
 """Inference: model loading, the batched and carried forward, decoders,
 transcription.
 
-Counterpart of dsjax/inference.py on one torch device. ``load_model`` reads a
-``.pt``/``.ckpt`` file holding a reference-layout state_dict and the
-hyper-parameters beside it: the reference's Lightning checkpoints, or what
+Counterpart of dsjax/inference.py. ``load_model`` reads a ``.pt``/``.ckpt``
+file holding a reference-layout state_dict and the hyper-parameters beside
+it: the reference's Lightning checkpoints, or what
 ``dsjax_torch.model.convert.save_checkpoint`` writes (both through
-``convert.load_checkpoint``). ``ModelBundle.forward`` takes (B, F, T)
-features, or (B, L_pad) raw audio with the STFT on the device before the
-model. ``load_decoder`` gives the greedy decoder, the device beam search (with an
+``convert.load_checkpoint``); a dsjax checkpoint directory converts first
+with ``tools/dsjax_checkpoint_to_torch.py``. ``ModelBundle`` holds one
+replica of the model on each local device (``local_devices``: every
+visible card by default) and ``forward`` splits a batch whose size the
+replica count divides into row shards, one a device, as dsjax's bundle
+shards over its ('data',) mesh, and gathers the posteriors onto the first
+device, where they are decoded once; any other batch, and every carried
+forward, runs on the first device. ``forward`` takes (B, F, T) features, or
+(B, L_pad) raw audio with the STFT on the device before the model.
+``load_decoder`` gives the greedy decoder, the device beam search (with an
 n-gram LM fused into it under ``lm.device_beam``) or the host beam search
 with the LM. The device defaults to ``cuda``; without a CUDA card the caller
 must ask for ``device="cpu"``.
-
-Not ported yet (ROADMAP.md, Queue 1): dsjax checkpoint directories,
-evaluation sharded across cards.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import os
 import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -37,6 +44,8 @@ from dsjax_torch.model.convert import (from_reference_state_dict, infer_architec
                                        load_checkpoint, plain_hparams)
 from dsjax_torch.model.ds2 import DeepSpeech2
 
+CONVERT_TOOL = "tools/dsjax_checkpoint_to_torch.py"
+
 
 def resolve_device(device: Any) -> torch.device:
     """torch.device for ``device``; refuses CUDA where there is none rather
@@ -48,44 +57,141 @@ def resolve_device(device: Any) -> torch.device:
     return device
 
 
+def local_devices(device: Any = "cuda", num_cpu_devices: int = 0) -> List[torch.device]:
+    """The replicas' devices that ``device`` names, as dsjax takes
+    ``jax.devices()``: ``cuda`` every visible card (cuda:0 .. cuda:N-1),
+    ``cuda:k`` that card alone, ``cpu`` one replica or ``num_cpu_devices``
+    of them when that is more than 0 (dsjax's fake CPU devices), and a
+    list, or a comma-separated string (``cuda:0,cuda:1``), the devices of
+    each of its items, where one may repeat (replicas sharing a card, which
+    drive the data-parallel path on one card). A CUDA device always carries
+    its index."""
+    if isinstance(device, str) and "," in device:
+        device = [name.strip() for name in device.split(",")]
+    if not isinstance(device, (str, torch.device)):
+        return [d for item in device for d in local_devices(item)]
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return [device] * max(1, num_cpu_devices)
+    if device.type != "cuda":
+        raise ValueError(f"no replica on {device}: pass cuda, cuda:k or cpu")
+    count = torch.cuda.device_count()
+    if device.index is None:
+        return [torch.device("cuda", i) for i in range(count)]
+    if device.index >= count:
+        raise ValueError(f"{device}: only {count} CUDA device(s) are visible")
+    return [device]
+
+
+def _to_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` (numpy, a list or a tensor) on ``device``. A host array bound
+    for a card is pinned and copied without blocking: a pageable copy would
+    wait for the card's stream, which holds the previous shard's work when
+    replicas share the card."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 @dataclasses.dataclass
 class ModelBundle:
+    """The model with one replica on each device of ``local_devices(devices)``
+    (``devices`` is anything that takes; a device may repeat). Each
+    replica's weights are copied to its device once, here; replicas that
+    repeat a device share one module and that device's current stream, so
+    their launches run in turn (two whole-card cooperative scans in flight
+    on one card would have no co-residency guarantee). ``device`` is the
+    first device, where a batch that does not shard runs and where
+    ``forward`` returns its results."""
     model: DeepSpeech2
     labels: List[str]
     spect_cfg: SpectConfig
-    device: Any = "cuda"
+    devices: Any = "cuda"
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
-        self.model.to(self.device).eval()
+        self.devices = local_devices(self.devices)
+        if not self.devices:
+            raise ValueError("a ModelBundle needs at least one device")
+        self.replicas: Dict[torch.device, DeepSpeech2] = {
+            dev: copy.deepcopy(self.model).to(dev).eval()
+            for dev in dict.fromkeys(self.devices[1:]) if dev != self.device}
+        self.replicas[self.device] = self.model.to(self.device).eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def shards(self, batch: int) -> int:
+        """How many row shards ``forward`` splits an uncarried batch of
+        ``batch`` rows into: the replica count where it divides the batch
+        (dsjax/inference.py:91), else 1."""
+        n = len(self.devices)
+        return n if n > 1 and batch % n == 0 else 1
 
     def forward(self, spect, lengths, carry=None):
         """(B, F, T) features, or (B, L_pad) raw audio prepared by
         ``pad_audio_for_device`` (float32 or int16) with the STFT run on the
         device first -> (probs (B, T', C) float32, out_lens (B,), carry),
-        all on the bundle's device. ``carry`` is the value returned by the
-        previous call of a chunked stream (features only)."""
+        all on the first device. ``carry`` is the value returned by the
+        previous call of a chunked stream (features only).
+
+        Where ``shards`` splits the batch, contiguous row shards go one to
+        each replica: every shard's copy to its device is issued first, then
+        each shard's STFT and model on its device's current stream, with no
+        host synchronisation between them, and the shards' posteriors and
+        out_lens are gathered onto the first device (the copies wait on the
+        devices' streams, not the host), where the decoders run once; the
+        carry is then None. Otherwise everything runs on the first device."""
+        n = self.shards(len(spect)) if carry is None else 1
+        if n == 1:
+            return self._forward_on(self.device, spect, lengths, carry)
+        rows = len(spect) // n
+        parts = [slice(i * rows, (i + 1) * rows) for i in range(n)]
+        # every shard on its device before any model work is issued: a copy
+        # between cards runs behind the work on the source card's stream
+        shards = [(dev, _to_device(spect[p], dev), _to_device(lengths[p], dev))
+                  for dev, p in zip(self.devices, parts)]
+        outs = []
+        for dev, x, lens in shards:
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                outs.append(self._forward_on(dev, x, lens, None))
+        first = self.device
+        return (torch.cat([p.to(first, non_blocking=True) for p, _, _ in outs]),
+                torch.cat([o.to(first, non_blocking=True) for _, o, _ in outs]), None)
+
+    def _forward_on(self, dev: torch.device, spect, lengths, carry):
         raw = spect.dim() == 2 if isinstance(spect, torch.Tensor) else np.ndim(spect) == 2
         with torch.inference_mode():
-            lens = torch.as_tensor(lengths).to(device=self.device, dtype=torch.int32)
+            lens = _to_device(lengths, dev).to(torch.int32)
             if raw:
                 if carry is not None:
                     raise ValueError("the raw-audio forward starts a new utterance: "
                                      "pass features to carry state")
-                y = torch.as_tensor(spect).to(self.device)
-                x = spectrogram_torch(y, lens, self.spect_cfg, normalize=True)
+                x = spectrogram_torch(_to_device(spect, dev), lens, self.spect_cfg,
+                                      normalize=True)
             else:
-                x = torch.as_tensor(spect).to(device=self.device, dtype=torch.float32)
-            return self.model(x, lens, carry)
+                x = _to_device(spect, dev).to(torch.float32)
+            return self.replicas[dev](x, lens, carry)
 
 
-def load_model(model_path: str, precision: int = 32, device: Any = "cuda") -> ModelBundle:
+def load_model(model_path: str, precision: int = 32, device: Any = "cuda",
+               num_cpu_devices: int = 0) -> ModelBundle:
     """Load a checkpoint written by ``save_checkpoint`` or a reference
     Lightning ``.ckpt``: a reference-layout state_dict with labels and
     spect_cfg among its hyper-parameters (plain data, or omegaconf objects
     read through ``load_checkpoint``'s stubs). The weights' shapes decide the
-    architecture (rnn_type, widths, direction, Lookahead context)."""
-    device = resolve_device(device)
+    architecture (rnn_type, widths, direction, Lookahead context). The
+    replicas go on ``local_devices(device, num_cpu_devices)``. A dsjax
+    checkpoint directory (it holds ``meta.json``) raises: convert it
+    first."""
+    if os.path.isdir(model_path):
+        hint = (f"{model_path} holds meta.json: it is a dsjax checkpoint directory. Convert it "
+                f"with python {CONVERT_TOOL} {model_path} OUT.pt (needs jax and orbax) and load "
+                f"OUT.pt" if os.path.isfile(os.path.join(model_path, "meta.json"))
+                else f"{model_path} is a directory, not a checkpoint file")
+        raise IsADirectoryError(hint)
+    devices = local_devices(device, num_cpu_devices)
     ckpt = load_checkpoint(model_path)
     state = ckpt.get("state_dict", ckpt)
     hparams = plain_hparams(ckpt.get("hyper_parameters")) or {}
@@ -104,7 +210,7 @@ def load_model(model_path: str, precision: int = 32, device: Any = "cuda") -> Mo
     dtype = torch.bfloat16 if precision == 16 else torch.float32
     model = DeepSpeech2(num_classes, spect, model_cfg, dtype=dtype)
     model.load_state_dict(from_reference_state_dict(state))
-    return ModelBundle(model, labels, spect, device)
+    return ModelBundle(model, labels, spect, devices)
 
 
 def load_decoder(labels: Sequence[str], cfg: LMConfig, want_offsets: bool = False):

@@ -5,8 +5,11 @@ the transcription JSON; POST /stream?session=ID&final=0|1 feeds one chunk of
 an incremental session that carries the RNN state; GET /health answers ok.
 Concurrent requests are padded into one batch, with the batch size rounded
 up to a power of two and T to a multiple of 64 frames, as dsjax does, so the
-two servers see the same shapes. Audio longer than chunk_size_seconds runs
-chunk by chunk with the RNN state carried, on a side pool. With
+two servers see the same shapes. A batch whose size the bundle's replica
+count divides (``device=cuda``: every visible card) takes the data-parallel
+forward; smaller batches, chunked uploads and /stream sessions run on the
+first card. Audio longer than chunk_size_seconds runs chunk by chunk with
+the RNN state carried, on a side pool. With
 ``lm.decoder_type=beam`` batches decode with the device beam search (the LM
 fused into it with ``lm.lm_path`` and ``lm.device_beam=true``), and a
 /stream session carries the beam state from chunk to chunk, so its
@@ -15,6 +18,7 @@ beam with an LM (``lm.device_beam=false``) cannot stream: /stream collapses
 greedily for it.
 
     python -m dsjax_torch.server model.model_path=model.pt port=8888 [device=cpu]
+        [num_cpu_devices=N]      # N CPU replicas, dsjax's fake CPU devices
 """
 
 from __future__ import annotations
@@ -358,7 +362,8 @@ def serve(cfg: ServerConfig) -> Tuple[ThreadingHTTPServer, BatchWorker]:
     """Load the model, warm up, and start the batch worker and an HTTP server
     bound to (cfg.host, cfg.port); the server's loop runs on a daemon
     thread. Stop both with ``shutdown(server, worker)``."""
-    bundle = load_model(cfg.model.model_path, cfg.model.precision, cfg.device)
+    bundle = load_model(cfg.model.model_path, cfg.model.precision, cfg.device,
+                        cfg.num_cpu_devices)
     worker = BatchWorker(bundle, load_decoder(bundle.labels, cfg.lm), cfg)
     worker.warmup()
     worker.start()

@@ -9,7 +9,8 @@ deepspeech_pytorch/{training,testing,inference}.py).
     dsjax_torch.train ...``) it first joins the process group and each rank
     trains on its own card and its own share of the batches;
   * ``evaluate`` takes an ``EvalConfig`` and prints WER/CER over a manifest
-    (``python -m dsjax_torch.evaluate ...``);
+    (``python -m dsjax_torch.evaluate ...``), in one process over every
+    replica of the bundle (every visible card by default);
   * ``transcribe`` takes a ``TranscribeConfig`` and prints the result JSON
     of one file (``python -m dsjax_torch.transcribe ...``).
 """
@@ -132,11 +133,15 @@ def evaluate(cfg: EvalConfig) -> Tuple[float, float]:
     """Evaluation workflow (reference: testing.py:12-50). Returns (wer, cer).
 
     Samples load on a thread pool while the device runs the previous batch;
-    the batch dimension is padded to ``batch_size``; batch k+1's copy to
-    the device is staged ahead (DevicePrefetcher) and its forward is issued
-    before batch k is decoded, so the host's string building for k
-    overlaps the device's forward of k+1."""
-    bundle = load_model(cfg.model.model_path, cfg.model.precision, cfg.device)
+    the batch dimension is padded to ``batch_size`` rounded up to a multiple
+    of the bundle's replicas (dsjax/workflows.py:200-205), so every batch
+    takes the data-parallel forward over them; batch k+1's copy to the first
+    device is staged ahead (DevicePrefetcher; the forward copies each
+    shard on to its card from there) and its forward is issued before batch
+    k is decoded, so the host's string building for k overlaps the devices'
+    forward of k+1."""
+    bundle = load_model(cfg.model.model_path, cfg.model.precision, cfg.device,
+                        cfg.num_cpu_devices)
     decoder = load_decoder(bundle.labels, cfg.lm)
     target_decoder = load_decoder(bundle.labels, type(cfg.lm)())  # greedy
     dev_feats = cfg.device_features
@@ -148,8 +153,10 @@ def evaluate(cfg: EvalConfig) -> Tuple[float, float]:
     ds = SpectrogramDataset(bundle.spect_cfg, cfg.test_path, bundle.labels,
                             normalize=True, device_features=dev_feats)
     sampler = OrderedBatchSampler(len(ds), cfg.batch_size)
+    n_rep = len(bundle.devices)
     pipe = DataPipeline(ds, sampler, bucket_frames=64, bucket_labels=64,
-                        num_workers=cfg.num_workers, prefetch=2, pad_to_batch=cfg.batch_size)
+                        num_workers=cfg.num_workers, prefetch=2,
+                        pad_to_batch=-(-cfg.batch_size // n_rep) * n_rep)
     wer, cer = WordErrorRate(), CharErrorRate()
     copy_stream = torch.cuda.Stream(bundle.device) if bundle.device.type == "cuda" else None
 
@@ -206,7 +213,8 @@ def evaluate(cfg: EvalConfig) -> Tuple[float, float]:
 def transcribe(cfg: TranscribeConfig) -> Dict[str, Any]:
     """Transcription workflow (reference: inference.py:44-76): prints and
     returns the result JSON."""
-    bundle = load_model(cfg.model.model_path, cfg.model.precision, cfg.device)
+    bundle = load_model(cfg.model.model_path, cfg.model.precision, cfg.device,
+                        cfg.num_cpu_devices)
     decoder = load_decoder(bundle.labels, cfg.lm, want_offsets=cfg.offsets)
     decoded_output, decoded_offsets = run_transcribe(
         audio_path=cfg.audio_path, bundle=bundle, decoder=decoder,

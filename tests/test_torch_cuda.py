@@ -26,7 +26,10 @@ kernels are checked to spill nothing under their plans, and K1 to run
 beside K2 on a second stream. The LM-fused beam scan selecting with K6 is
 held bit for bit against the same scan with the plain top-k, the device
 LM's scores on the card against the CPU's, and an LM decode makes T + 1 K6
-launches and no K7 launch even under DSJAX_FUSED_BEAM=1.
+launches and no K7 launch even under DSJAX_FUSED_BEAM=1. The data-parallel
+bundle, on two replicas sharing one card and on every card where there are
+several, gives one card's posteriors and strings, with K1's launches
+counted a shard.
 """
 
 import numpy as np
@@ -900,3 +903,59 @@ def test_persistent_scan_refuses_a_plan_it_does_not_take(full_fp32, monkeypatch)
     with pytest.raises(RuntimeError, match="lstm_fwd launch"):
         lstm.lstm_scan(*args, shape[3])
     assert lstm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("spec", ["cuda:0,cuda:0", "cuda"], ids=["one card twice", "every card"])
+def test_replicated_bundle_matches_one_card(full_fp32, spec, monkeypatch):
+    """The data-parallel bundle on two replicas sharing cuda:0, and on every
+    card where there are two or more: an 8-row raw-audio batch in row
+    shards, one K1 launch a layer and shard, the shards' posteriors
+    gathered onto cuda:0 within the f32 tolerance of one card's, out_lens
+    equal; greedy, the scan-route beam (T + 1 K6 launches) and K7's route
+    (one K7 and one backtrack) give one card's strings."""
+    from dsjax_torch.audio.features import pad_audio_for_device
+    from dsjax_torch.config import BiDirectionalConfig, SpectConfig
+    from dsjax_torch.decode.beam_device import DeviceBeamDecoder
+    from dsjax_torch.decode.greedy import GreedyDecoder
+    from dsjax_torch.inference import ModelBundle
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.model.ds2 import DeepSpeech2
+    from dsjax_torch.ops import beam, topk
+
+    if spec == "cuda" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    layers = 2
+    model = DeepSpeech2(len(DEFAULT_LABELS), SpectConfig(),
+                        BiDirectionalConfig(hidden_size=256, hidden_layers=layers),
+                        generator=torch.Generator().manual_seed(5))
+    dp = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), spec)
+    one = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), "cuda:0")
+    n = len(dp.devices)
+    assert n >= 2 and all(d.type == "cuda" and d.index is not None for d in dp.devices)
+    rng = np.random.default_rng(11)
+    ys = [rng.standard_normal(int(16000 * s)).astype(np.float32) * 0.1
+          for s in rng.uniform(0.5, 2.0, 8)]
+    n_valid = np.array([pad_audio_for_device(y, SpectConfig())[1] for y in ys], np.int32)
+    audio = np.stack([np.clip(np.rint(pad_audio_for_device(y, SpectConfig(), int(n_valid.max()))[0]
+                                      * 32768.0), -32768, 32767).astype(np.int16) for y in ys])
+    before = lstm.LAUNCHES
+    probs, out_lens, _ = dp.forward(audio, n_valid)
+    torch.cuda.synchronize()
+    assert lstm.LAUNCHES - before == dp.shards(8) * layers
+    assert probs.device == out_lens.device == torch.device("cuda", 0)
+    want, want_lens, _ = one.forward(audio, n_valid)
+    assert torch.equal(out_lens, want_lens)
+    torch.testing.assert_close(probs, want, **TOL[torch.float32])
+    t_dim = want.shape[1]
+    for name, dec, fused, expected in (
+            ("greedy", GreedyDecoder(DEFAULT_LABELS), "0", (0, 0, 0)),
+            ("scan", DeviceBeamDecoder(DEFAULT_LABELS, beam_width=10), "0", (t_dim + 1, 0, 1)),
+            ("K7", DeviceBeamDecoder(DEFAULT_LABELS, beam_width=10), "1", (0, 1, 1))):
+        monkeypatch.setenv("DSJAX_FUSED_BEAM", fused)
+        before = (topk.LAUNCHES, beam.LAUNCHES, beam.BACKTRACK_LAUNCHES)
+        got = dec.decode(probs, out_lens, n_best=1)[0]
+        torch.cuda.synchronize()
+        counts = (topk.LAUNCHES - before[0], beam.LAUNCHES - before[1],
+                  beam.BACKTRACK_LAUNCHES - before[2])
+        assert counts == expected, name
+        assert got == dec.decode(want, want_lens, n_best=1)[0], name

@@ -129,7 +129,7 @@ def main() -> int:
     model_cfg, classes = infer_architecture(state)
     model = DeepSpeech2(classes, SpectConfig(), model_cfg)
     model.load_state_dict(from_reference_state_dict(state))
-    bundle = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), device="cuda")
+    bundle = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), "cuda:0")
     cfg = bundle.spect_cfg
     hop = int(cfg.sample_rate * cfg.window_stride)
 

@@ -74,7 +74,7 @@ def profile_precision(torch, np, precision: int, state, batch: int, seconds: flo
     dtype = torch.bfloat16 if precision == 16 else torch.float32
     model = DeepSpeech2(classes, SpectConfig(), model_cfg, dtype=dtype)
     model.load_state_dict(from_reference_state_dict(state))
-    bundle = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), device="cuda")
+    bundle = ModelBundle(model, list(DEFAULT_LABELS), SpectConfig(), "cuda:0")
     decoder = GreedyDecoder(DEFAULT_LABELS)
     extractor = FeatureExtractor(bundle.spect_cfg, normalize=True)
 
