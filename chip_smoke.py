@@ -180,6 +180,21 @@ Phases, each printing what it measured; any failure exits non-zero:
               shard's rows and at the batch's. Phases 2-23 run their
               bundles, servers and evaluations on cuda:0 alone.
               ``tools/torch_data_parallel.py`` runs this phase by itself.
+ 25. resume  continuing a run from a checkpoint, as a dsjax run moved to
+              the card continues: phase 8's flagship (bf16, B=64) trains 2
+              of an epoch's 3 steps and saves mid-epoch (last_only,
+              start_index, epoch) as F; F's state is mapped to dsjax's tree
+              layout (tests/dsjax_layout.py, numpy) and written back by
+              ``train.checkpoint.from_dsjax_state``, as
+              tools/dsjax_checkpoint_to_torch.py writes a dsjax step, as F',
+              which must equal F tensor for tensor (weights, running stats,
+              Adam's step, exp_avg and exp_avg_sq, param groups, step, epoch,
+              start_index); ``workflows.train`` with load_auto_checkpoint
+              resumes F and F' to the end of the epoch: exact K2/K3 (the
+              step left x 5 layers) and K1 (validation) counts, finite
+              losses, the two runs' losses equal (else within the spread of
+              a second resume of F); the seconds of the save, the restore
+              onto the card, the mapping and the conversion.
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
 f32, and for K2, K3, K4 with residuals and K5 in bf16 as well; torch.topk;
@@ -203,6 +218,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3140,6 +3156,174 @@ def phase_data_parallel(torch, np, state, model_cfg, gpu_name, card):
             "k1_ms": {f"B={rows}": ms for rows, ms in k1_ms.items()}}
 
 
+# phase 25: continuing a dsjax run on the card. The trainer's own mid-epoch
+# file F (phase 8's flagship and corpus, 2 of an epoch's 3 steps), F's state
+# mapped to dsjax's tree layout (tests/dsjax_layout.py) and written back by
+# from_dsjax_state, as tools/dsjax_checkpoint_to_torch.py writes a dsjax
+# step (F'), then workflows.train resuming each to the end of the epoch
+RESUME_SAVED = 2
+
+
+def resume_run(torch, base, ckpt, name):
+    """workflows.train with load_auto_checkpoint over ``ckpt``, counted;
+    returns (final step, launch counts, losses, seconds)."""
+    from dsjax_torch.config import TrainConfig, compose
+    from dsjax_torch.workflows import train
+
+    log_dir = os.path.join(os.path.dirname(ckpt), f"logs_{name}")
+    cfg = compose(TrainConfig, base + [f"checkpoint.dirpath={ckpt}", "load_auto_checkpoint=true",
+                                       f"trainer.log_dir={log_dir}"])
+    reset_counts()
+    t0 = time.perf_counter()
+    step = train(cfg).step
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    torch.cuda.empty_cache()
+    records = [json.loads(line) for line in open(os.path.join(log_dir, "metrics.jsonl"))]
+    return step, counts, [r["loss"] for r in records if "loss" in r], seconds
+
+
+def same_files(torch, f, g):
+    """F' against F: every entry, the weights and running stats, the
+    optimizer's param groups and each parameter's step, exp_avg and
+    exp_avg_sq (values, dtype and device) equal."""
+    check(set(f) == set(g), f"F' holds {sorted(g)}, F {sorted(f)}")
+    for key in ("step", "epoch", "metrics", "extra", "hyper_parameters"):
+        check(f[key] == g[key], f"F' {key} {g[key]} against F's {f[key]}")
+    check(f["state_dict"].keys() == g["state_dict"].keys()
+          and all(torch.equal(v, g["state_dict"][k]) for k, v in f["state_dict"].items()),
+          "F' weights or running stats differ from F's")
+    fo, go = f["optimizer"], g["optimizer"]
+    check(fo["param_groups"] == go["param_groups"],
+          f"param groups {go['param_groups']} against {fo['param_groups']}")
+    check(fo["state"].keys() == go["state"].keys(), "F' optimizer state covers other parameters")
+    for i, a in fo["state"].items():
+        b = go["state"][i]
+        check(a.keys() == b.keys() == {"step", "exp_avg", "exp_avg_sq"}
+              and all(torch.equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+                      and a[k].device == b[k].device for k in a),
+              f"F' optimizer state of parameter {i} differs from F's")
+
+
+def phase_resume(torch, np, gpu_name, card):
+    """25: (a) train 2 steps and save mid-epoch (last_only, start_index,
+    epoch) as F; (b) F's state to dsjax's layout and back through
+    from_dsjax_state as F', equal to F tensor for tensor; (c) workflows.train
+    with load_auto_checkpoint over F and over F', each finishing the epoch:
+    exact K2/K3/K1 counts, finite losses, the two runs' losses equal (or
+    within the spread of two resumes of F). Returns the resume of F's
+    launches."""
+    from dsjax_torch.config import TrainConfig, compose
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.model.convert import load_checkpoint
+    from dsjax_torch.train.checkpoint import (CheckpointHandler, from_dsjax_state,
+                                              restore_file)
+    from dsjax_torch.train.loop import Trainer
+    from dsjax_torch.workflows import _pipelines
+    from tests.dsjax_layout import to_dsjax_state
+    from tests.synthetic_manifest import write_manifest
+
+    t_phase = time.perf_counter()
+    labels = list(DEFAULT_LABELS)
+    rng = np.random.default_rng(3)
+    prime = "F'"
+    with tempfile.TemporaryDirectory() as tmp:
+        train_path = write_manifest(tmp, "train", [TRAIN_SECONDS] * TRAIN_UTTS, seed=4)
+        val_path = write_manifest(tmp, "val", list(rng.uniform(3.0, TRAIN_SECONDS, VAL_UTTS)),
+                                  seed=5)
+        data = [f"data.train_path={train_path}", f"data.val_path={val_path}",
+                "data.device_features=false", f"data.batch_size={TRAIN_B}",
+                "data.num_workers=4", "trainer.precision=16", "trainer.max_epochs=1",
+                "trainer.log_every_n_steps=1"]
+        base = data + ["trainer.device=cuda", "trainer.devices=1"]
+        cfg = compose(TrainConfig, base)
+        steps = -(-TRAIN_UTTS // TRAIN_B)
+        left, layers = steps - RESUME_SAVED, cfg.model.hidden_layers
+        val_forwards = -(-VAL_UTTS // TRAIN_B)
+
+        # (a) the trainer's mid-epoch save, as Trainer.fit makes it
+        trainer = Trainer(cfg, labels)
+        state = trainer.init_state()
+        train_pipe = _pipelines(cfg, labels)[0]
+        train_pipe.sampler.set_epoch(0)
+        for i, batch in enumerate(train_pipe):
+            if i == RESUME_SAVED:
+                break
+            state, loss = trainer.train_step(state, batch)
+        dir_f, dir_g = os.path.join(tmp, "ckpt_f"), os.path.join(tmp, "ckpt_g")
+        handler = CheckpointHandler(dir_f, cfg=cfg, labels=labels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handler.save(state, {"loss": float(loss)},
+                     extra={"start_index": RESUME_SAVED, "epoch": 0}, last_only=True)
+        save_s = time.perf_counter() - t0
+        path_f = handler.path()
+        size_gb = os.path.getsize(path_f) / 1e9
+        t0 = time.perf_counter()
+        restore_file(path_f, trainer.init_state())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del state, trainer
+        torch.cuda.empty_cache()
+
+        # (b) F -> dsjax's layout -> F'
+        cpu_state = Trainer(compose(TrainConfig, data + ["trainer.device=cpu"]),
+                            labels).init_state()
+        saved, extra = restore_file(path_f, cpu_state)
+        t0 = time.perf_counter()
+        tree = to_dsjax_state(saved)
+        map_s = time.perf_counter() - t0
+        path_g = os.path.join(dir_g, "last", os.path.basename(path_f))
+        os.makedirs(os.path.dirname(path_g))
+        f = load_checkpoint(path_f)
+        t0 = time.perf_counter()
+        from_dsjax_state(path_g, cfg, labels, tree["params"], tree["batch_stats"],
+                         tree["moments"], tree["step"], tree["epoch"], f["metrics"], extra)
+        convert_s = time.perf_counter() - t0
+        check(f["extra"] == {"start_index": RESUME_SAVED, "epoch": 0}, f"F's extra {f['extra']}")
+        check(tree["moments"]["count"] == RESUME_SAVED, f"Adam's count {tree['moments']}")
+        same_files(torch, f, load_checkpoint(path_g))
+        del saved, cpu_state, tree, f
+
+        # (c) workflows.train resuming F and F'
+        want = {"lstm_fwd": layers * val_forwards, "lstm_fwd_residuals": layers * left,
+                "lstm_bwd": layers * left}
+        runs = {}
+        for name, ckpt in (("F", dir_f), (prime, dir_g)):
+            step, counts, losses, seconds = resume_run(torch, base, ckpt, name)
+            launches = {k: counts[k] for k in want}
+            check(step == steps and launches == want
+                  and sum(counts.values()) == sum(launches.values()) + counts["lstm_steps"],
+                  f"resume of {name}: {step} steps, launches {counts}, expected {want}")
+            check(len(losses) == left and all(np.isfinite(losses)),
+                  f"resume of {name}: losses {losses}")
+            runs[name] = (launches, losses, seconds)
+        spread = None
+        if runs["F"][1] != runs[prime][1]:
+            # not bit for bit: hold F' to the spread of a second resume of F
+            dir_f2 = os.path.join(tmp, "ckpt_f2")
+            os.makedirs(os.path.join(dir_f2, "last"))
+            shutil.copy(path_f, os.path.join(dir_f2, "last"))
+            again = resume_run(torch, base, dir_f2, "F2")[2]
+            spread = max(abs(a - b) for a, b in zip(again, runs["F"][1]))
+            gap = max(abs(a - b) for a, b in zip(runs[prime][1], runs["F"][1]))
+            check(gap <= spread, f"resumes of F' {runs[prime][1]} and of F {runs['F'][1]} "
+                                 f"{gap} apart; two resumes of F {spread}")
+    print(f"resume on {gpu_name} ({card}): 5x BiLSTM-1024 bf16, B={TRAIN_B} x {TRAIN_SECONDS} "
+          f"s, F saved after {RESUME_SAVED} of {steps} steps (start_index {RESUME_SAVED}) in "
+          f"{save_s!r} s ({size_gb!r} GB), restored onto the card in {restore_s!r} s; F's state "
+          f"mapped to dsjax's layout in {map_s!r} s and written back as F' by from_dsjax_state "
+          f"in {convert_s!r} s, equal to F tensor for tensor (weights, running stats, Adam "
+          f"step, exp_avg, exp_avg_sq, param groups, step, epoch, start_index); "
+          f"workflows.train resuming F: losses {runs['F'][1]}, launches {runs['F'][0]}, "
+          f"{runs['F'][2]!r} s; resuming F': losses {runs[prime][1]}, launches "
+          f"{runs[prime][0]}, {runs[prime][2]!r} s; the two "
+          + ("equal bit for bit" if spread is None else f"within two resumes of F's {spread!r}"))
+    print(f"phase 25: wall {time.perf_counter() - t_phase!r} s")
+    return runs["F"][0]
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -3218,6 +3402,8 @@ def run(torch, np):
     print("multi-device training phase: PyTorch defaults (the two-rank comparison with TF32 "
           "off)")
     ddp_launches = phase_ddp_training(torch, np, gpu_name, card, full_fp32, defaults_back)
+    print("resume phase: PyTorch defaults")
+    resume_launches = phase_resume(torch, np, gpu_name, card)
 
     def row(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3264,6 +3450,7 @@ def run(torch, np):
                 launches, kernel["float32"], steps=steps,
                 launches_in_training=train_launches["lstm_fwd"],
                 launches_in_ddp_training=ddp_launches["lstm_fwd"],
+                launches_in_resume=resume_launches["lstm_fwd"],
                 launches_in_evaluation=eval_runs["greedy"]["counts"]["lstm_fwd"],
                 launches_in_data_parallel=data_parallel["forward"]["lstm_fwd"],
                 data_parallel=data_parallel,
@@ -3277,6 +3464,7 @@ def run(torch, np):
         rows.append(row(name, source, replaces, train_launches[name],
                         train_kernels[(key, "float32")],
                         launches_in_ddp_training=ddp_launches[name],
+                        launches_in_resume=resume_launches[name],
                         **bf16_extra(train_kernels[(key, "bfloat16")]),
                         **pair_extra(key, train_kernels[(key, "float32")],
                                      train_kernels[(key, "bfloat16")]),

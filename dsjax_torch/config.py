@@ -22,7 +22,12 @@ and the trainer's ``mesh_*`` must describe the world size
 
 Override values follow YAML's scalar rules (``8`` is an int, ``true`` a
 bool, ``null`` None), implemented here: PyYAML is imported only to read an
-overlay file (``configs=PATH``).
+overlay file (``configs=PATH``, or ``+configs=NAME`` for
+``dsjax_torch/configs/NAME.yaml``, byte-for-byte copies of dsjax's dataset
+overlays, then ``./configs/NAME.yaml``). ``to_dict``/``from_dict`` are
+dsjax's, so a checkpoint directory's ``meta.json`` carries the same tagged
+config in both packages; ``compose_cli`` gives the entry modules dsjax's
+``-h``/``--help`` listing.
 """
 
 from __future__ import annotations
@@ -255,8 +260,13 @@ GROUPS: Dict[str, Dict[str, Type]] = {
     "optim": {"adam": AdamConfig, "sgd": SGDConfig},
     "model": {"bidirectional": BiDirectionalConfig, "unidirectional": UniDirectionalConfig},
 }
-_SCHEMAS: Dict[str, Type] = {cls.__name__: cls for group in GROUPS.values()
-                             for cls in group.values()}
+# every schema by name: the ``_type_`` tags of to_dict, meta.json and overlays
+_ALL_SCHEMAS: Dict[str, Type] = {cls.__name__: cls for cls in (
+    SpectConfig, AugmentationConfig, DataConfig, BiDirectionalConfig, UniDirectionalConfig,
+    OptimConfig, SGDConfig, AdamConfig, CheckpointConfig, TrainerConfig, TrainConfig,
+    LMConfig, ModelLoadConfig, InferenceConfig, TranscribeConfig, EvalConfig, ServerConfig)}
+# overlays by name: the port's copies of dsjax's dataset overlays, then ./configs
+CONFIG_DIRS = [os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"), "configs"]
 
 # YAML 1.1's implicit scalar types, as PyYAML's safe loader resolves them
 _NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
@@ -351,19 +361,31 @@ def _merge_overlay(cfg: Any, overlay: Dict[str, Any], path: str = "") -> None:
             setattr(cfg, k, GROUPS[k][v]())
         elif is_dataclass(cur) and isinstance(v, dict):
             tag = v.get("_type_")
-            if tag in _SCHEMAS and type(cur).__name__ != tag:
-                cur = _SCHEMAS[tag]()
+            if tag in _ALL_SCHEMAS and type(cur).__name__ != tag:
+                cur = _ALL_SCHEMAS[tag]()
                 setattr(cfg, k, cur)
             _merge_overlay(cur, v, full)
         else:
             setattr(cfg, k, _coerce(v, _field_type(cfg, k)))
 
 
+def find_overlay(name: str) -> Optional[str]:
+    """An overlay name ('an4') or path -> its YAML file: a path first, then
+    NAME.yaml in each of CONFIG_DIRS (dsjax's find_overlay)."""
+    if os.path.isfile(name):
+        return name
+    for folder in CONFIG_DIRS:
+        path = os.path.join(folder, name + ".yaml")
+        if os.path.isfile(path):
+            return path
+    return None
+
+
 def _load_overlay(name: str) -> Dict[str, Any]:
-    """An overlay file: a path, or NAME for configs/NAME.yaml."""
-    path = name if os.path.isfile(name) else os.path.join("configs", name + ".yaml")
-    if not os.path.isfile(path):
-        raise FileNotFoundError(f"config overlay {name!r} not found (a path, or configs/NAME.yaml)")
+    path = find_overlay(name)
+    if path is None:
+        raise FileNotFoundError(f"config overlay {name!r} not found: neither a path nor "
+                                f"NAME.yaml in {CONFIG_DIRS}")
     import yaml
 
     with open(path) as fh:
@@ -376,7 +398,7 @@ def compose(schema: Type, argv: Optional[List[str]] = None,
             overlays: Optional[List[str]] = None) -> Any:
     """Build a config: schema defaults -> overlay file(s) -> dotted overrides
     (``key.path=value``; ``configs=NAME`` or ``+configs=NAME`` adds an
-    overlay)."""
+    overlay, found by ``find_overlay``)."""
     cfg = schema()
     overlay_names = list(overlays or [])
     rest = []
@@ -392,3 +414,70 @@ def compose(schema: Type, argv: Optional[List[str]] = None,
     for key, val in rest:
         _set_dotted(cfg, key, _parse_scalar(val))
     return cfg
+
+
+def compose_cli(schema: Type, doc: Optional[str], argv: List[str]) -> Any:
+    """An entry module's config: with -h or --help among ``argv``, print
+    ``doc`` and the options (print_help) and exit 0, as dsjax's root CLIs
+    do; else compose(schema, argv)."""
+    if any(a in ("-h", "--help") for a in argv):
+        print_help(schema, doc)
+        raise SystemExit(0)
+    return compose(schema, argv)
+
+
+# ---------------------------------------------------------------------------
+# dict <-> dataclass (dsjax/config.py's to_dict, from_dict and print_help)
+# ---------------------------------------------------------------------------
+
+def to_dict(cfg: Any) -> Any:
+    """Dataclass tree -> plain dict (enums -> their values, each dataclass
+    tagged with its ``_type_``)."""
+    if is_dataclass(cfg) and not isinstance(cfg, type):
+        d = {f.name: to_dict(getattr(cfg, f.name)) for f in fields(cfg)}
+        d["_type_"] = type(cfg).__name__
+        return d
+    if isinstance(cfg, enum.Enum):
+        return cfg.value
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    if isinstance(cfg, dict):
+        return {k: to_dict(v) for k, v in cfg.items()}
+    return cfg
+
+
+def from_dict(d: Any, schema: Type) -> Any:
+    """Plain dict -> dataclass of type ``schema``, honouring ``_type_`` tags;
+    keys the schema lacks are ignored."""
+    if d is None:
+        return schema() if is_dataclass(schema) else None
+    if not is_dataclass(schema) or isinstance(d, schema):
+        return d
+    if isinstance(d, dict) and d.get("_type_") in _ALL_SCHEMAS:
+        schema = _ALL_SCHEMAS[d["_type_"]]
+    hints = typing.get_type_hints(schema)
+    kwargs = {}
+    for f in fields(schema):
+        if isinstance(d, dict) and f.name in d:
+            typ = hints[f.name]
+            kwargs[f.name] = (from_dict(d[f.name], typ) if is_dataclass(typ)
+                              else _coerce(d[f.name], typ))
+    return schema(**kwargs)
+
+
+def print_help(schema: Type, doc: Optional[str] = None) -> None:
+    """Print a flat listing of dotted option paths with their defaults."""
+    if doc:
+        print(doc)
+    print("Options (dotted key=value overrides; defaults shown):")
+
+    def walk(d: Dict[str, Any], prefix: str = "") -> None:
+        for k, v in d.items():
+            if k == "_type_":
+                continue
+            if isinstance(v, dict) and "_type_" in v:
+                walk(v, prefix + k + ".")
+            else:
+                print(f"  {prefix}{k} = {v!r}")
+
+    walk(to_dict(schema()))

@@ -12,8 +12,8 @@ on the CPU.
 
 import sys
 
-from dsjax_torch.config import EvalConfig, compose
+from dsjax_torch.config import EvalConfig, compose_cli
 from dsjax_torch.workflows import evaluate
 
 if __name__ == "__main__":
-    evaluate(compose(EvalConfig, sys.argv[1:]))
+    evaluate(compose_cli(EvalConfig, __doc__, sys.argv[1:]))

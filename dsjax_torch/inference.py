@@ -40,11 +40,9 @@ from dsjax_torch.decode.beam_device import DeviceBeamDecoder
 from dsjax_torch.decode.lm import BINARY_MAGIC
 from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.labels import DEFAULT_LABELS
-from dsjax_torch.model.convert import (from_reference_state_dict, infer_architecture,
-                                       load_checkpoint, plain_hparams)
+from dsjax_torch.model.convert import (CONVERT_TOOL, from_reference_state_dict,
+                                       infer_architecture, load_checkpoint, plain_hparams)
 from dsjax_torch.model.ds2 import DeepSpeech2
-
-CONVERT_TOOL = "tools/dsjax_checkpoint_to_torch.py"
 
 
 def resolve_device(device: Any) -> torch.device:

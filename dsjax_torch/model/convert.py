@@ -39,6 +39,8 @@ _RNN = (("weight_ih", "weight_ih_l0"), ("weight_hh", "weight_hh_l0"),
         ("bias_ih", "bias_ih_l0"), ("bias_hh", "bias_hh_l0"))
 _SUFFIXES = ("", "_reverse")
 _LOOKAHEAD = "lookahead.0.conv.weight"
+# converts a dsjax checkpoint directory (needs jax, orbax and dsjax)
+CONVERT_TOOL = "tools/dsjax_checkpoint_to_torch.py"
 
 
 def _t(a: Any) -> Tensor:
@@ -116,41 +118,73 @@ def to_reference_state_dict(state: Mapping[str, Tensor]) -> Dict[str, Tensor]:
     return {k: v.detach().cpu().contiguous() for k, v in out.items()}
 
 
-def from_dsjax_variables(variables: Mapping[str, Any]) -> Dict[str, Tensor]:
-    """dsjax ``{"params": ..., "batch_stats": ...}`` trees (numpy or array
-    leaves) of a DeepSpeech2 (any rnn_type, bidirectional or with Lookahead)
-    -> the port's state_dict."""
-    params, stats = variables["params"], variables["batch_stats"]
+def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+    """A nested mapping's leaves by path."""
+    if isinstance(tree, Mapping):
+        return {p: v for k, sub in tree.items() for p, v in _leaves(sub, path + (k,)).items()}
+    return {path: tree}
 
-    def bn(p: Mapping[str, Any], s: Mapping[str, Any]) -> List[Tensor]:
-        return [_t(p["scale"]), _t(p["bias"]), _t(s["mean"]), _t(s["var"])]
+
+def _layers(params: Mapping[str, Any]) -> int:
+    return sum(1 for k in params if k.startswith("rnn") and not k.endswith("_bn"))
+
+
+def from_dsjax_params(tree: Mapping[str, Any]) -> Dict[str, Tensor]:
+    """A tree shaped like dsjax's ``params`` (the weights, or an element-wise
+    optimizer state over them: Adam's ``mu``/``nu``, SGD's ``trace``) -> the
+    port's parameters by ``named_parameters`` name. HWIO convs become OIHW,
+    ``w_ih``/``w_hh``/``fc.kernel`` are transposed, the directions stacked,
+    BatchNorm ``scale``/``bias`` become ``weight``/``bias``: a permutation,
+    so every value is carried exactly. Raises ValueError for a leaf the
+    layout lacks or one it does not take."""
+    leaves = _leaves(tree)
+
+    def leaf(*path: str) -> np.ndarray:
+        if path not in leaves:
+            raise ValueError(f"the dsjax tree has no leaf {'/'.join(path)}")
+        return np.asarray(leaves.pop(path))
 
     out: Dict[str, Tensor] = {}
     for conv, _, bn_name, _ in _CONVS:
         # HWIO (kF, kT, I, O) -> OIHW
-        out[f"conv.{conv}.weight"] = _t(np.asarray(params["conv"][conv]["kernel"])
-                                        .transpose(3, 2, 0, 1))
-        out[f"conv.{conv}.bias"] = _t(params["conv"][conv]["bias"])
-        for k, v in zip(_BN, bn(params["conv"][bn_name], stats["conv"][bn_name])):
-            out[f"conv.{bn_name}.{k}"] = v
-    n_layers = sum(1 for k in params if k.startswith("rnn") and not k.endswith("_bn"))
-    for i in range(n_layers):
-        layer = params[f"rnn{i}"]
-        dirs = ("fwd", "bwd") if "bwd_w_hh" in layer else ("fwd",)
+        out[f"conv.{conv}.weight"] = _t(leaf("conv", conv, "kernel").transpose(3, 2, 0, 1))
+        out[f"conv.{conv}.bias"] = _t(leaf("conv", conv, "bias"))
+        out[f"conv.{bn_name}.weight"] = _t(leaf("conv", bn_name, "scale"))
+        out[f"conv.{bn_name}.bias"] = _t(leaf("conv", bn_name, "bias"))
+    for i in range(_layers(tree)):
+        dirs = ("fwd", "bwd") if "bwd_w_hh" in tree[f"rnn{i}"] else ("fwd",)
         for name, key, transpose in (("weight_ih", "w_ih", True), ("weight_hh", "w_hh", True),
                                      ("bias_ih", "b_ih", False), ("bias_hh", "b_hh", False)):
-            out[f"rnns.{i}.{name}"] = torch.stack(
-                [_t(np.asarray(layer[f"{d}_{key}"]).T if transpose else layer[f"{d}_{key}"])
-                 for d in dirs])
+            per_dir = [leaf(f"rnn{i}", f"{d}_{key}") for d in dirs]
+            out[f"rnns.{i}.{name}"] = torch.stack([_t(w.T if transpose else w) for w in per_dir])
         if i > 0:
-            for k, v in zip(_BN, bn(params[f"rnn{i}_bn"], stats[f"rnn{i}_bn"])):
-                out[f"rnn_bns.{i - 1}.{k}"] = v
-    if "lookahead" in params:
+            out[f"rnn_bns.{i - 1}.weight"] = _t(leaf(f"rnn{i}_bn", "scale"))
+            out[f"rnn_bns.{i - 1}.bias"] = _t(leaf(f"rnn{i}_bn", "bias"))
+    if "lookahead" in tree:
         # dsjax's (H, context) kernel (dsjax/model/torch_import.py:259-261)
-        out["lookahead.weight"] = _t(params["lookahead"]["weight"])
-    for k, v in zip(_BN, bn(params["fc_bn"], stats["fc_bn"])):
-        out[f"fc_bn.{k}"] = v
-    out["fc.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
+        out["lookahead.weight"] = _t(leaf("lookahead", "weight"))
+    out["fc_bn.weight"] = _t(leaf("fc_bn", "scale"))
+    out["fc_bn.bias"] = _t(leaf("fc_bn", "bias"))
+    out["fc.weight"] = _t(leaf("fc", "kernel").T)
+    if leaves:
+        raise ValueError(f"dsjax leaves with no counterpart among the port's parameters: "
+                         f"{['/'.join(p) for p in leaves]}")
+    return out
+
+
+def from_dsjax_variables(variables: Mapping[str, Any]) -> Dict[str, Tensor]:
+    """dsjax ``{"params": ..., "batch_stats": ...}`` trees (numpy or array
+    leaves) of a DeepSpeech2 (any rnn_type, bidirectional or with Lookahead)
+    -> the port's state_dict: ``from_dsjax_params`` and the BatchNorm
+    running statistics."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out = from_dsjax_params(params)
+    norms = [("conv.bn1", stats["conv"]["bn1"]), ("conv.bn2", stats["conv"]["bn2"])]
+    norms += [(f"rnn_bns.{i - 1}", stats[f"rnn{i}_bn"]) for i in range(1, _layers(params))]
+    norms.append(("fc_bn", stats["fc_bn"]))
+    for prefix, s in norms:
+        out[f"{prefix}.running_mean"] = _t(s["mean"])
+        out[f"{prefix}.running_var"] = _t(s["var"])
     return out
 
 

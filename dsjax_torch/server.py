@@ -40,7 +40,7 @@ import torch
 from dsjax_torch.audio import native
 from dsjax_torch.audio.features import FeatureExtractor, spectrogram_np
 from dsjax_torch.audio.io import load_audio, resample
-from dsjax_torch.config import ServerConfig, compose
+from dsjax_torch.config import ServerConfig, compose_cli
 from dsjax_torch.inference import ModelBundle, decode_results, load_decoder, load_model
 
 ALLOWED_EXTENSIONS = {"wav", "flac"}
@@ -389,4 +389,4 @@ def main(cfg: ServerConfig) -> None:
 
 
 if __name__ == "__main__":
-    main(compose(ServerConfig, sys.argv[1:]))
+    main(compose_cli(ServerConfig, __doc__, sys.argv[1:]))

@@ -14,8 +14,8 @@ one or more nodes, one process a card, under torchrun:
 
 import sys
 
-from dsjax_torch.config import TrainConfig, compose
+from dsjax_torch.config import TrainConfig, compose_cli
 from dsjax_torch.workflows import train
 
 if __name__ == "__main__":
-    train(compose(TrainConfig, sys.argv[1:]))
+    train(compose_cli(TrainConfig, __doc__, sys.argv[1:]))

@@ -19,24 +19,31 @@ beside their target and renamed into place, so a reader never sees half a
 file. Inside a process group only rank 0 writes (``meta.json`` and every
 save, as dsjax's handler does) and every rank waits at a barrier after each
 save; on resume every rank reads the same files.
+
+A dsjax run continues here after ``tools/dsjax_checkpoint_to_torch.py``
+mirrors its directory into this layout through ``from_dsjax_state`` (the
+weights, Adam's moments and count or SGD's trace, the counters and the
+sampler position). On resume the run's optimizer settings win over the
+file's, as in dsjax, whose optax chain is built from the new config; a file
+of another optimizer kind raises. A dsjax directory itself (orbax's
+numbered step directories) is refused with the tool's name.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import enum
 import json
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
-from dsjax_torch.model.convert import from_reference_state_dict, load_checkpoint, save_checkpoint
+import torch
+
+from dsjax_torch.config import SGDConfig, TrainConfig, to_dict
+from dsjax_torch.model.convert import (CONVERT_TOOL, from_dsjax_params, from_dsjax_variables,
+                                       from_reference_state_dict, load_checkpoint,
+                                       save_checkpoint)
+from dsjax_torch.model.ds2 import DeepSpeech2
 from dsjax_torch.parallel import distributed
-from dsjax_torch.train.state import TrainState
-
-
-def _plain(cfg: Any) -> Any:
-    return json.loads(json.dumps(dataclasses.asdict(cfg),
-                                 default=lambda v: v.value if isinstance(v, enum.Enum) else str(v)))
+from dsjax_torch.train.state import TrainState, make_optimizer
 
 
 def _steps(folder: str) -> List[int]:
@@ -48,6 +55,39 @@ def _steps(folder: str) -> List[int]:
 
 def _path(folder: str, step: int) -> str:
     return os.path.join(folder, f"step_{step}.pt")
+
+
+def refuse_dsjax_layout(path: str) -> None:
+    """Raise for a dsjax checkpoint directory (``meta.json`` beside
+    ``last/`` or ``best/`` holding orbax's numbered step directories), or
+    one of its ``last``/``best`` subdirectories: the port reads the
+    directory the conversion tool mirrors from it."""
+    path = os.path.abspath(path)
+    root = os.path.dirname(path) if os.path.basename(path) in ("last", "best") else path
+    if not os.path.isfile(os.path.join(root, "meta.json")):
+        return
+    for sub in ("last", "best"):
+        folder = os.path.join(root, sub)
+        if os.path.isdir(folder) and any(name.isdigit() and os.path.isdir(os.path.join(
+                folder, name)) for name in os.listdir(folder)):
+            raise IsADirectoryError(
+                f"{path} is a dsjax checkpoint directory (orbax steps under {folder}). "
+                f"Convert it with python {CONVERT_TOOL} {root} OUT (needs jax and orbax), then "
+                f"resume with checkpoint.dirpath=OUT load_auto_checkpoint=true or "
+                f"trainer.resume_from_checkpoint=OUT")
+
+
+def write_state(path: str, state: TrainState, labels: Sequence[str],
+                metrics: Mapping[str, float], extra: Mapping[str, Any]) -> None:
+    """The trainer's checkpoint file: the model as ``save_checkpoint`` writes
+    it, plus the optimizer state, the counters, the metrics and the
+    host-side extras; written beside ``path`` and renamed into place."""
+    model = state.model
+    tmp = path + ".tmp"
+    save_checkpoint(tmp, model.state_dict(), model.model_cfg, model.spect_cfg, labels, extra={
+        "optimizer": state.optimizer.state_dict(), "step": state.step, "epoch": state.epoch,
+        "metrics": dict(metrics), "extra": dict(extra)})
+    os.replace(tmp, path)
 
 
 class CheckpointHandler:
@@ -64,11 +104,12 @@ class CheckpointHandler:
         self.labels = list(labels) if labels is not None else None
         self.best_dir = os.path.join(self.dirpath, "best")
         self.last_dir = os.path.join(self.dirpath, "last")
+        refuse_dsjax_layout(self.dirpath)
         os.makedirs(self.best_dir, exist_ok=True)
         os.makedirs(self.last_dir, exist_ok=True)
         meta: Dict[str, Any] = {"format_version": 1}
         if cfg is not None:
-            meta["config"] = _plain(cfg)
+            meta["config"] = to_dict(cfg)
         if labels is not None:
             meta["labels"] = list(labels)
         if distributed.is_main_process():
@@ -79,14 +120,7 @@ class CheckpointHandler:
 
     def _write(self, path: str, state: TrainState, metrics: Dict[str, float],
                extra: Dict[str, Any]) -> None:
-        model = state.model
-        tmp = path + ".tmp"
-        save_checkpoint(tmp, model.state_dict(), model.model_cfg, model.spect_cfg,
-                        self.labels or [], extra={
-                            "optimizer": state.optimizer.state_dict(), "step": state.step,
-                            "epoch": state.epoch, "metrics": dict(metrics),
-                            "extra": dict(extra)})
-        os.replace(tmp, path)
+        write_state(path, state, self.labels or [], metrics, extra)
 
     def _index(self) -> Dict[int, Dict[str, float]]:
         path = os.path.join(self.best_dir, "index.json")
@@ -170,12 +204,21 @@ class CheckpointHandler:
         return dict(load_checkpoint(path).get("extra") or {})
 
 
+def _kind(groups: Sequence[Mapping[str, Any]]) -> str:
+    """The optimizer a state_dict's param_groups belong to, by its options."""
+    return "adamw" if "betas" in groups[0] else "sgd" if "momentum" in groups[0] else "unknown"
+
+
 def restore_file(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, Any]]:
     """Load a checkpoint file into ``state``. A file the trainer wrote
-    restores the optimizer and counters as well; any other file with a
-    reference-layout state_dict (a ``save_checkpoint`` model, a reference
-    ``.ckpt``) warm-starts the weights with a fresh optimizer. Returns the
-    state and the host-side extras."""
+    restores the optimizer's moments and the counters as well, with the
+    run's own optimizer options (betas, eps, weight_decay, momentum; the
+    learning rate is set every step): dsjax builds its optax chain from the
+    new config and restores only the moments and counts into it. A file of
+    another optimizer kind raises, as dsjax's restore does. Any other file
+    with a reference-layout state_dict (a ``save_checkpoint`` model, a
+    reference ``.ckpt``) warm-starts the weights with a fresh optimizer.
+    Returns the state and the host-side extras."""
     ckpt = load_checkpoint(path)
     weights = from_reference_state_dict(ckpt.get("state_dict", ckpt))
     want = {k: tuple(v.shape) for k, v in state.model.state_dict().items()}
@@ -184,11 +227,20 @@ def restore_file(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, An
         raise ValueError(f"checkpoint {path} does not match the configured model (set "
                          f"model.hidden_size/hidden_layers/rnn_type and model=bidirectional "
                          f"or unidirectional to the checkpoint's): {got} vs {want}")
-    state.model.load_state_dict(weights)
     if "optimizer" not in ckpt:
+        state.model.load_state_dict(weights)
         print(f"warm-started weights from {path} (fresh optimizer state)")
         return state, {}
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    saved, groups = ckpt["optimizer"], state.optimizer.param_groups
+    if _kind(saved["param_groups"]) != _kind(groups):
+        raise ValueError(f"checkpoint {path} holds {_kind(saved['param_groups'])} state but "
+                         f"the run's optimizer is {_kind(groups)}: set optim= to the "
+                         f"checkpoint's, as dsjax cannot restore another optimizer's state")
+    state.model.load_state_dict(weights)
+    options = [{k: v for k, v in g.items() if k not in ("params", "lr")} for g in groups]
+    state.optimizer.load_state_dict(saved)
+    for group, own in zip(state.optimizer.param_groups, options):
+        group.update(own)
     state.step, state.epoch = int(ckpt["step"]), int(ckpt["epoch"])
     return state, dict(ckpt.get("extra") or {})
 
@@ -197,10 +249,12 @@ def restore_from_path(path: str, state: TrainState) -> Tuple[TrainState, Dict[st
     """trainer.resume_from_checkpoint: a checkpoint file, or a checkpoint
     directory (the handler's dirpath, whose ``last`` save is preferred over
     its ``best``, or one of those two subdirectories), whose newest save
-    is restored, as dsjax's restore_from_path does."""
+    is restored, as dsjax's restore_from_path does. A dsjax directory
+    raises (``refuse_dsjax_layout``)."""
     path = os.path.abspath(path)
     if os.path.isfile(path):
         return restore_file(path, state)
+    refuse_dsjax_layout(path)
     if os.path.basename(path) in ("last", "best"):
         candidates = [path]
     else:
@@ -210,3 +264,50 @@ def restore_from_path(path: str, state: TrainState) -> Tuple[TrainState, Dict[st
         if steps:
             return restore_file(_path(folder, steps[-1]), state)
     raise FileNotFoundError(f"no restorable checkpoint at {path}")
+
+
+def from_dsjax_state(path: str, cfg: TrainConfig, labels: Sequence[str],
+                     params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                     moments: Mapping[str, Any], step: int, epoch: int,
+                     metrics: Optional[Mapping[str, float]] = None,
+                     extra: Optional[Mapping[str, Any]] = None) -> TrainState:
+    """Write a dsjax train state as the trainer's checkpoint file at
+    ``path`` (``restore_file`` reads it as a file the trainer wrote) and
+    return it as a TrainState on the CPU. Inputs are plain numpy trees and
+    numbers: dsjax's ``params`` and ``batch_stats``, the optimizer's moments
+    (``{"count", "mu", "nu"}`` of optax's ScaleByAdamState for AdamW,
+    ``{"trace"}`` of its TraceState for SGD, in ``params``' layout), the
+    step and epoch counters, the metrics and the host-side extras. The
+    model and optimizer are the port's own for ``cfg``; each parameter's
+    state takes torch's keys (AdamW ``step``, a float32 CPU tensor equal to
+    optax's count, ``exp_avg``, ``exp_avg_sq``; SGD ``momentum_buffer``)
+    through the weights' layout map, which carries every value exactly.
+    Raises when the moments do not match ``cfg.optim``'s kind or the
+    parameters one to one."""
+    sgd = isinstance(cfg.optim, SGDConfig)
+    keys = {"trace"} if sgd else {"count", "mu", "nu"}
+    if set(moments) != keys:
+        raise ValueError(f"optim is {type(cfg.optim).__name__}, whose dsjax state is "
+                         f"{sorted(keys)}, but the moments hold {sorted(moments)}")
+    model = DeepSpeech2(len(labels), cfg.data.spect, cfg.model,
+                        dtype=torch.bfloat16 if cfg.trainer.precision == 16 else torch.float32)
+    model.load_state_dict(from_dsjax_variables({"params": params, "batch_stats": batch_stats}))
+    optimizer = make_optimizer(model.parameters(), cfg.optim)
+    named = dict(model.named_parameters())
+    trees = {k: from_dsjax_params(moments[k]) for k in keys - {"count"}}
+    for k, tree in trees.items():
+        shapes = {n: tuple(t.shape) for n, t in tree.items()}
+        if shapes != {n: tuple(p.shape) for n, p in named.items()}:
+            raise ValueError(f"dsjax's {k} does not match the port's parameters one to one: "
+                             f"{shapes} vs {[(n, tuple(p.shape)) for n, p in named.items()]}")
+    for name, p in named.items():
+        if sgd:
+            optimizer.state[p] = {"momentum_buffer": trees["trace"][name]}
+        else:
+            optimizer.state[p] = {"step": torch.tensor(float(moments["count"]),
+                                                       dtype=torch.float32),
+                                  "exp_avg": trees["mu"][name], "exp_avg_sq": trees["nu"][name]}
+    state = TrainState(model, optimizer, int(step), int(epoch))
+    write_state(path, state, labels, {k: float(v) for k, v in (metrics or {}).items()},
+                extra or {})
+    return state

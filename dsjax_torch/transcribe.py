@@ -11,8 +11,8 @@ raises without a card; pass ``device=cpu`` to transcribe on the CPU.
 
 import sys
 
-from dsjax_torch.config import TranscribeConfig, compose
+from dsjax_torch.config import TranscribeConfig, compose_cli
 from dsjax_torch.workflows import transcribe
 
 if __name__ == "__main__":
-    transcribe(compose(TranscribeConfig, sys.argv[1:]))
+    transcribe(compose_cli(TranscribeConfig, __doc__, sys.argv[1:]))

@@ -58,6 +58,7 @@ def _imports(path):
      os.path.join(ROOT, "tests", "synthetic_manifest.py"),
      os.path.join(ROOT, "tests", "synthetic_lm.py"),
      os.path.join(ROOT, "tests", "golden_gru.py"),
+     os.path.join(ROOT, "tests", "dsjax_layout.py"),
      os.path.join(ROOT, "tests", "torch_ddp_worker.py")]
     + glob.glob(os.path.join(ROOT, "dsjax_torch", "**", "*.py"), recursive=True)),
     ids=lambda p: os.path.relpath(p, ROOT))
@@ -82,6 +83,11 @@ def test_port_imports_no_jax():
         "dsjax_torch.DeepSpeech2, dsjax_torch.load_model, dsjax_torch.lstm_scan",
         "dsjax_torch.gru_scan",
         "dsjax_torch.Trainer, dsjax_torch.TrainConfig",
+        "import dsjax_torch.config as c, dsjax_torch.train.checkpoint as k, tests.dsjax_layout",
+        "k.from_dsjax_state, k.refuse_dsjax_layout, c.to_dict, c.from_dict, c.print_help",
+        "import os; os.chdir(os.path.join(os.getcwd(), 'tests'))",
+        "assert c.compose(c.TrainConfig, ['+configs=an4']).data.batch_size == 8",
+        "assert c.find_overlay('an4').endswith(os.path.join('dsjax_torch', 'configs', 'an4.yaml'))",
         "loaded = [m for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax')",
         "          if sys.modules.get(m) is not None]",
         "assert not loaded, loaded",
