@@ -195,6 +195,24 @@ Phases, each printing what it measured; any failure exits non-zero:
               losses, the two runs' losses equal (else within the spread of
               a second resume of F); the seconds of the save, the restore
               onto the card, the mapping and the conversion.
+ 26. quick start  the README's quick start in the port: a synthetic archive
+              in AN4's layout (tests/synthetic_corpora.py: 24 train, 8 val
+              and 8 test utterances of 1-4 s from a seed, transcripts drawn
+              from the label set, and a 0.5 s utterance in train and in
+              test) prepared by ``python -m dsjax_torch.datasets.an4
+              --target-dir an4_dataset --manifest-dir data/`` in a
+              subprocess where jax, its companions and dsjax raise
+              ImportError; the three manifests sorted by duration, the 0.5 s
+              train utterance pruned and the test one kept, and ``python -m
+              dsjax_torch.data.verify_manifest`` exiting 0 on them; in that
+              directory ``workflows.train`` of TrainConfig composed from
+              ``+configs=an4 trainer.max_epochs=1`` (the flagship, bf16,
+              B=8; one epoch of 3 steps with validation and a checkpoint):
+              exact K2/K3 (5 a step) and K1 (5 a validation batch) counts and
+              finite losses; ``workflows.evaluate`` of the last checkpoint on
+              the test manifest on cuda:0, greedy, batch 20: exact K1 counts
+              (5 a batch), finite WER and CER, one hypothesis an utterance;
+              the seconds of the preparation, the epoch and the evaluation.
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
 f32, and for K2, K3, K4 with residuals and K5 in bf16 as well; torch.topk;
@@ -3324,6 +3342,141 @@ def phase_resume(torch, np, gpu_name, card):
     return runs["F"][0]
 
 
+AN4_UTTS = {"train": 24, "val": 8, "test": 8}   # and a 0.5 s utterance in train and in test
+AN4_SEED = 26
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "dsjax")
+
+
+def blocked_path(tmp):
+    """A directory of stand-ins for jax, its companions and dsjax that raise
+    ImportError, to put first on a subprocess's PYTHONPATH."""
+    root = os.path.join(tmp, "blocked")
+    for name in BLOCKED:
+        os.makedirs(os.path.join(root, name))
+        with open(os.path.join(root, name, "__init__.py"), "w") as f:
+            f.write(f"raise ImportError('{name} is not importable here')\n")
+    return root
+
+
+def phase_quick_start(torch, np, gpu_name, card):
+    """26: the README's quick start in the port: a synthetic AN4 archive
+    prepared by ``python -m dsjax_torch.datasets.an4`` with jax and dsjax
+    unimportable, its manifests checked and verified, one epoch of the
+    flagship from ``+configs=an4`` on the card, and ``workflows.evaluate`` of
+    the last checkpoint on the test manifest, greedy; exact K2/K3/K1 counts.
+    Returns {kernel: launches} of the training and evaluation runs."""
+    from dsjax_torch.audio.io import duration
+    from dsjax_torch.config import EvalConfig, TrainConfig, compose
+    from dsjax_torch.train.checkpoint import CheckpointHandler
+    from dsjax_torch.workflows import evaluate, train
+    from tests.synthetic_corpora import write_an4_archive
+
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        written = write_an4_archive(os.path.join(tmp, "an4.tar.gz"), AN4_SEED,
+                                    n_train=AN4_UTTS["train"], n_val=AN4_UTTS["val"],
+                                    n_test=AN4_UTTS["test"])
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([blocked_path(tmp), ROOT]))
+        t0 = time.perf_counter()
+        prep = subprocess.run([sys.executable, "-m", "dsjax_torch.datasets.an4", "--target-dir",
+                               "an4_dataset", "--manifest-dir", "data/"], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=300)
+        prep_s = time.perf_counter() - t0
+        check(prep.returncode == 0 and prep.stdout == "Creating manifests...\n",
+              f"python -m dsjax_torch.datasets.an4 exited {prep.returncode}: {prep.stdout}"
+              f"{prep.stderr[-3000:]}")
+        manifests, seconds = {}, {}
+        for split, items in written.items():
+            path = os.path.join("data", f"an4_{split}_manifest.json")
+            doc = json.load(open(os.path.join(tmp, path)))
+            names = [os.path.basename(s["wav_path"])[:-4] for s in doc["samples"]]
+            lengths = [duration(os.path.join(doc["root_path"], s["wav_path"]))
+                       for s in doc["samples"]]
+            # --min-duration 1 prunes the 0.5 s train utterance; dsjax prunes
+            # train and val only, so the 0.5 s test one stays
+            want = sorted(n for n, _ in items if split != "train" or n != "an4_train_short")
+            check(sorted(names) == want and lengths == sorted(lengths),
+                  f"an4_{split}_manifest.json lists {names} of durations {lengths}; "
+                  f"expected {want}, sorted by duration")
+            manifests[split], seconds[split] = path, sum(lengths)
+        verify = subprocess.run([sys.executable, "-m", "dsjax_torch.data.verify_manifest",
+                                 *manifests.values()], cwd=tmp, env=env, capture_output=True,
+                                text=True, timeout=120)
+        check(verify.returncode == 0 and verify.stdout.count(": OK\n") == 3,
+              f"verify_manifest exited {verify.returncode}: {verify.stdout}{verify.stderr}")
+
+        os.chdir(tmp)
+        try:
+            cfg = compose(TrainConfig, ["+configs=an4", "trainer.max_epochs=1",
+                                        "trainer.log_every_n_steps=1"])
+            check(cfg.data.train_path == manifests["train"]
+                  and cfg.data.val_path == manifests["val"] and cfg.data.batch_size == 8
+                  and cfg.trainer.precision == 16 and cfg.model.hidden_size == H
+                  and cfg.model.hidden_layers == 5 and cfg.trainer.device == "cuda",
+                  f"+configs=an4 composed {cfg}")
+            reset_counts()
+            t0 = time.perf_counter()
+            state = train(cfg)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            train_counts = read_counts()
+            del state
+            torch.cuda.empty_cache()
+            records = [json.loads(line) for line in open(os.path.join("logs", "metrics.jsonl"))]
+            last = CheckpointHandler(os.path.join(tmp, "checkpoints")).path()
+
+            ecfg = compose(EvalConfig, [f"model.model_path={last}",
+                                        f"test_path={manifests['test']}", "device=cuda:0",
+                                        f"batch_size={EVAL_BATCH}"])
+            out = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                wer, cer = evaluate(ecfg)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            eval_counts = read_counts()
+        finally:
+            os.chdir(cwd)
+    layers = cfg.model.hidden_layers
+    steps = -(-AN4_UTTS["train"] // cfg.data.batch_size)
+    val_batches = -(-AN4_UTTS["val"] // cfg.data.batch_size)
+    want = {"lstm_fwd": layers * val_batches, "lstm_fwd_residuals": layers * steps,
+            "lstm_bwd": layers * steps}
+    launches = {k: train_counts[k] for k in want}
+    check(launches == want
+          and sum(train_counts.values()) == sum(want.values()) + train_counts["lstm_steps"],
+          f"one AN4 epoch launched {train_counts}, expected {want} ({steps} steps, "
+          f"{val_batches} validation batch of {layers} layers)")
+    losses = [r["loss"] for r in records if "loss" in r]
+    val = [r for r in records if "wer" in r and "mean_loss" in r]
+    check(len(losses) == steps and all(np.isfinite(losses)), f"AN4 losses {losses}")
+    check(len(val) == 1 and np.isfinite(val[0]["mean_loss"]), f"AN4 validation {val}")
+    n_test = len(written["test"])
+    eval_batches = -(-n_test // EVAL_BATCH)
+    lines = out.getvalue().splitlines()
+    hyps = [line for line in lines if line.startswith("Hyp:")]
+    summary = [line.strip() for line in lines if line.startswith("Test Summary")]
+    check(eval_counts["lstm_fwd"] == layers * eval_batches
+          and sum(eval_counts.values()) == eval_counts["lstm_fwd"] + eval_counts["lstm_steps"],
+          f"AN4 evaluation launched {eval_counts}, expected {layers * eval_batches} lstm_fwd")
+    check(len(hyps) == n_test and len(summary) == 1 and np.isfinite(wer) and np.isfinite(cer),
+          f"AN4 evaluation: {len(hyps)} hypotheses of {n_test}, summary {summary}, "
+          f"WER {wer}, CER {cer}")
+    print(f"AN4 quick start on {gpu_name} ({card}): python -m dsjax_torch.datasets.an4 "
+          f"(jax and dsjax unimportable) prepared {len(written['train'])}/{len(written['val'])}/"
+          f"{n_test} train/val/test utterances ({seconds['train']!r}, {seconds['val']!r}, "
+          f"{seconds['test']!r} s listed; the 0.5 s train one pruned) in {prep_s!r} s; one epoch "
+          f"of +configs=an4 (5x BiLSTM-1024 bf16, B={cfg.data.batch_size}): {steps} steps, "
+          f"losses {losses}, validation wer/cer {(val[0]['wer'], val[0]['cer'])}, launches "
+          f"{launches}, {train_s!r} s with the checkpoint; evaluate of {os.path.basename(last)} "
+          f"on the test manifest (greedy, batch {EVAL_BATCH}): {summary[0]!r}, lstm_fwd "
+          f"{eval_counts['lstm_fwd']}, {eval_s!r} s")
+    print(f"phase 26: wall {time.perf_counter() - t_phase!r} s")
+    return {"train": launches, "evaluate": {"lstm_fwd": eval_counts["lstm_fwd"]}}
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -3404,6 +3557,8 @@ def run(torch, np):
     ddp_launches = phase_ddp_training(torch, np, gpu_name, card, full_fp32, defaults_back)
     print("resume phase: PyTorch defaults")
     resume_launches = phase_resume(torch, np, gpu_name, card)
+    print("quick start phase: PyTorch defaults")
+    quick_start = phase_quick_start(torch, np, gpu_name, card)
 
     def row(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3451,6 +3606,8 @@ def run(torch, np):
                 launches_in_training=train_launches["lstm_fwd"],
                 launches_in_ddp_training=ddp_launches["lstm_fwd"],
                 launches_in_resume=resume_launches["lstm_fwd"],
+                launches_in_quick_start=quick_start["train"]["lstm_fwd"]
+                + quick_start["evaluate"]["lstm_fwd"],
                 launches_in_evaluation=eval_runs["greedy"]["counts"]["lstm_fwd"],
                 launches_in_data_parallel=data_parallel["forward"]["lstm_fwd"],
                 data_parallel=data_parallel,
@@ -3465,6 +3622,7 @@ def run(torch, np):
                         train_kernels[(key, "float32")],
                         launches_in_ddp_training=ddp_launches[name],
                         launches_in_resume=resume_launches[name],
+                        launches_in_quick_start=quick_start["train"][name],
                         **bf16_extra(train_kernels[(key, "bfloat16")]),
                         **pair_extra(key, train_kernels[(key, "float32")],
                                      train_kernels[(key, "bfloat16")]),

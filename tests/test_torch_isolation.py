@@ -27,7 +27,11 @@ IMPORTS = ("dsjax_torch", "dsjax_torch.server", "dsjax_torch.inference",
            "dsjax_torch.build_lm_binary", "dsjax_torch.audio.augment",
            "dsjax_torch.noise_inject", "dsjax_torch.parallel",
            "dsjax_torch.parallel.distributed", "dsjax_torch.parallel.multihost",
-           "dsjax_torch.parallel.mesh")
+           "dsjax_torch.parallel.mesh", "dsjax_torch.datasets.common",
+           "dsjax_torch.datasets.an4", "dsjax_torch.datasets.librispeech",
+           "dsjax_torch.datasets.ted", "dsjax_torch.datasets.common_voice",
+           "dsjax_torch.datasets.voxforge", "dsjax_torch.data.merge_manifests",
+           "dsjax_torch.data.verify_manifest")
 
 
 def _imports(path):
@@ -57,6 +61,7 @@ def _imports(path):
      os.path.join(ROOT, "tools", "torch_data_parallel.py"),
      os.path.join(ROOT, "tests", "synthetic_manifest.py"),
      os.path.join(ROOT, "tests", "synthetic_lm.py"),
+     os.path.join(ROOT, "tests", "synthetic_corpora.py"),
      os.path.join(ROOT, "tests", "golden_gru.py"),
      os.path.join(ROOT, "tests", "dsjax_layout.py"),
      os.path.join(ROOT, "tests", "torch_ddp_worker.py")]
@@ -70,9 +75,13 @@ def test_no_import_of_the_jax_package(path):
         assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "dsjax"), name
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """With jax and the JAX package made unimportable, every port module
-    imports, and none of jax's companions or triton got loaded either."""
+    imports, the port's download_an4 prepares a local AN4 archive into its
+    three manifests, and none of jax's companions or triton got loaded."""
+    from tests.synthetic_corpora import write_an4_archive
+
+    write_an4_archive(str(tmp_path / "an4.tar.gz"), seed=0, n_train=2, n_val=1, n_test=1)
     code = "\n".join([
         "import importlib, sys",
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dsjax'):",
@@ -88,6 +97,13 @@ def test_port_imports_no_jax():
         "import os; os.chdir(os.path.join(os.getcwd(), 'tests'))",
         "assert c.compose(c.TrainConfig, ['+configs=an4']).data.batch_size == 8",
         "assert c.find_overlay('an4').endswith(os.path.join('dsjax_torch', 'configs', 'an4.yaml'))",
+        "import contextlib, io, json, dsjax_torch.datasets.an4 as an4",
+        f"os.chdir({str(tmp_path)!r})",
+        "with contextlib.redirect_stdout(io.StringIO()):",
+        "    an4.download_an4('an4_dataset', 'data', 1, 15)",
+        "sizes = [len(json.load(open(f'data/an4_{s}_manifest.json'))['samples'])",
+        "         for s in ('train', 'val', 'test')]",
+        "assert sizes == [2, 1, 2], sizes",
         "loaded = [m for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax')",
         "          if sys.modules.get(m) is not None]",
         "assert not loaded, loaded",
