@@ -213,6 +213,22 @@ Phases, each printing what it measured; any failure exits non-zero:
               the test manifest on cuda:0, greedy, batch 20: exact K1 counts
               (5 a batch), finite WER and CER, one hypothesis an utterance;
               the seconds of the preparation, the epoch and the evaluation.
+ 27. tensor parallel  ``trainer.mesh_model=2`` (tests/torch_tp_worker.py):
+              (a) the flagship (5 x BiLSTM-1024) in f32 with TF32 off, B=8
+              rows of 256 frames, SGD with the global-norm clip engaged, as
+              two gloo ranks sharing the card (NCCL refuses two ranks on one
+              device; each holds its blocks of the 21 sharded parameters)
+              against one rank at mesh_model=1 on the same weights and
+              batch: the grad step's loss and gradients, two train steps'
+              losses and updates, running stats, WER/CER, the replicated
+              parameters bit-identical across the two ranks, exact K2/K3
+              counts a rank (5 a step) and K1 counts in validation (5); (b)
+              in bf16 at B=16 with AdamW, the bytes of the parameters and
+              the optimizer state a card (the tensors' own, and
+              memory_allocated over making them) at mesh_model=1 and 2, a
+              train step's max_memory_allocated above them, and 3 steps'
+              ms after it (on a shared card over gloo: a correctness run,
+              not a speed number; on two cards over NCCL).
 Every kernel phase also times the kernel's library counterpart where one
 PyTorch call computes the same function (torch.nn.LSTM or GRU on cuDNN in
 f32, and for K2, K3, K4 with residuals and K5 in bf16 as well; torch.topk;
@@ -222,7 +238,7 @@ forward plus backward under autograd (the backward rows' with_forward_ms
 and with_forward_library_ms), and computes each kernel's bound: the larger
 of its operations over the H100's peak for their type and its bytes over
 3.35 TB/s. The parity phases (3, 4, 6, 7, 9, 10, 11, 12's posterior
-comparison, 14-17, 20 and 24) turn TF32 off (cuDNN convolutions and matmuls in
+comparison, 14-17, 20, 24 and 27 (a)) turn TF32 off (cuDNN convolutions and matmuls in
 full float32); serving, training and evaluation run PyTorch's defaults. The
 last two lines are a JSON object of kernel results and {"ok": true,
 "device": {...}}.
@@ -308,6 +324,16 @@ def cuda_time(fn, reps: int):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_call(torch, fn):
+    """(fn(), its milliseconds by CUDA events): one run, timed."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def persistent_plan(torch, mod, dtype, gates, n_dir, label):
@@ -1933,8 +1959,10 @@ def phase_lm_formats(torch, np, tmp):
 
 def phase_lm_scan(torch, np, packed):
     """21 (c): the LM-fused scan with K6 against the same scan with the plain
-    top-k on the card, bit for bit; a two-chunk stream against the one-shot
-    scan; K6 timed at the LM pool; no K7 for an LM decode."""
+    top-k on the card, bit for bit, each of the two runs timed (a scan of
+    a few seconds of host-bound work a call: one run each); a two-chunk
+    stream against the one-shot scan; K6 timed at the LM pool; no K7 for an
+    LM decode."""
     from dsjax_torch.decode.beam_device import DeviceBeamDecoder, _beam_scan
     from dsjax_torch.labels import DEFAULT_LABELS
     from dsjax_torch.ops import beam, topk
@@ -1944,11 +1972,11 @@ def phase_lm_scan(torch, np, packed):
         what = f"B={b} T={t} W={w} C={c}" + (f" cutoff_top_n={top_n}" if top_n < c else "")
         lp, sizes = beam_inputs(torch, np, b, t, c, seed=w + 100)
         before = topk.LAUNCHES
-        got = lm_scan(_beam_scan, lp, sizes, w, packed, top_n)
-        torch.cuda.synchronize()
+        got, k_ms = timed_call(torch, lambda: lm_scan(_beam_scan, lp, sizes, w, packed, top_n))
         launches = topk.LAUNCHES - before
         check(launches == t, f"LM scan {what}: {launches} K6 launches for {t} frames")
-        want = lm_scan(_beam_scan, lp, sizes, w, packed, top_n, top_k=topk.topk_reference)
+        want, p_ms = timed_call(torch, lambda: lm_scan(_beam_scan, lp, sizes, w, packed, top_n,
+                                                       top_k=topk.topk_reference))
         for i, (g, x) in enumerate(zip(flat_scan(got), flat_scan(want))):
             check(bits_equal(torch, g, x), f"LM scan {what}: output {i} differs from the plain "
                                            f"top-k's")
@@ -1964,13 +1992,11 @@ def phase_lm_scan(torch, np, packed):
         for i, (g, x) in enumerate(zip(flat_scan(joined), flat_scan(got))):
             check(bits_equal(torch, g, x), f"LM scan {what}: the two-chunk stream's output {i} "
                                            f"differs from the one-shot scan's")
-        k_ms = cuda_time(lambda: lm_scan(_beam_scan, lp, sizes, w, packed, top_n), 3)
-        p_ms = cuda_time(lambda: lm_scan(_beam_scan, lp, sizes, w, packed, top_n,
-                                         top_k=topk.topk_reference), 3)
         print(f"lm scan {what}, alpha {LM_ALPHA} beta {LM_BETA}: with K6 every output and the "
               f"carry (LM hashes included) bit for bit equal to the plain top-k's; a two-chunk "
               f"stream equal to the one-shot scan; {launches} K6 launches ({t} frames); scan "
-              f"with K6 {k_ms!r} ms, with the plain top-k {p_ms!r} ms (median, CUDA events)")
+              f"with K6 {k_ms!r} ms, with the plain top-k {p_ms!r} ms (one run each, CUDA "
+              f"events)")
         result[what] = {"k6_launches": launches, "scan_k6_ms": k_ms, "scan_plain_ms": p_ms}
 
     # K6 alone at the LM pools: W stays and W * C extends a row
@@ -3477,6 +3503,168 @@ def phase_quick_start(torch, np, gpu_name, card):
     return {"train": launches, "evaluate": {"lstm_fwd": eval_counts["lstm_fwd"]}}
 
 
+# phase 27: tensor-parallel training (trainer.mesh_model = 2) at the
+# flagship's width (tests/torch_tp_worker.py), against one rank at
+# mesh_model = 1: NCCL with a card a rank on a host of two or more cards,
+# else two gloo ranks sharing the card (NCCL refuses two ranks on one device)
+TP_FRAMES, TP_ROWS, TP_MEMORY_ROWS = 256, 8, 16
+TP_CLIP = 5.0                 # low enough that the global-norm clip engages
+TP_DEVICE = "cuda"
+
+
+def tp_shared(torch, world):
+    """Whether ``world`` ranks share cuda:0 over gloo (fewer cards than ranks)."""
+    return torch.cuda.device_count() < world
+
+
+def tp_ranks(torch, tmp, name, world, mesh_model, args):
+    """Start ``world`` ranks of tests/torch_tp_worker.py, a card each over
+    NCCL or all on cuda:0 over gloo; return their Popen objects."""
+    port = free_port()
+    shared = tp_shared(torch, world)
+    procs = []
+    for r in range(world):
+        env = dict(without_torchrun_env(), WORLD_SIZE=str(world), RANK=str(r),
+                   LOCAL_RANK="0" if shared else str(r), LOCAL_WORLD_SIZE="1" if shared
+                   else str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "tests", "torch_tp_worker.py"),
+             "--weights", os.path.join(tmp, "tp_weights.pt"),
+             "--out", os.path.join(tmp, f"{name}_{r}.pt"), "--mesh-model", str(mesh_model),
+             "--device", TP_DEVICE, "--backend", "gloo" if shared else "nccl",
+             "--hidden", str(H), "--layers", "5",
+             "--frames", str(TP_FRAMES), "--clip", str(TP_CLIP), *args],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def tp_finish(torch, tmp, name, procs):
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0 and "DONE" in log,
+              f"{name} rank {r}: rc {p.returncode}\n{log[-4000:]}")
+    return [torch.load(os.path.join(tmp, f"{name}_{r}.pt"), weights_only=False)
+            for r in range(len(procs))]
+
+
+def phase_tensor_parallel(torch, np, gpu_name, card):
+    """27: (a) the flagship (5 x BiLSTM-1024) in f32 with TF32 off, B=8 rows
+    of 256 frames, SGD with the clip engaged: two ranks at mesh_model=2
+    against one rank at mesh_model=1 on the same weights and batch (grad
+    step, two train steps, validation); exact K2/K3/K1 counts a rank.
+    (b) bf16, B=16, AdamW: the bytes of the parameters and the optimizer
+    state a card at mesh_model=1 and 2, and the mesh_model=2 step's ms.
+    On a host of two or more cards the mesh_model=2 ranks take a card each
+    over NCCL, else they share cuda:0 over gloo."""
+    from dsjax_torch.config import TrainConfig, compose
+    from dsjax_torch.labels import DEFAULT_LABELS
+    from dsjax_torch.train.loop import Trainer
+    from tests import torch_tp_worker as worker
+
+    t_phase = time.perf_counter()
+    shared = tp_shared(torch, 2)
+    form = ("two gloo ranks sharing the card" if shared
+            else "two NCCL ranks on cuda:0 and cuda:1")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = worker.cfg_argv(H, "cpu", 1, optim="sgd", clip=TP_CLIP, rows=TP_ROWS, layers=5)
+        weights = Trainer(compose(TrainConfig, argv), list(DEFAULT_LABELS)).init_state(
+            seed=0).model.state_dict()
+        torch.save(weights, os.path.join(tmp, "tp_weights.pt"))
+        common = ["--optim", "sgd", "--rows", str(TP_ROWS), "--fp32", "--jobs", "grad,steps"]
+        t0 = time.perf_counter()
+        m2 = tp_ranks(torch, tmp, "m2", 2, 2, common)
+        m1 = tp_ranks(torch, tmp, "m1", 1, 1, common)
+        ranks, (ref,) = tp_finish(torch, tmp, "m2", m2), tp_finish(torch, tmp, "m1", m1)
+        parity_s = time.perf_counter() - t0
+        errs = {}
+        layers = 5
+        want_counts = {"grad": {"lstm_fwd_residuals": layers, "lstm_bwd": layers},
+                       "steps": {"lstm_fwd_residuals": 2 * layers, "lstm_bwd": 2 * layers},
+                       "validate": {"lstm_fwd": layers}}
+        for out in ranks:
+            want_form = (2, "gloo", "cuda:0") if shared else (2, "nccl", f"cuda:{out['rank']}")
+            check((out["world"], out["backend"], out["device"]) == want_form,
+                  f"tensor-parallel rank {out['rank']}: {out['world']} {out['backend']} "
+                  f"{out['device']}")
+            check(len(out["sharded"]) == 21, f"sharded parameters {sorted(out['sharded'])}")
+            for what, want in want_counts.items():
+                got = {k: v for k, v in out["counts"][what].items() if v}
+                check(got == want, f"rank {out['rank']} {what}: launches {got}, want {want}")
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+                [out["grad"]["loss"]] + out["losses"], [ref["grad"]["loss"]] + ref["losses"]))
+            check(loss_err <= DDP_LOSS_RTOL, f"rank {out['rank']}: losses "
+                                             f"{[out['grad']['loss']] + out['losses']} against "
+                                             f"{[ref['grad']['loss']] + ref['losses']}")
+            errs["loss"] = max(errs.get("loss", 0.0), loss_err)
+            # gradients and the clipped SGD steps' updates, each within
+            # STEP_TOL x its largest magnitude; an update also within the f32
+            # rounding of its parameter (1e-6 x its largest value, a few
+            # ulps): the clip makes the updates about 1e-7, where the two
+            # runs' clip factors, an ulp apart, round the parameter apart
+            for what, got, want in (
+                    ("gradient", out["grad"]["grads"], ref["grad"]["grads"]),
+                    ("update", {k: v - weights[k] for k, v in out["params"].items()},
+                     {k: v - weights[k] for k, v in ref["params"].items()})):
+                for k, w in want.items():
+                    ulps = 1e-6 * float(weights[k].abs().max()) if what == "update" else 0.0
+                    e = float(((got[k] - w).abs().max() - ulps).clamp_min(0)
+                              / max(float(w.abs().max()), 1e-30))
+                    check(e <= STEP_TOL, f"rank {out['rank']}: {what} {k} {e} x its largest "
+                                         f"past {ulps}")
+                    errs[what] = max(errs.get(what, 0.0), e)
+            for k, w in ref["buffers"].items():
+                check(bool(torch.allclose(out["buffers"][k], w, atol=DDP_STATS_TOL[0],
+                                          rtol=DDP_STATS_TOL[1])), f"running stat {k}")
+                errs["stats"] = max(errs.get("stats", 0.0),
+                                    float((out["buffers"][k] - w).abs().max()))
+            check(out["wer_cer"] == ref["wer_cer"],
+                  f"WER/CER {out['wer_cer']} against {ref['wer_cer']}")
+        check(all(torch.equal(ranks[0]["held"][k], ranks[1]["held"][k])
+                  for k in ranks[0]["held"]), "replicated parameters differ across the group")
+        check(ranks[0]["counts"] == ranks[1]["counts"], "the ranks' launch counts differ")
+        del ranks[0]["grad"], ranks[1]["grad"], ref["grad"]
+        launches = {k: sum(c.get(k, 0) for c in ranks[0]["counts"].values())
+                    for k in ("lstm_fwd", "lstm_fwd_residuals", "lstm_bwd")}
+
+        mem = ["--rows", str(TP_MEMORY_ROWS), "--precision", "16", "--jobs", "memory"]
+        t0 = time.perf_counter()
+        (one,) = tp_finish(torch, tmp, "mem1", tp_ranks(torch, tmp, "mem1", 1, 1, mem))
+        two = tp_finish(torch, tmp, "mem2", tp_ranks(torch, tmp, "mem2", 2, 2, mem))
+        memory_s = time.perf_counter() - t0
+    per_card = {"mesh_model=1": one["memory"], "mesh_model=2": [r["memory"] for r in two]}
+    for m in [one["memory"]] + [r["memory"] for r in two]:
+        check(all(np.isfinite(s["loss"]) for s in m["step_ms"]), f"memory run losses {m}")
+    share = (two[0]["memory"]["param_bytes"] + two[0]["memory"]["optimizer_bytes"]) / (
+        one["memory"]["param_bytes"] + one["memory"]["optimizer_bytes"])
+    check(share < 0.6, f"a mesh_model=2 card holds {share} of the whole model's bytes")
+    m2_ms = [s["cuda_events"] for s in two[0]["memory"]["step_ms"]]
+    m1_ms = [s["cuda_events"] for s in one["memory"]["step_ms"]]
+    print(f"tensor parallel (a) on {gpu_name} ({card}), 5x BiLSTM-1024 f32, TF32 off, B="
+          f"{TP_ROWS} x {TP_FRAMES} frames, SGD, clip {TP_CLIP}: {form} at mesh_model=2 "
+          f"(21 parameters sharded) against one rank at mesh_model=1: losses "
+          f"{ranks[0]['losses']} ({ref['losses']}), max relative {errs['loss']!r} (<= "
+          f"{DDP_LOSS_RTOL}); gradients {errs['gradient']!r} and SGD updates {errs['update']!r} "
+          f"x their largest (<= {STEP_TOL}); running stats max_abs_err {errs['stats']!r}; "
+          f"WER/CER {ranks[0]['wer_cer']}; replicated parameters bit-identical across the "
+          f"group; launches a rank {ranks[0]['counts']}; {parity_s!r} s for the three processes")
+    print(f"tensor parallel (b) on {gpu_name} ({card}), 5x BiLSTM-1024 bf16, B="
+          f"{TP_MEMORY_ROWS} x {TP_FRAMES} frames, AdamW: parameters + optimizer state a card "
+          f"{json.dumps(per_card)}; a mesh_model=2 card holds {share!r} of mesh_model=1's "
+          f"bytes; step ms (CUDA events) mesh_model=2 {m2_ms} ({form}) against mesh_model=1 "
+          f"{m1_ms}" + (" (a correctness run, not a speed number: two ranks share one card and "
+                        "gloo stages every weight gather through the host)" if shared else "")
+          + f"; {memory_s!r} s")
+    print(f"phase 27: wall {time.perf_counter() - t_phase!r} s")
+    return {"launches": launches, "per_card": per_card, "share": share, "m2_ms": m2_ms,
+            "m1_ms": m1_ms, "form": form}
+
+
 def run(torch, np):
     from dsjax_torch.ops import _build
 
@@ -3488,7 +3676,11 @@ def run(torch, np):
     print(f"device: {gpu_name}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible")
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
+
+    def done(phases):
+        print(f"phases {phases} done at {time.perf_counter() - t_run!r} s")
+
     _build.build(force=True)
     _build.load_library()
     print(f"build: {[str(p.relative_to(ROOT)) for p in _build.sources()]} -> "
@@ -3509,26 +3701,32 @@ def run(torch, np):
     print("parity phases: cudnn TF32 off, matmul TF32 off, float32 matmul precision 'highest'")
     kernel = phase_kernel(torch, np)
     state, model_cfg = phase_parity(torch, np)
+    done("1-4")
     defaults_back()
     print(f"serving phase: PyTorch defaults (cudnn TF32 {defaults[0]}, matmul TF32 "
           f"{defaults[1]}, precision {defaults[2]!r})")
     launches, steps = phase_serving(torch, np, state, model_cfg, gpu_name)
+    done("5")
     full_fp32()
     train_kernels = phase_train_kernels(torch, np)
     phase_gradients(torch, np)
     phase_step_parity(torch, np)
+    done("6, 7, 9")
     defaults_back()
     print("training phase: PyTorch defaults")
     train_launches = phase_training(torch, np, gpu_name, card)
+    done("8")
     full_fp32()
     topk_res = phase_topk(torch, np)
     beam_res = phase_beam_kernel(torch, np)
     backtrack_res = phase_backtrack(torch, np)
+    done("10-11")
     defaults_back()
     print("evaluation and beam serving phases: PyTorch defaults (the posterior comparison with "
           "TF32 off)")
     eval_runs = phase_evaluation(torch, np, state, model_cfg, gpu_name, full_fp32, defaults_back)
     phase_beam_serving(torch, np, state, model_cfg, gpu_name)
+    done("12-13")
     full_fp32()
     print("GRU kernel and parity phases: TF32 off")
     gru_kernel = phase_gru_kernel(torch, np)
@@ -3539,12 +3737,16 @@ def run(torch, np):
         defaults_back()
         print("GRU serving and training phases: PyTorch defaults")
         gru_serving = phase_gru_serving(torch, np, paths, gpu_name)
+    done("14-18")
     gru_train_launches = phase_training(torch, np, gpu_name, card, rnn="gru", epochs=1)
+    done("19")
     full_fp32()
     k8 = phase_mm_chain(torch, np)
+    done("20")
     defaults_back()
     print("LM phase: PyTorch defaults")
     lm = phase_lm(torch, np, state, model_cfg, gpu_name)
+    done("21")
     full_fp32()
     print("data-parallel phase: TF32 off")
     data_parallel = phase_data_parallel(torch, np, state, model_cfg, gpu_name, card)
@@ -3559,6 +3761,10 @@ def run(torch, np):
     resume_launches = phase_resume(torch, np, gpu_name, card)
     print("quick start phase: PyTorch defaults")
     quick_start = phase_quick_start(torch, np, gpu_name, card)
+    print("tensor-parallel phase: TF32 off in the mesh_model comparison, PyTorch defaults in "
+          "the bf16 memory run")
+    tensor_parallel = phase_tensor_parallel(torch, np, gpu_name, card)
+    done("22-27")
 
     def row(name, source, replaces, launches, res, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3608,6 +3814,7 @@ def run(torch, np):
                 launches_in_resume=resume_launches["lstm_fwd"],
                 launches_in_quick_start=quick_start["train"]["lstm_fwd"]
                 + quick_start["evaluate"]["lstm_fwd"],
+                launches_in_tensor_parallel=tensor_parallel["launches"]["lstm_fwd"],
                 launches_in_evaluation=eval_runs["greedy"]["counts"]["lstm_fwd"],
                 launches_in_data_parallel=data_parallel["forward"]["lstm_fwd"],
                 data_parallel=data_parallel,
@@ -3623,6 +3830,7 @@ def run(torch, np):
                         launches_in_ddp_training=ddp_launches[name],
                         launches_in_resume=resume_launches[name],
                         launches_in_quick_start=quick_start["train"][name],
+                        launches_in_tensor_parallel=tensor_parallel["launches"][name],
                         **bf16_extra(train_kernels[(key, "bfloat16")]),
                         **pair_extra(key, train_kernels[(key, "float32")],
                                      train_kernels[(key, "bfloat16")]),

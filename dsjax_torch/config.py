@@ -16,7 +16,8 @@ that many CPU replicas (dsjax's fake CPU devices), over which batches shard
 (``inference.local_devices``); ``trainer.num_cpu_devices`` stays refused.
 Under torchrun ``trainer.devices`` counts a node's processes, one a card,
 and the trainer's ``mesh_*`` must describe the world size
-(``parallel/mesh.py``); tensor parallelism (``mesh_model`` > 1) raises.
+(``parallel/mesh.py``); ``mesh_model`` > 1 shards the recurrent and head
+weights over groups of that many ranks (``parallel/tensor.py``).
 ``EvalConfig`` and ``TranscribeConfig`` also gain ``device``;
 ``EvalConfig`` drops dsjax's unread ``save_output``.
 
@@ -160,8 +161,9 @@ class TrainerConfig:
     resume_from_checkpoint: str = ""
     deterministic: bool = False
     detect_anomaly: bool = False        # raise at the first NaN/Inf in backward
-    # dsjax's mesh as checks: mesh_data -1 or world size / mesh_dcn,
-    # mesh_dcn (nodes) dividing the world size, mesh_model 1
+    # dsjax's mesh: mesh_model x mesh_dcn (nodes) dividing the world size,
+    # mesh_data -1 or world size / (mesh_model x mesh_dcn); mesh_model > 1
+    # shards the recurrent and head weights over that many ranks
     mesh_data: int = -1
     mesh_model: int = 1
     mesh_dcn: int = 1

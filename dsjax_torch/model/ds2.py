@@ -35,6 +35,7 @@ from dsjax_torch.config import BiDirectionalConfig, RNNType, SpectConfig, UniDir
 from dsjax_torch.ops.gru import gru_scan
 from dsjax_torch.ops.lstm import _flip, lstm_scan
 from dsjax_torch.parallel import distributed
+from dsjax_torch.parallel.tensor import whole
 
 Tensor = torch.Tensor
 Carry = Tuple[Tensor, ...]         # LSTM (h, c), GRU and RNN (h,), each (D, B, H)
@@ -63,9 +64,11 @@ def hardtanh_0_20(x: Tensor) -> Tensor:
     return torch.clamp(x, 0.0, 20.0)
 
 
-def global_moments(xf: Tensor, axes: Tuple[int, ...]) -> Tuple[Tensor, Tensor, Tensor]:
+def global_moments(xf: Tensor, axes: Tuple[int, ...], group=None
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """(mean, biased variance, N / (N - 1)) of f32 ``xf`` over ``axes`` and
-    every rank of the default group, N the global count.
+    every rank of ``group`` (the default group when None), N the global
+    count.
 
     One all-reduce of [n_r E_r[x], n_r E_r[x^2], n_r] in f64, divided by
     the global N, so ranks holding different counts weigh by them and N is
@@ -76,7 +79,7 @@ def global_moments(xf: Tensor, axes: Tuple[int, ...]) -> Tuple[Tensor, Tensor, T
     n = math.prod(xf.shape[a] for a in axes)
     local = torch.cat([xf.mean(dim=axes).double() * n, (xf * xf).mean(dim=axes).double() * n,
                        xf.new_full((1,), n, dtype=torch.float64)])
-    total = distributed.all_reduce_sum(local)
+    total = distributed.all_reduce_sum(local, group)
     count = total[2 * f:].detach()
     mean = (total[:f] / count).float()
     var = (total[f:2 * f] / count).float() - mean * mean
@@ -95,8 +98,11 @@ class TorchBatchNorm(nn.Module):
     included) training takes the statistics of the global batch, as dsjax's
     do (its means run over a batch sharded across the mesh): one
     differentiable all-reduce of the ranks' sums and counts
-    (``global_moments``). The count is the global one in the unbiased
-    factor, so every rank's running stats move alike.
+    (``global_moments``) over ``stats_group``: the default group, or under
+    tensor parallelism the data group (``parallel.tensor.shard_model`` sets
+    it), since the M ranks of a model group hold the same rows. The count
+    is the global one in the unbiased factor, so every rank's running stats
+    move alike.
     """
 
     def __init__(self, num_features: int, axes: Tuple[int, ...], eps: float = 1e-5,
@@ -110,6 +116,7 @@ class TorchBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.stats_group = None   # the process group the statistics span (None: default)
 
     def forward(self, x: Tensor) -> Tensor:
         shape = [1] * x.dim()
@@ -118,7 +125,7 @@ class TorchBatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             if distributed.active():
-                mean, var, unbias = global_moments(xf, self.axes)
+                mean, var, unbias = global_moments(xf, self.axes, self.stats_group)
             else:
                 mean = xf.mean(dim=self.axes)
                 var = (xf * xf).mean(dim=self.axes) - mean * mean
@@ -215,7 +222,8 @@ class RecurrentLayer(nn.Module):
     layout: weight_ih (D, G * H, in), weight_hh (D, G * H, H), gate order
     i, f, g, o (LSTM) or r, z, n (GRU), G the number of gates. The returned
     carry holds each direction's (h, c) (LSTM) or (h,) at each utterance's
-    true end.
+    true end. Under tensor parallelism each rank holds a block of the G * H
+    rows, and the forward gathers them whole (``parallel.tensor.whole``).
     """
 
     def __init__(self, input_size: int, hidden_size: int,
@@ -236,10 +244,11 @@ class RecurrentLayer(nn.Module):
         # x: (T, B, in) time-major; lengths: (B,)
         n_t, n_b = x.shape[0], x.shape[1]
         n_dir, dt = len(self.reverse), self.dtype
+        w_ih, w_hh, b_ih, b_hh = (whole(self, name, dt) for name in
+                                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
         # the input projection of every step as one matrix product per direction
-        xp = torch.matmul(x.to(dt).reshape(n_t * n_b, self.input_size),
-                          self.weight_ih.to(dt).transpose(1, 2))
-        xp = (xp + self.bias_ih.to(dt)[:, None, :]).reshape(n_dir, n_t, n_b, -1)
+        xp = torch.matmul(x.to(dt).reshape(n_t * n_b, self.input_size), w_ih.transpose(1, 2))
+        xp = (xp + b_ih[:, None, :]).reshape(n_dir, n_t, n_b, -1)
         mask = (torch.arange(n_t, device=x.device)[:, None] < lengths[None, :]).float()
         n_state = 2 if self.rnn_type == RNNType.lstm else 1
         if carry is None:
@@ -247,7 +256,7 @@ class RecurrentLayer(nn.Module):
                           for _ in range(n_state))
         else:
             state = tuple(s.to(dt).contiguous() for s in carry)
-        w_hh, b_hh = self.weight_hh.to(dt).contiguous(), self.bias_hh.to(dt).contiguous()
+        w_hh, b_hh = w_hh.contiguous(), b_hh.contiguous()
         scan = {RNNType.lstm: lstm_scan, RNNType.gru: gru_scan, RNNType.rnn: rnn_scan}
         y, *state = scan[self.rnn_type](xp, mask, w_hh, b_hh, *state, self.reverse)
         return (y[0] if n_dir == 1 else y[0] + y[1]), tuple(state)
@@ -271,7 +280,9 @@ class Lookahead(nn.Module):
 
 
 class Linear(nn.Module):
-    """Bias-free Linear computed in the compute dtype."""
+    """Bias-free Linear computed in the compute dtype; under tensor
+    parallelism each rank holds a block of the input columns, gathered
+    whole in the forward."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32):
@@ -280,7 +291,7 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return F.linear(x.to(self.dtype), whole(self, "weight", self.dtype))
 
 
 class DeepSpeech2(nn.Module):

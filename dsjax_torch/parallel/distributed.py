@@ -11,11 +11,13 @@ torchrun's environment: ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
 
   * the default group, NCCL for ``cuda`` and gloo for ``cpu``: DDP's
     gradient all-reduce, the BatchNorm statistics
-    (``model/ds2.py:TorchBatchNorm``) and the logged loss;
+    (``model/ds2.py:TorchBatchNorm``) and the logged loss, or with
+    ``trainer.mesh_model`` > 1 the model and data groups made from it
+    (``parallel/mesh.py``);
   * a gloo group for host-side collectives (agreed shapes, sub-batch
     counts, WER/CER sums), which need no device synchronisation.
 
-Both carry a timeout, so a collective that never completes raises.
+All carry a timeout, so a collective that never completes raises.
 
 Elastic recovery is the reference's: torchrun restarts every rank
 (``--max-restarts``, ``--rdzv_backend c10d`` across nodes) and, with
@@ -36,6 +38,7 @@ import torch.distributed as dist
 ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 _host_group = None  # the gloo group of the running job, while one exists
+_timeout = None     # the groups' collective timeout, while a job runs
 
 
 def launched() -> bool:
@@ -59,7 +62,7 @@ def initialize(device: str = "cuda", backend: Optional[str] = None,
     size including 1; without that environment do nothing. Returns True if
     this call joined (the caller then ``destroy``s). ``backend`` defaults to
     nccl for a ``cuda`` device and gloo otherwise; a failed join raises."""
-    global _host_group
+    global _host_group, _timeout
     if active() or not launched():
         return False
     world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
@@ -77,6 +80,7 @@ def initialize(device: str = "cuda", backend: Optional[str] = None,
     dist.init_process_group(backend or ("nccl" if is_cuda else "gloo"), init_method="env://",
                             world_size=world, rank=rank, timeout=timeout)
     _host_group = dist.new_group(backend="gloo", timeout=timeout)
+    _timeout = timeout
     return True
 
 
@@ -85,6 +89,13 @@ def host_group():
     if _host_group is None:
         raise RuntimeError("no process group: call dsjax_torch.parallel.distributed.initialize()")
     return _host_group
+
+
+def timeout() -> datetime.timedelta:
+    """The collective timeout the job's groups were made with."""
+    if _timeout is None:
+        raise RuntimeError("no process group: call dsjax_torch.parallel.distributed.initialize()")
+    return _timeout
 
 
 def world_size() -> int:
@@ -110,31 +121,32 @@ def barrier() -> None:
 
 
 def destroy() -> None:
-    """Leave the process group (both groups)."""
-    global _host_group
+    """Leave the process group (and every group made from it)."""
+    global _host_group, _timeout
     if active():
         dist.destroy_process_group()
-    _host_group = None
+    _host_group = _timeout = None
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks of the default group; the backward sums the
-    gradients the same way, since every rank's loss depends on every rank's
-    input."""
+    """Sum over the ranks of a group; the backward sums the gradients the
+    same way, since every rank's loss depends on every rank's input."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.contiguous().clone()
-        dist.all_reduce(out)
-        return out
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, differentiable (the default group)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (the default group when
+    None), differentiable."""
+    return _AllReduceSum.apply(x, group)

@@ -18,7 +18,12 @@ both last and best is written once and hard-linked. Files are written
 beside their target and renamed into place, so a reader never sees half a
 file. Inside a process group only rank 0 writes (``meta.json`` and every
 save, as dsjax's handler does) and every rank waits at a barrier after each
-save; on resume every rank reads the same files.
+save; on resume every rank reads the same files. Under tensor parallelism
+(``trainer.mesh_model`` > 1) every rank first gathers the sharded
+parameters and optimizer moments over its model group
+(``parallel.tensor.whole_state_dicts``), so rank 0 writes the whole model
+in the file ``mesh_model=1`` writes, and a restore takes each rank's blocks
+of it: a run saved at one mesh_model resumes at another.
 
 A dsjax run continues here after ``tools/dsjax_checkpoint_to_torch.py``
 mirrors its directory into this layout through ``from_dsjax_state`` (the
@@ -42,7 +47,7 @@ from dsjax_torch.model.convert import (CONVERT_TOOL, from_dsjax_params, from_dsj
                                        from_reference_state_dict, load_checkpoint,
                                        save_checkpoint)
 from dsjax_torch.model.ds2 import DeepSpeech2
-from dsjax_torch.parallel import distributed
+from dsjax_torch.parallel import distributed, tensor
 from dsjax_torch.train.state import TrainState, make_optimizer
 
 
@@ -78,14 +83,23 @@ def refuse_dsjax_layout(path: str) -> None:
 
 
 def write_state(path: str, state: TrainState, labels: Sequence[str],
-                metrics: Mapping[str, float], extra: Mapping[str, Any]) -> None:
+                metrics: Mapping[str, float], extra: Mapping[str, Any],
+                whole: Optional[Tuple[Mapping[str, torch.Tensor], Mapping[str, Any]]] = None
+                ) -> None:
     """The trainer's checkpoint file: the model as ``save_checkpoint`` writes
     it, plus the optimizer state, the counters, the metrics and the
-    host-side extras; written beside ``path`` and renamed into place."""
+    host-side extras; written beside ``path`` and renamed into place.
+    ``whole`` is the (model, optimizer) state_dicts of the whole model
+    (``parallel.tensor.whole_state_dicts``), required for a sharded one."""
     model = state.model
+    if whole is None:
+        if tensor.sharded_dims(model):
+            raise ValueError("a sharded model's file needs its whole state_dicts: gather "
+                             "them on every rank with parallel.tensor.whole_state_dicts")
+        whole = (model.state_dict(), state.optimizer.state_dict())
     tmp = path + ".tmp"
-    save_checkpoint(tmp, model.state_dict(), model.model_cfg, model.spect_cfg, labels, extra={
-        "optimizer": state.optimizer.state_dict(), "step": state.step, "epoch": state.epoch,
+    save_checkpoint(tmp, whole[0], model.model_cfg, model.spect_cfg, labels, extra={
+        "optimizer": whole[1], "step": state.step, "epoch": state.epoch,
         "metrics": dict(metrics), "extra": dict(extra)})
     os.replace(tmp, path)
 
@@ -119,8 +133,8 @@ class CheckpointHandler:
     # -- save ----------------------------------------------------------
 
     def _write(self, path: str, state: TrainState, metrics: Dict[str, float],
-               extra: Dict[str, Any]) -> None:
-        write_state(path, state, self.labels or [], metrics, extra)
+               extra: Dict[str, Any], whole=None) -> None:
+        write_state(path, state, self.labels or [], metrics, extra, whole)
 
     def _index(self) -> Dict[int, Dict[str, float]]:
         path = os.path.join(self.best_dir, "index.json")
@@ -133,21 +147,24 @@ class CheckpointHandler:
              extra: Optional[Dict[str, Any]] = None, last_only: bool = False) -> None:
         """Save last and, unless ``last_only`` (a mid-epoch save that does
         not compete in the ranking), best-k. ``extra`` carries host-side
-        state such as the sampler's start_index. Rank 0 writes; every rank
+        state such as the sampler's start_index. A sharded model's whole
+        state is gathered on every rank first; rank 0 writes; every rank
         returns after the files are in place."""
+        whole = (tensor.whole_state_dicts(state.model, state.optimizer)
+                 if tensor.sharded_dims(state.model) else None)
         if distributed.is_main_process():
-            self._save(state, metrics, extra, last_only)
+            self._save(state, metrics, extra, last_only, whole)
         distributed.barrier()
 
     def _save(self, state: TrainState, metrics: Dict[str, float],
-              extra: Optional[Dict[str, Any]], last_only: bool) -> None:
+              extra: Optional[Dict[str, Any]], last_only: bool, whole=None) -> None:
         metrics = {k: float(v) for k, v in metrics.items()}
         extra = dict(extra or {})
         step = state.step
         written = None
         if self.save_last or last_only:
             written = _path(self.last_dir, step)
-            self._write(written, state, metrics, extra)
+            self._write(written, state, metrics, extra, whole)
             for old in _steps(self.last_dir):
                 if old != step:
                     os.unlink(_path(self.last_dir, old))
@@ -158,7 +175,7 @@ class CheckpointHandler:
             if written is not None:
                 os.link(written, best)
             else:
-                self._write(best, state, metrics, extra)
+                self._write(best, state, metrics, extra, whole)
             index = self._index()
             index[step] = metrics
             ranked = sorted(index, key=lambda s: (index[s].get(self.monitor, float("inf")), s))
@@ -218,15 +235,18 @@ def restore_file(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, An
     another optimizer kind raises, as dsjax's restore does. Any other file
     with a reference-layout state_dict (a ``save_checkpoint`` model, a
     reference ``.ckpt``) warm-starts the weights with a fresh optimizer.
-    Returns the state and the host-side extras."""
+    Every file holds the whole model: a sharded model (``trainer.mesh_model``
+    > 1) takes its blocks of the weights and moments. Returns the state and
+    the host-side extras."""
     ckpt = load_checkpoint(path)
     weights = from_reference_state_dict(ckpt.get("state_dict", ckpt))
-    want = {k: tuple(v.shape) for k, v in state.model.state_dict().items()}
+    want = tensor.whole_shapes(state.model)
     got = {k: tuple(v.shape) for k, v in weights.items()}
     if want != got:
         raise ValueError(f"checkpoint {path} does not match the configured model (set "
                          f"model.hidden_size/hidden_layers/rnn_type and model=bidirectional "
                          f"or unidirectional to the checkpoint's): {got} vs {want}")
+    weights = tensor.own_blocks(state.model, weights)
     if "optimizer" not in ckpt:
         state.model.load_state_dict(weights)
         print(f"warm-started weights from {path} (fresh optimizer state)")
@@ -238,7 +258,8 @@ def restore_file(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, An
                          f"checkpoint's, as dsjax cannot restore another optimizer's state")
     state.model.load_state_dict(weights)
     options = [{k: v for k, v in g.items() if k not in ("params", "lr")} for g in groups]
-    state.optimizer.load_state_dict(saved)
+    state.optimizer.load_state_dict(tensor.own_optimizer_blocks(state.model, state.optimizer,
+                                                                saved))
     for group, own in zip(state.optimizer.param_groups, options):
         group.update(own)
     state.step, state.epoch = int(ckpt["step"]), int(ckpt["epoch"])

@@ -16,24 +16,32 @@ from a generator on the device seeded by (seed, global step)).
 (``train.logging.profile_steps``).
 
 Under torchrun (``parallel.distributed.initialize``, which
-``workflows.train`` calls) every rank runs this loop on its own card and
-its own batches, and each step gives dsjax's answers on the global batch:
-the model is wrapped in ``DistributedDataParallel`` (one gradient
-all-reduce an optimizer step, averaged over the ranks, which is the
-gradient of dsjax's ``loss / dp``), the host arrays are zero-padded to the
-ranks' common shapes before they are staged (``multihost.agree_shapes``),
-BatchNorm takes global statistics (``model/ds2.py:TorchBatchNorm``), the
-device SpecAugment masks are drawn for the global batch, the logged loss is
-the ranks' sum over the world size, and validation sums the WER/CER counts
-over the ranks. Outside torchrun none of this runs.
+``workflows.train`` calls) every rank runs this loop on its own card, and
+each step gives dsjax's answers on the global batch. With
+``trainer.mesh_model`` = M (dsjax's model axis; ``parallel/mesh.py``) the
+world is dp = world / M data indices of M ranks each; the M ranks of a
+model group hold the same rows, and each holds only its block of the
+recurrent and head weights and of their optimizer moments
+(``parallel/tensor.py``; at M = 1, the default, every rank holds the whole
+model and the data group is the world). The model is wrapped in
+``DistributedDataParallel`` over the data group (one gradient all-reduce an
+optimizer step, averaged over dp, which is the gradient of dsjax's ``loss /
+dp``), the host arrays are zero-padded to the ranks' common shapes before
+they are staged (``multihost.agree_shapes``), BatchNorm takes the data
+group's statistics (``model/ds2.py:TorchBatchNorm``), the device
+SpecAugment masks are drawn for the rank's row block of the global batch,
+the global-norm clip adds the shards' squares over the model group, the
+logged loss is the data group's sum over dp, and validation sums the
+WER/CER counts of model index 0 over the ranks. Outside torchrun none of
+this runs.
 
 The state lives in a ``TrainState`` that the methods update in place and
 return, so calls read like dsjax's functional ones: ``state, loss =
 trainer.train_step(state, batch)``.
 
 Settings the port does not carry raise instead of being ignored: more
-than one card in one process, tensor parallelism (``trainer.mesh_model``)
-and the fields that select or tune JAX (``refuse_unported``).
+than one card in one process, ``mesh_*`` settings that do not describe the
+world size, and the fields that select or tune JAX (``refuse_unported``).
 """
 
 from __future__ import annotations
@@ -56,8 +64,8 @@ from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.inference import resolve_device
 from dsjax_torch.model.ctc import ctc_loss
 from dsjax_torch.model.ds2 import DeepSpeech2
-from dsjax_torch.parallel import distributed
-from dsjax_torch.parallel.mesh import check_mesh
+from dsjax_torch.parallel import distributed, tensor
+from dsjax_torch.parallel.mesh import check_mesh, make_groups
 from dsjax_torch.parallel.multihost import agree_count, agree_shapes, sum_ints
 from dsjax_torch.train.metrics import CharErrorRate, WordErrorRate, update_batch
 from dsjax_torch.train.state import (TrainState, clip_by_global_norm, epoch_lr,
@@ -121,7 +129,8 @@ class Trainer:
         self.cfg = cfg
         self.labels = list(labels)
         self.device = resolve_device(cfg.trainer.device)
-        self.world, self.rank = distributed.world_size(), distributed.rank()
+        # the model and data groups (a collective at mesh_model > 1)
+        self.groups = make_groups(cfg.trainer.mesh_model)
         if self.device.type == "cuda" and self.device.index is None and distributed.active():
             self.device = torch.device("cuda", distributed.local_rank())
         self.dtype = torch.bfloat16 if cfg.trainer.precision == 16 else torch.float32
@@ -151,7 +160,12 @@ class Trainer:
         default) and a fresh optimizer."""
         gen = torch.Generator().manual_seed(self.cfg.seed if seed is None else seed)
         model = DeepSpeech2(len(self.labels), self.cfg.data.spect, self.cfg.model,
-                            dtype=self.dtype, generator=gen).to(self.device)
+                            dtype=self.dtype, generator=gen)
+        # at mesh_model > 1 each rank keeps its block of the sharded weights
+        # (taken before the copy to the card, so only the blocks reach it),
+        # and the optimizer's moments are made on those blocks
+        tensor.shard_model(model, self.groups)
+        model = model.to(self.device)
         return TrainState(model, make_optimizer(model.parameters(), self.cfg.optim))
 
     # ------------------------------------------------------------------
@@ -173,10 +187,11 @@ class Trainer:
 
     def _module(self, state: TrainState) -> torch.nn.Module:
         """What the training forward calls: the model, or inside a process
-        group its DDP wrapper (made at the first step, a collective). The
-        running stats are equal on every rank by construction, so buffers
-        are not broadcast; ``state.model`` stays the bare model, so
-        checkpoints and the server see no ``module.`` prefix."""
+        group its DDP wrapper over the data group (made at the first step,
+        a collective). The running stats are equal on every rank by
+        construction, so buffers are not broadcast; ``state.model`` stays
+        the bare model, so checkpoints and the server see no ``module.``
+        prefix."""
         if not distributed.active():
             return state.model
         if self._ddp is None or self._ddp.module is not state.model:
@@ -189,7 +204,8 @@ class Trainer:
                                         FutureWarning)
                 self._ddp = DistributedDataParallel(
                     state.model, device_ids=[self.device.index] if self.device.type == "cuda"
-                    else None, broadcast_buffers=False, gradient_as_bucket_view=True)
+                    else None, process_group=self.groups.data, broadcast_buffers=False,
+                    gradient_as_bucket_view=True)
         return self._ddp
 
     def _features(self, x: Tensor, input_lengths: Tensor) -> Tensor:
@@ -202,22 +218,23 @@ class Trainer:
     def _device_augment(self, feats: Tensor, input_lengths: Tensor, step: int) -> Tensor:
         """On-device SpecAugment masks (AugmentationConfig.spec_augment_device),
         drawn from a generator on the device seeded by (seed, global step),
-        for the global batch of which this rank holds a row block."""
+        for the global batch of which this rank's data index holds a row
+        block."""
         aug = self.cfg.data.augmentation
         if not (aug.spec_augment and aug.spec_augment_device):
             return feats
         return spec_augment_device(feats, input_lengths,
                                    step_generator(self.cfg.seed, step, feats.device),
-                                   world=self.world, rank=self.rank)
+                                   world=self.groups.data_size, rank=self.groups.data_index)
 
     def _backward(self, state: TrainState, batch: Batch,
                   staged: Optional[Staged] = None, sync: bool = True) -> Tensor:
         """Forward, loss and backward on one batch; gradients accumulate in
         the parameters' .grad and the BatchNorm running stats move. Under
         DDP the backward of the rank's loss sum all-reduces the gradients,
-        averaged over the ranks, unless ``sync`` is False (a micro-batch
-        before the last of an optimizer step); the returned loss is the
-        ranks' sum over the world size, dsjax's ``loss / dp``."""
+        averaged over the data group, unless ``sync`` is False (a
+        micro-batch before the last of an optimizer step); the returned
+        loss is the data group's sum over dp, dsjax's ``loss / dp``."""
         staged = staged if staged is not None else self.put_batch(batch)
         x, input_lengths, targets, target_lengths, valid = staged.wait(self.device)
         module = self._module(state)
@@ -235,20 +252,26 @@ class Trainer:
             loss.backward()
         loss = loss.detach()
         if module is not state.model:
-            torch.distributed.all_reduce(loss)
-            loss = loss / self.world
+            torch.distributed.all_reduce(loss, group=self.groups.data)
+            loss = loss / self.groups.data_size
         return loss
 
     def _update(self, state: TrainState, n_accum: int) -> TrainState:
         """Scale the accumulated gradients by 1 / n_accum, clip, and step
-        the optimizer at this epoch's learning rate."""
-        params = [p for p in state.model.parameters() if p.grad is not None]
+        the optimizer at this epoch's learning rate. At mesh_model > 1 the
+        replicated parameters' gradients are first made equal across the
+        model group, and the clip's norm counts the shards over it."""
+        named = [(n, p) for n, p in state.model.named_parameters() if p.grad is not None]
+        params = [p for _, p in named]
         if n_accum != 1:
             for p in params:
                 p.grad.mul_(1.0 / max(1, n_accum))
+        tensor.agree_replicated(state.model, self.groups)
         clip = self.cfg.trainer.gradient_clip_val
         if clip and clip > 0:
-            clip_by_global_norm([p.grad for p in params], clip)
+            sharded = tensor.sharded_dims(state.model)
+            clip_by_global_norm([p.grad for p in params], clip, [n in sharded for n, _ in named],
+                                self.groups.model)
         set_lr(state.optimizer, epoch_lr(self.cfg.optim, state.epoch))
         state.optimizer.step()
         state.step += 1
@@ -340,10 +363,13 @@ class Trainer:
             if verbose:
                 for t, r in zip(transcripts, references):
                     print(f"Ref:  {r}\nHyp:  {t}\n")
-        # each rank decoded its own rows: exact integer sums over the ranks
-        # (torchmetrics dist_reduce_fx="sum" parity, dsjax's validate)
-        wer.distance, wer.denom, cer.distance, cer.denom = sum_ints(
-            [wer.distance, wer.denom, cer.distance, cer.denom])
+        # each data index decoded its own rows: exact integer sums over the
+        # ranks (torchmetrics dist_reduce_fx="sum" parity, dsjax's validate),
+        # where only model index 0 of each model group counts its rows
+        counts = [wer.distance, wer.denom, cer.distance, cer.denom]
+        if self.groups.model_index:
+            counts = [0] * len(counts)
+        wer.distance, wer.denom, cer.distance, cer.denom = sum_ints(counts)
         return wer.compute(), cer.compute()
 
     def fit(self, train_pipeline, val_pipeline, checkpoint_handler=None,
@@ -376,7 +402,8 @@ class Trainer:
                 # copy batches to the device ahead of the step; with more
                 # than one rank put_batch is a collective of the host group,
                 # which stays on this thread (as dsjax's prefetch gate)
-                use_dp = cfg.data.device_prefetch > 0 and accum == 1 and self.world == 1
+                use_dp = (cfg.data.device_prefetch > 0 and accum == 1
+                          and distributed.world_size() == 1)
                 if use_dp:
                     import itertools
 

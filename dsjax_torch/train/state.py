@@ -14,9 +14,10 @@ tests/test_torch_train.py holds both against optax.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from dsjax_torch.config import AdamConfig, OptimConfig, SGDConfig
 
@@ -56,14 +57,27 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
+                        sharded: Sequence[bool] = (), group=None) -> torch.Tensor:
     """optax.clip_by_global_norm, in place: when the global norm of all
     gradients reaches ``max_norm``, scale each by max_norm / norm (torch's
     clip_grad_norm_ divides by norm + 1e-6 and clips below it). Returns the
-    norm before clipping."""
+    norm before clipping.
+
+    Under tensor parallelism ``sharded`` flags the gradients of which this
+    rank holds a block: the norm's square is then their squares summed over
+    the model ``group`` plus the replicated gradients' squares counted once,
+    the whole tree's norm that optax clips by."""
     grads = list(grads)
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    if any(sharded):
+        flags = torch.tensor(list(sharded), device=norms.device)
+        sq = norms * norms
+        shard_sq = torch.where(flags, sq, torch.zeros_like(sq)).sum()
+        dist.all_reduce(shard_sq, group=group)
+        norm = torch.sqrt(shard_sq + torch.where(flags, torch.zeros_like(sq), sq).sum())
+    else:
+        norm = torch.linalg.vector_norm(norms)
     # no host sync: where the norm is below the limit both factors are 1
     clipped = norm >= max_norm
     div = torch.where(clipped, norm, torch.ones_like(norm))

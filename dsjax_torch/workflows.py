@@ -7,7 +7,9 @@ deepspeech_pytorch/{training,testing,inference}.py).
     (``python -m dsjax_torch.train key=value ...``); under torchrun
     (``python -m torch.distributed.run --nproc_per_node N -m
     dsjax_torch.train ...``) it first joins the process group and each rank
-    trains on its own card and its own share of the batches;
+    trains on its own card and its data index's share of the batches
+    (``trainer.mesh_model`` > 1 shards the recurrent and head weights over
+    each group of that many ranks, which load the same batches);
   * ``evaluate`` takes an ``EvalConfig`` and prints WER/CER over a manifest
     (``python -m dsjax_torch.evaluate ...``), in one process over every
     replica of the bundle (every visible card by default);
@@ -35,6 +37,7 @@ from dsjax_torch.inference import decode_results, load_decoder, load_model, run_
 from dsjax_torch.labels import load_labels
 from dsjax_torch.ops import _build
 from dsjax_torch.parallel import distributed
+from dsjax_torch.parallel.mesh import data_coords
 from dsjax_torch.train.checkpoint import CheckpointHandler, restore_from_path
 from dsjax_torch.train.loop import Trainer
 from dsjax_torch.train.metrics import CharErrorRate, WordErrorRate, update_batch
@@ -47,12 +50,14 @@ def _pipelines(cfg: TrainConfig, labels: List[str]) -> Tuple[DataPipeline, DataP
                                   seed=cfg.seed, device_features=cfg.data.device_features)
     val_ds = SpectrogramDataset(cfg.data.spect, cfg.data.val_path, labels,
                                 normalize=True, device_features=cfg.data.device_features)
-    world, rank = distributed.world_size(), distributed.rank()
-    if world > 1:
+    # one share of the bins a data index: the ranks of a model group load
+    # the same bins (trainer.mesh_model, parallel/mesh.py)
+    dp, index = data_coords(cfg.trainer.mesh_model)
+    if dp > 1:
         train_sampler = DistributedBucketSampler(len(train_ds), cfg.data.batch_size,
-                                                 seed=cfg.seed, num_replicas=world, rank=rank)
+                                                 seed=cfg.seed, num_replicas=dp, rank=index)
         val_sampler = DistributedOrderedSampler(len(val_ds), cfg.data.batch_size,
-                                                seed=cfg.seed, num_replicas=world, rank=rank)
+                                                seed=cfg.seed, num_replicas=dp, rank=index)
     else:
         train_sampler = BucketBatchSampler(len(train_ds), cfg.data.batch_size, seed=cfg.seed)
         val_sampler = OrderedBatchSampler(len(val_ds), cfg.data.batch_size, seed=cfg.seed)

@@ -26,7 +26,9 @@ padded to 64 frames and rank 1's to 48. They are held:
     row counts, only rank 0 writing a checkpoint.
 
 Also: the samplers against dsjax's, ``initialize`` with and without
-torchrun's environment, the mesh settings, and ``python -m
+torchrun's environment, the mesh settings (dsjax's make_mesh arithmetic;
+tensor-parallel training itself is tests/test_torch_tensor_parallel.py's),
+and ``python -m
 torch.distributed.run --nproc_per_node 2 -m dsjax_torch.train`` on the CPU
 (LSTM and GRU) with a one-process auto-resume from its checkpoint.
 """
@@ -381,21 +383,27 @@ def test_initialize_forms_a_gloo_group_of_one_and_a_failed_join_raises():
     (2, 1, 1, 2, None),
     (1, 1, 2, 2, None),
     (2, 1, 2, 4, None),
-    (-1, 2, 1, 2, NotImplementedError),
+    (-1, 2, 1, 2, None),
     (1, 1, 1, 2, ValueError),
     (-1, 1, 3, 2, ValueError),
     (4, 1, 2, 4, ValueError),
+    (2, 2, 1, 4, None),
+    (1, 2, 2, 4, None),
+    (-1, 3, 1, 4, ValueError),
+    (2, 2, 1, 2, ValueError),
 ])
 def test_mesh_settings_are_checks_against_the_world_size(data, model, dcn, world, exc):
+    """dsjax's make_mesh arithmetic: mesh_model x mesh_dcn divides the world
+    and mesh_data is -1 or world / (mesh_model x mesh_dcn)."""
     if exc is None:
         check_mesh(data, model, dcn, world)
     else:
-        with pytest.raises(exc, match="item 11" if exc is NotImplementedError else "mesh_"):
+        with pytest.raises(exc, match="mesh_"):
             check_mesh(data, model, dcn, world)
 
 
 @pytest.mark.parametrize("override, exc, match", [
-    ("trainer.mesh_model=2", NotImplementedError, "tensor-parallel"),
+    ("trainer.mesh_model=2", ValueError, "does not divide the world size 1"),
     ("trainer.mesh_dcn=2", ValueError, "does not divide"),
     ("trainer.devices=2", NotImplementedError, "torch.distributed.run"),
 ])

@@ -27,7 +27,8 @@ IMPORTS = ("dsjax_torch", "dsjax_torch.server", "dsjax_torch.inference",
            "dsjax_torch.build_lm_binary", "dsjax_torch.audio.augment",
            "dsjax_torch.noise_inject", "dsjax_torch.parallel",
            "dsjax_torch.parallel.distributed", "dsjax_torch.parallel.multihost",
-           "dsjax_torch.parallel.mesh", "dsjax_torch.datasets.common",
+           "dsjax_torch.parallel.mesh", "dsjax_torch.parallel.tensor",
+           "dsjax_torch.datasets.common",
            "dsjax_torch.datasets.an4", "dsjax_torch.datasets.librispeech",
            "dsjax_torch.datasets.ted", "dsjax_torch.datasets.common_voice",
            "dsjax_torch.datasets.voxforge", "dsjax_torch.data.merge_manifests",
@@ -64,7 +65,8 @@ def _imports(path):
      os.path.join(ROOT, "tests", "synthetic_corpora.py"),
      os.path.join(ROOT, "tests", "golden_gru.py"),
      os.path.join(ROOT, "tests", "dsjax_layout.py"),
-     os.path.join(ROOT, "tests", "torch_ddp_worker.py")]
+     os.path.join(ROOT, "tests", "torch_ddp_worker.py"),
+     os.path.join(ROOT, "tests", "torch_tp_worker.py")]
     + glob.glob(os.path.join(ROOT, "dsjax_torch", "**", "*.py"), recursive=True)),
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_import_of_the_jax_package(path):

@@ -21,7 +21,8 @@ directory into the port's layout, and the port resumes it:
   * the run's optimizer settings win over the file's, as in dsjax: a
     resume with another weight_decay (SGD: momentum) takes dsjax's next
     step; another optimizer kind raises; a dsjax directory handed to the
-    port's trainer raises with the tool's name;
+    port's trainer raises with the tool's name; a run of mesh_model=2
+    converts to the same files;
   * the named overlays (copies of dsjax's, byte for byte) compose to
     dsjax's configs, and ``-h``/``--help`` of the four entry modules prints
     dsjax's listing and exits 0.
@@ -389,17 +390,32 @@ def test_dsjax_directory_is_refused_with_the_tool(run, tmp_path):
     assert open(os.path.join(run.dir, "meta.json")).read() == meta
 
 
-def test_tool_refuses_a_tensor_parallel_run(run, tmp_path):
-    """A run with trainer.mesh_model > 1 has whole weights, but the port
-    cannot train it: the tool says so and writes nothing."""
+def test_tool_converts_a_tensor_parallel_run(run, tmp_path):
+    """A run with trainer.mesh_model > 1 has whole weights: the tool converts
+    it into the same files as the run's own (mesh_model=1) directory, with
+    mesh_model=2 in the port's meta.json, which the port's trainer
+    continues under torchrun (tests/test_torch_tensor_parallel.py)."""
+    from dsjax_torch.model.convert import load_checkpoint
+
     ckpt = str(tmp_path / "tp")
     shutil.copytree(run.dir, ckpt)
     meta = json.load(open(os.path.join(ckpt, "meta.json")))
     meta["config"]["trainer"]["mesh_model"] = 2
     json.dump(meta, open(os.path.join(ckpt, "meta.json"), "w"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tool().convert(ckpt, str(tmp_path / "out"))
-    assert not os.path.exists(tmp_path / "out")
+    out = str(tmp_path / "out")
+    assert tool().convert(ckpt, out) == "last"
+    port_meta = json.load(open(os.path.join(out, "meta.json")))
+    assert config.from_dict(port_meta["config"], config.TrainConfig).trainer.mesh_model == 2
+    name = f"step_{N_SAVED}.pt"
+    got, want = (load_checkpoint(os.path.join(d, "last", name)) for d in (out, run.port_dir))
+    assert sorted(got) == sorted(want)
+    for key in ("step", "epoch", "metrics", "extra"):
+        assert got[key] == want[key], key
+    for k, t in want["state_dict"].items():
+        assert torch.equal(got["state_dict"][k], t), k
+    for i, entry in want["optimizer"]["state"].items():
+        for k, t in entry.items():
+            assert torch.equal(got["optimizer"]["state"][i][k], t), (i, k)
 
 
 VARIANTS = {"bilstm": [], "bigru": ["model.rnn_type=gru"], "birnn": ["model.rnn_type=rnn"],

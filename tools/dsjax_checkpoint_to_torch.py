@@ -8,7 +8,8 @@ to continue the run, or one checkpoint file.
 CKPT_DIR is what dsjax's ``CheckpointHandler`` writes (``meta.json``,
 ``best/``, ``last/``). Each step is restored with dsjax's own handler into a
 train state built from ``meta.json``'s config on one CPU device (orbax
-restores global arrays, so a run of several devices converts too), and
+restores global arrays, so a run of several devices converts too, a
+tensor-parallel one of ``trainer.mesh_model`` > 1 included), and
 written by ``dsjax_torch.train.checkpoint.from_dsjax_state``: the weights,
 the optimizer's moments (AdamW's count, mu and nu, or SGD's trace), the step
 and epoch counters, the step's metrics and its host-side extras (the
@@ -22,7 +23,9 @@ dsjax's last save and ``best/step_M.pt`` for each kept best save, with
     python -m dsjax_torch.train checkpoint.dirpath=OUT load_auto_checkpoint=true ...
 
 (or ``trainer.resume_from_checkpoint=OUT``), on the card or with
-``trainer.device=cpu``. OUT.pt is one such file, from the best checkpoint,
+``trainer.device=cpu``; a run of ``trainer.mesh_model=M`` continues at M
+under ``python -m torch.distributed.run``, or at any other M, since the
+files hold the whole model. OUT.pt is one such file, from the best checkpoint,
 else the last one; ``python -m dsjax_torch.evaluate model.model_path=OUT.pt``
 and the port's other entry points load it as a model.
 
@@ -93,11 +96,6 @@ def convert(ckpt_dir: str, out_path: str) -> str:
 
     meta = load_meta(ckpt_dir)
     cfg = from_dict(meta["config"], TrainConfig)
-    if cfg.trainer.mesh_model > 1:
-        raise NotImplementedError(
-            f"{ckpt_dir} is a tensor-parallel run (trainer.mesh_model={cfg.trainer.mesh_model}): "
-            f"its weights are whole, but the port cannot train such a run (ROADMAP Queue 1 "
-            f"item 11)")
     port_cfg = port_config.from_dict(meta["config"], port_config.TrainConfig)
     labels = meta.get("labels") or list(DEFAULT_LABELS)
     # one CPU device, whatever mesh the run had: orbax restores global arrays
