@@ -21,6 +21,7 @@ import torch
 
 from dsjax_torch.data.dataset import Batch, SpectrogramDataset, collate, collate_audio
 from dsjax_torch.data.sampler import BucketBatchSampler
+from dsjax_torch.trace import span
 
 
 class DataPipeline:
@@ -120,14 +121,15 @@ def stage(arrays: Sequence[np.ndarray], device: torch.device,
     """Copy host arrays to ``device``. With a CUDA ``copy_stream`` the arrays
     are pinned and copied without blocking on that stream, so a
     DevicePrefetcher thread can stage a batch ahead of its use."""
-    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-    if copy_stream is None:
-        return Staged(tuple(t.to(device) for t in host), None)
-    with torch.cuda.stream(copy_stream):
-        tensors = tuple(t.pin_memory().to(device, non_blocking=True) for t in host)
-        ready = torch.cuda.Event()
-        ready.record(copy_stream)
-    return Staged(tensors, ready)
+    with span("data.stage"):
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        if copy_stream is None:
+            return Staged(tuple(t.to(device) for t in host), None)
+        with torch.cuda.stream(copy_stream):
+            tensors = tuple(t.pin_memory().to(device, non_blocking=True) for t in host)
+            ready = torch.cuda.Event()
+            ready.record(copy_stream)
+        return Staged(tensors, ready)
 
 
 class DevicePrefetcher:
@@ -183,7 +185,8 @@ class DevicePrefetcher:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("data.wait"):
+                    item = q.get()
                 if item is sentinel:
                     break
                 if isinstance(item, BaseException):

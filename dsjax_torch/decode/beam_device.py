@@ -58,6 +58,7 @@ from dsjax_torch.decode import lm_device
 from dsjax_torch.labels import LabelMap
 from dsjax_torch.ops import beam as beam_ops
 from dsjax_torch.ops import topk as topk_ops
+from dsjax_torch.trace import span
 
 Tensor = torch.Tensor
 
@@ -478,18 +479,37 @@ class DeviceBeamDecoder:
                with_scores: bool = False):
         """(strings, offsets); with_scores=True appends the (B, n_best) total
         log-scores of the hypotheses (the trailing word's LM bonus
-        included)."""
+        included).
+
+        The call is a ``beam.decode`` span (``dsjax_torch.trace``) of three
+        parts: ``beam.search`` issues the search, ``beam.fetch`` waits for
+        its characters to reach the host (behind whatever the device's
+        stream holds before it), ``beam.strings`` builds the strings and
+        offsets."""
         n_best = self.beam_width if n_best is None else n_best
-        lp = self._log(probs)
-        b, t = lp.shape[0], lp.shape[1]
-        sizes_t = (torch.full((b,), t, dtype=torch.int32, device=lp.device) if sizes is None
-                   else torch.as_tensor(sizes).to(device=lp.device, dtype=torch.int32))
-        rev_d, hists, scores_d = _decode_device(
-            lp, sizes_t, self.beam_width, self.blank_index,
-            n_best=min(n_best, self.beam_width), want_hists=self.ctc_offsets,
-            cutoff_top_n=self.cutoff_top_n, cutoff_prob=self.cutoff_prob,
-            fused=self._fused_ok(lp), **self._lm_kwargs(lp))
-        rev_chars = rev_d.cpu().numpy()                  # (T, B, n_best)
+        with span("beam.decode"):
+            with span("beam.search"):
+                lp = self._log(probs)
+                b, t = lp.shape[0], lp.shape[1]
+                sizes_t = (torch.full((b,), t, dtype=torch.int32, device=lp.device)
+                           if sizes is None
+                           else torch.as_tensor(sizes).to(device=lp.device, dtype=torch.int32))
+                rev_d, hists, scores_d = _decode_device(
+                    lp, sizes_t, self.beam_width, self.blank_index,
+                    n_best=min(n_best, self.beam_width), want_hists=self.ctc_offsets,
+                    cutoff_top_n=self.cutoff_top_n, cutoff_prob=self.cutoff_prob,
+                    fused=self._fused_ok(lp), **self._lm_kwargs(lp))
+            with span("beam.fetch"):
+                rev_chars = rev_d.cpu().numpy()          # (T, B, n_best)
+            with span("beam.strings"):
+                strings, offsets = self._strings(rev_chars, lp, sizes_t, hists)
+                if with_scores:
+                    return strings, offsets, scores_d.cpu().numpy()[:, :rev_chars.shape[2]]
+                return strings, offsets
+
+    def _strings(self, rev_chars: np.ndarray, lp: Tensor, sizes_t: Tensor, hists):
+        """Each utterance's hypotheses and their offsets from the host copy
+        of the backtracked characters, (T, B, n_best) int16."""
         n_best = rev_chars.shape[2]
         b_dim = rev_chars.shape[1]
 
@@ -520,8 +540,6 @@ class DeviceBeamDecoder:
                     utt_o.append(pos.astype(np.int32))
             strings.append(utt_s)
             offsets.append(utt_o)
-        if with_scores:
-            return strings, offsets, scores_d.cpu().numpy()[:, :n_best]
         return strings, offsets
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from dsjax_torch.labels import LabelMap
+from dsjax_torch.trace import span
 
 Tensor = torch.Tensor
 
@@ -62,7 +63,9 @@ class GreedyDecoder:
 
     def convert_to_strings(self, sequences: Sequence[Sequence[int]]) -> List[List[str]]:
         """Label id sequences -> one-element lists of strings, blanks dropped
-        (reference: decoder.py:125-162); used for the targets' strings."""
-        return [["".join(" " if int(c) == self.space_index else self.int_to_char[int(c)]
-                         for c in seq if int(c) != self.blank_index)]
-                for seq in sequences]
+        (reference: decoder.py:125-162); used for the targets' strings. The
+        call is a ``greedy.strings`` span (``dsjax_torch.trace``)."""
+        with span("greedy.strings"):
+            return [["".join(" " if int(c) == self.space_index else self.int_to_char[int(c)]
+                             for c in seq if int(c) != self.blank_index)]
+                    for seq in sequences]

@@ -43,6 +43,7 @@ from dsjax_torch.labels import DEFAULT_LABELS
 from dsjax_torch.model.convert import (CONVERT_TOOL, from_reference_state_dict,
                                        infer_architecture, load_checkpoint, plain_hparams)
 from dsjax_torch.model.ds2 import DeepSpeech2
+from dsjax_torch.trace import span
 
 
 def resolve_device(device: Any) -> torch.device:
@@ -140,23 +141,26 @@ class ModelBundle:
         host synchronisation between them, and the shards' posteriors and
         out_lens are gathered onto the first device (the copies wait on the
         devices' streams, not the host), where the decoders run once; the
-        carry is then None. Otherwise everything runs on the first device."""
-        n = self.shards(len(spect)) if carry is None else 1
-        if n == 1:
-            return self._forward_on(self.device, spect, lengths, carry)
-        rows = len(spect) // n
-        parts = [slice(i * rows, (i + 1) * rows) for i in range(n)]
-        # every shard on its device before any model work is issued: a copy
-        # between cards runs behind the work on the source card's stream
-        shards = [(dev, _to_device(spect[p], dev), _to_device(lengths[p], dev))
-                  for dev, p in zip(self.devices, parts)]
-        outs = []
-        for dev, x, lens in shards:
-            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                outs.append(self._forward_on(dev, x, lens, None))
-        first = self.device
-        return (torch.cat([p.to(first, non_blocking=True) for p, _, _ in outs]),
-                torch.cat([o.to(first, non_blocking=True) for _, o, _ in outs]), None)
+        carry is then None. Otherwise everything runs on the first device.
+        The call is an ``infer.forward`` span (``dsjax_torch.trace``)."""
+        with span("infer.forward"):
+            n = self.shards(len(spect)) if carry is None else 1
+            if n == 1:
+                return self._forward_on(self.device, spect, lengths, carry)
+            rows = len(spect) // n
+            parts = [slice(i * rows, (i + 1) * rows) for i in range(n)]
+            # every shard on its device before any model work is issued: a
+            # copy between cards runs behind the work on the source card's
+            # stream
+            shards = [(dev, _to_device(spect[p], dev), _to_device(lengths[p], dev))
+                      for dev, p in zip(self.devices, parts)]
+            outs = []
+            for dev, x, lens in shards:
+                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                    outs.append(self._forward_on(dev, x, lens, None))
+            first = self.device
+            return (torch.cat([p.to(first, non_blocking=True) for p, _, _ in outs]),
+                    torch.cat([o.to(first, non_blocking=True) for _, o, _ in outs]), None)
 
     def _forward_on(self, dev: torch.device, spect, lengths, carry):
         raw = spect.dim() == 2 if isinstance(spect, torch.Tensor) else np.ndim(spect) == 2

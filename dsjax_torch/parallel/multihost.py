@@ -8,6 +8,9 @@ then pads every host's arrays to the elementwise maximum over the hosts
 padded frames also enter its BatchNorm means. The port pads the same way,
 so its global BatchNorm statistics are dsjax's. The collectives here run
 on the gloo host group (``distributed.host_group``) and touch no device.
+With more than one rank the all-gathers of ``agree_shapes`` and
+``agree_count`` run in a ``ddp.agree`` span (``dsjax_torch.trace``): the
+host's wait for the other ranks.
 
 dsjax's ``make_global`` and ``host_local_rows`` have no counterpart: under
 DDP a rank never holds another rank's rows, so there is no global array to
@@ -23,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from dsjax_torch.parallel import distributed
+from dsjax_torch.trace import span
 
 
 def _gather(values: np.ndarray) -> np.ndarray:
@@ -42,7 +46,8 @@ def agree_shapes(arrays: Sequence[np.ndarray]) -> Tuple[np.ndarray, ...]:
     if distributed.world_size() == 1:
         return tuple(arrays)
     shapes = np.concatenate([np.asarray(a.shape, np.int64) for a in arrays])
-    gathered = _gather(shapes)
+    with span("ddp.agree"):
+        gathered = _gather(shapes)
     mx = gathered.max(axis=0)
     out = []
     off = 0
@@ -65,7 +70,8 @@ def agree_count(n: int, what: str) -> None:
     leave one waiting on another."""
     if distributed.world_size() == 1:
         return
-    counts = _gather(np.asarray([n]))[:, 0].tolist()
+    with span("ddp.agree"):
+        counts = _gather(np.asarray([n]))[:, 0].tolist()
     if len(set(counts)) != 1:
         raise RuntimeError(f"the ranks disagree on {what}: {counts} (by rank)")
 

@@ -13,7 +13,10 @@ does inside its compiled step; with ``data.augmentation.spec_augment`` and
 ``spec_augment_device`` the step then masks it (``audio.augment``, draws
 from a generator on the device seeded by (seed, global step)).
 ``trainer.profile`` traces a window of steps with ``torch.profiler``
-(``train.logging.profile_steps``).
+(``train.logging.profile_steps``), each step a ``train_step <n>`` span
+holding the spans of ``dsjax_torch.trace``: ``train.step``, and inside it
+``train.forward``, ``train.loss``, ``train.backward`` and ``train.update``,
+so the trace shows which phase launched each kernel.
 
 Under torchrun (``parallel.distributed.initialize``, which
 ``workflows.train`` calls) every rank runs this loop on its own card, and
@@ -67,6 +70,7 @@ from dsjax_torch.model.ds2 import DeepSpeech2
 from dsjax_torch.parallel import distributed, tensor
 from dsjax_torch.parallel.mesh import check_mesh, make_groups
 from dsjax_torch.parallel.multihost import agree_count, agree_shapes, sum_ints
+from dsjax_torch.trace import span
 from dsjax_torch.train.metrics import CharErrorRate, WordErrorRate, update_batch
 from dsjax_torch.train.state import (TrainState, clip_by_global_norm, epoch_lr,
                                      make_optimizer, set_lr)
@@ -180,10 +184,12 @@ class Trainer:
         With more than one rank and ``agree`` the arrays are first
         zero-padded to the ranks' common shapes (a collective: every rank
         calls this in step); the eval forward runs no collective and skips it."""
-        x = batch.inputs if batch.inputs is not None else batch.audio
-        arrays = (x, batch.input_lengths.astype(np.int32), batch.targets.astype(np.int32),
-                  batch.target_lengths.astype(np.int32), batch.valid_mask)
-        return stage(agree_shapes(arrays) if agree else arrays, self.device, self._copy_stream)
+        with span("train.put_batch"):
+            x = batch.inputs if batch.inputs is not None else batch.audio
+            arrays = (x, batch.input_lengths.astype(np.int32), batch.targets.astype(np.int32),
+                      batch.target_lengths.astype(np.int32), batch.valid_mask)
+            return stage(agree_shapes(arrays) if agree else arrays, self.device,
+                         self._copy_stream)
 
     def _module(self, state: TrainState) -> torch.nn.Module:
         """What the training forward calls: the model, or inside a process
@@ -240,20 +246,24 @@ class Trainer:
         module = self._module(state)
         state.model.train()
         with (contextlib.nullcontext() if sync or module is state.model else module.no_sync()):
-            feats = self._features(x, input_lengths)
-            if x.dim() == 2:  # raw-audio mode: augment on the device, keyed by the step
-                feats = self._device_augment(feats, input_lengths, state.step)
-            out, out_lens, _ = module(feats, input_lengths)
-            logp = torch.log_softmax(out.float(), dim=-1)
-            nll = ctc_loss(logp, out_lens, targets, target_lengths, reduction="none",
-                           zero_infinity=True)
-            # batch-pad rows (Batch.valid=False) carry zero loss and gradient
-            loss = torch.sum(nll * valid)
-            loss.backward()
-        loss = loss.detach()
-        if module is not state.model:
-            torch.distributed.all_reduce(loss, group=self.groups.data)
-            loss = loss / self.groups.data_size
+            with span("train.forward"):
+                feats = self._features(x, input_lengths)
+                if x.dim() == 2:  # raw-audio mode: augment on the device, keyed by the step
+                    feats = self._device_augment(feats, input_lengths, state.step)
+                out, out_lens, _ = module(feats, input_lengths)
+            with span("train.loss"):
+                logp = torch.log_softmax(out.float(), dim=-1)
+                nll = ctc_loss(logp, out_lens, targets, target_lengths, reduction="none",
+                               zero_infinity=True)
+                # batch-pad rows (Batch.valid=False) carry zero loss and gradient
+                loss = torch.sum(nll * valid)
+            with span("train.backward"):
+                loss.backward()
+                loss = loss.detach()
+                if module is not state.model:
+                    with span("ddp.reduce"):
+                        torch.distributed.all_reduce(loss, group=self.groups.data)
+                    loss = loss / self.groups.data_size
         return loss
 
     def _update(self, state: TrainState, n_accum: int) -> TrainState:
@@ -261,21 +271,22 @@ class Trainer:
         the optimizer at this epoch's learning rate. At mesh_model > 1 the
         replicated parameters' gradients are first made equal across the
         model group, and the clip's norm counts the shards over it."""
-        named = [(n, p) for n, p in state.model.named_parameters() if p.grad is not None]
-        params = [p for _, p in named]
-        if n_accum != 1:
-            for p in params:
-                p.grad.mul_(1.0 / max(1, n_accum))
-        tensor.agree_replicated(state.model, self.groups)
-        clip = self.cfg.trainer.gradient_clip_val
-        if clip and clip > 0:
-            sharded = tensor.sharded_dims(state.model)
-            clip_by_global_norm([p.grad for p in params], clip, [n in sharded for n, _ in named],
-                                self.groups.model)
-        set_lr(state.optimizer, epoch_lr(self.cfg.optim, state.epoch))
-        state.optimizer.step()
-        state.step += 1
-        return state
+        with span("train.update"):
+            named = [(n, p) for n, p in state.model.named_parameters() if p.grad is not None]
+            params = [p for _, p in named]
+            if n_accum != 1:
+                for p in params:
+                    p.grad.mul_(1.0 / max(1, n_accum))
+            tensor.agree_replicated(state.model, self.groups)
+            clip = self.cfg.trainer.gradient_clip_val
+            if clip and clip > 0:
+                sharded = tensor.sharded_dims(state.model)
+                clip_by_global_norm([p.grad for p in params], clip,
+                                    [n in sharded for n, _ in named], self.groups.model)
+            set_lr(state.optimizer, epoch_lr(self.cfg.optim, state.epoch))
+            state.optimizer.step()
+            state.step += 1
+            return state
 
     @staticmethod
     def _agree_micro_batches(n: int) -> None:
@@ -291,10 +302,11 @@ class Trainer:
         tensors a DevicePrefetcher already copied. With more than one rank
         it first agrees its count of one micro-batch with the other ranks,
         whichever of this and ``train_step_accum`` they took."""
-        self._agree_micro_batches(1)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = self._backward(state, batch, staged)
-        return self._update(state, 1), loss
+        with span("train.step"):
+            self._agree_micro_batches(1)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = self._backward(state, batch, staged)
+            return self._update(state, 1), loss
 
     def grad_step(self, state: TrainState, batch: Batch) -> Tuple[Dict[str, Tensor], Tensor]:
         """Gradients of one batch's loss by parameter name, and the loss;
@@ -324,12 +336,13 @@ class Trainer:
         Under DDP the gradients are all-reduced once, in the last backward;
         every rank must hold as many batches (a short bin gives fewer
         ragged_split sub-batches), else every rank raises."""
-        self._agree_micro_batches(len(batches))
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = None
-        for i, b in enumerate(batches):
-            loss = self._backward(state, b, sync=i == len(batches) - 1)
-        return self._update(state, n_accum or len(batches)), loss
+        with span("train.step"):
+            self._agree_micro_batches(len(batches))
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = None
+            for i, b in enumerate(batches):
+                loss = self._backward(state, b, sync=i == len(batches) - 1)
+            return self._update(state, n_accum or len(batches)), loss
 
     @torch.inference_mode()
     def eval_step(self, state: TrainState, batch: Batch) -> Tuple[Tensor, Tensor]:
@@ -433,8 +446,7 @@ class Trainer:
                         micro_batches += 1
                         if micro_batches < accum and i + 1 < n_train:
                             continue
-                    with (torch.profiler.record_function(f"train_step {pre_step}") if tracing
-                          else contextlib.nullcontext()):
+                    with span(f"train_step {pre_step}"):
                         if accum > 1:
                             # scale by REAL batches accumulated, not sub-batches:
                             # ragged_split partitions one sum-reduced loss

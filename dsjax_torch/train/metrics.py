@@ -12,6 +12,8 @@ from __future__ import annotations
 import functools
 from typing import Callable, Sequence, Tuple
 
+from dsjax_torch.trace import span
+
 
 def _py_distance(a: str, b: str) -> int:
     """Pure-python fallback (O(nm) DP, two-row)."""
@@ -95,6 +97,9 @@ class CharErrorRate(ErrorRateState):
 
 def update_batch(wer: WordErrorRate, cer: CharErrorRate,
                  transcripts: Sequence[str], references: Sequence[str]) -> None:
-    for t, r in zip(transcripts, references):
-        wer.update(t, r)
-        cer.update(t, r)
+    """Add a batch's pairs to both rates, in an ``eval.score`` span
+    (``dsjax_torch.trace``)."""
+    with span("eval.score"):
+        for t, r in zip(transcripts, references):
+            wer.update(t, r)
+            cer.update(t, r)

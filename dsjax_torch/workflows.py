@@ -143,8 +143,12 @@ def evaluate(cfg: EvalConfig) -> Tuple[float, float]:
     takes the data-parallel forward over them; batch k+1's copy to the first
     device is staged ahead (DevicePrefetcher; the forward copies each
     shard on to its card from there) and its forward is issued before batch
-    k is decoded, so the host's string building for k overlaps the devices'
-    forward of k+1."""
+    k is decoded. k's decode is queued behind that forward on the same
+    stream, so the host waits for both (the device beam search's
+    ``beam.fetch`` span, ``dsjax_torch.trace``) and then builds k's
+    strings, the reference strings and the WER update (``beam.strings``,
+    ``greedy.strings``, ``eval.score``) while the device has no work
+    queued: the host's string building does not overlap a forward."""
     bundle = load_model(cfg.model.model_path, cfg.model.precision, cfg.device,
                         cfg.num_cpu_devices)
     decoder = load_decoder(bundle.labels, cfg.lm)

@@ -173,6 +173,17 @@ def test_two_ranks_equal_one_process_on_the_global_batch(ddp, one_process):
         assert torch.equal(r0["buffers"][k], r1["buffers"][k]), k
 
 
+def test_ranks_span_their_host_collectives(ddp):
+    """Under a profiler a step on each rank records the host collectives:
+    the shapes' and the micro-batch count's all-gathers (``ddp.agree``)
+    and the loss's all-reduce inside the backward (``ddp.reduce``)."""
+    for out in ddp["ranks"]:
+        spans = out["spans"]
+        assert spans["ddp.agree"] == {"train.put_batch": 1, "train.step": 1}, spans
+        assert spans["ddp.reduce"] == {"train.backward": 1}, spans
+        assert spans["train.backward"] == {"train.step": 1}, spans
+
+
 def test_batchnorm_statistics_are_global(ddp):
     """Per-rank statistics would give another loss: the two halves of the
     batch, each through one process, sum to a loss the ranks did not log."""

@@ -24,6 +24,9 @@ saves to --out:
   agreed         ``agree_shapes`` of arrays whose trailing dims differ by rank;
   moments        ``global_moments`` of ``moments_inputs()``, whose row
                  counts differ by rank, and the gradient of its input;
+  spans          one ``train_step`` under a CPU profiler: each span's
+                 parents by name (``dsjax_torch.trace``), the host
+                 collectives' ``ddp.agree`` and ``ddp.reduce`` among them;
   errors         what ``agree_shapes`` on differing batch sizes,
                  ``train_step_accum`` with 2 sub-batches on rank 0 and 1 on
                  rank 1, and ``fit`` at ragged_split=2 over a last bin too
@@ -166,6 +169,16 @@ def _masks(argv: List[str], batch: Batch, device) -> torch.Tensor:
     return trainer._device_augment(ones, lens, MASK_STEP).cpu()
 
 
+def _spans(trainer, weights, batch: Batch) -> Dict[str, Dict]:
+    from dsjax_torch import trace
+
+    trace.reset()
+    state = _fresh(trainer, weights)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        trainer.train_step(state, batch)
+    return {name: row["parents"] for name, row in trace.summary().items()}
+
+
 def run_rank(args) -> Dict:
     from dsjax_torch.parallel import distributed
     from dsjax_torch.parallel.multihost import agree_shapes
@@ -211,6 +224,7 @@ def run_rank(args) -> Dict:
     out["masks"] = _masks(argv, a, trainer.device)
     out["agreed"] = agree_shapes(agree_inputs(rank))
     out["moments"] = _moments(rank)
+    out["spans"] = _spans(trainer, weights, a)
 
     errors = {}
     try:
