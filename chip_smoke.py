@@ -149,7 +149,9 @@ Phases, each printing what it measured; any failure exits non-zero:
               a checkpoint, between two plain runs of the same batches; the
               backend, world size and DDP wrapper, exact K2/K3/K1 counts,
               losses against the plain runs within the spread of the two
-              plain runs, the checkpoint through load_model, the DDP step's
+              plain runs, the grad step's gradients and K3's outputs bit
+              for bit those of a plain run handed the DDP run's CTC
+              gradient, the checkpoint through load_model, the DDP step's
               ms beside the plain one's (metrics.jsonl medians); (b) ``python
               -m torch.distributed.run --standalone --nproc_per_node 1 -m
               dsjax_torch.train`` at phase 9's size trains and writes a
@@ -522,6 +524,7 @@ def reset_counts():
 
     for scan in (lstm, gru):
         scan.LAUNCHES = scan.STEPS = scan.RESIDUAL_LAUNCHES = scan.BWD_LAUNCHES = 0
+    lstm.BWD_RESIDENT_LAUNCHES = 0
     topk.LAUNCHES = beam.LAUNCHES = beam.BACKTRACK_LAUNCHES = mm_chain.LAUNCHES = 0
 
 
@@ -530,10 +533,16 @@ def read_counts():
 
     return {"lstm_fwd": lstm.LAUNCHES, "lstm_steps": lstm.STEPS,
             "lstm_fwd_residuals": lstm.RESIDUAL_LAUNCHES, "lstm_bwd": lstm.BWD_LAUNCHES,
-            "gru_fwd": gru.LAUNCHES, "gru_steps": gru.STEPS,
-            "gru_fwd_residuals": gru.RESIDUAL_LAUNCHES, "gru_bwd": gru.BWD_LAUNCHES,
-            "topk": topk.LAUNCHES, "beam_scan": beam.LAUNCHES,
+            "lstm_bwd_resident": lstm.BWD_RESIDENT_LAUNCHES, "gru_fwd": gru.LAUNCHES,
+            "gru_steps": gru.STEPS, "gru_fwd_residuals": gru.RESIDUAL_LAUNCHES,
+            "gru_bwd": gru.BWD_LAUNCHES, "topk": topk.LAUNCHES, "beam_scan": beam.LAUNCHES,
             "beam_backtrack": beam.BACKTRACK_LAUNCHES, "mm_chain": mm_chain.LAUNCHES}
+
+
+def launch_sum(counts):
+    """Every kernel launch of ``read_counts`` once: the calls of K3 on its
+    resident route are counted in lstm_bwd too."""
+    return sum(v for k, v in counts.items() if k != "lstm_bwd_resident")
 
 
 def phase_serving(torch, np, state, model_cfg, gpu_name):
@@ -697,14 +706,18 @@ def within(got, want, atol, rtol):
 
 
 def step_kernel_attributes(fn, dtype, label):
-    """A scan's step kernel as built (``fn``, an ops module's
-    *_kernel_attributes), printed: units, registers, shared and local memory."""
+    """A scan's kernel as built (``fn``, an ops module's *_kernel_attributes),
+    printed: its route where it has two (K3), units, registers, shared and
+    local memory, and the CTAs and cluster size where the route has them."""
     attrs = fn(dtype)
-    print(f"kernel {label} {str(dtype).split('.')[1]} step kernel: {attrs['units']} hidden "
+    route = attrs.get("route", "step")
+    grid = (f", {attrs['ctas']} CTAs in clusters of {attrs['cluster']}"
+            if "ctas" in attrs else "")
+    print(f"kernel {label} {str(dtype).split('.')[1]} {route} kernel: {attrs['units']} hidden "
           f"units a CTA, {attrs['registers']} registers a thread, "
-          f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} bytes of shared memory "
-          f"a CTA, {attrs['local_bytes']} bytes of local memory a thread "
-          f"(cudaFuncGetAttributes)")
+          f"{attrs['static_smem_bytes']} static + {attrs['dynamic_smem_bytes']} dynamic bytes "
+          f"of shared memory a CTA, {attrs['local_bytes']} bytes of local memory a thread "
+          f"(cudaFuncGetAttributes){grid}")
     return attrs
 
 
@@ -745,9 +758,14 @@ def phase_train_kernels(torch, np):
                 check(ok, f"K2 {name} {case}: {what} max err {e} over atol {atol} rtol {rtol}")
                 err["fwd"] = max(err["fwd"], e)
             g_seq, c_seq = ref[3], ref[4]
+            before = lstm.BWD_RESIDENT_LAUNCHES
             dout = lstm.lstm_scan_bwd(g_seq, mask, w, c0, c_seq, *cot, reverse)
             dref = lstm.lstm_scan_backward_reference(g_seq, mask, w, c0, c_seq, *cot, reverse)
             torch.cuda.synchronize()
+            # bf16 takes the resident route (one launch), f32 the per-step kernel
+            check(lstm.BWD_RESIDENT_LAUNCHES - before == int(dtype == torch.bfloat16),
+                  f"K3 {name} {case}: the resident route took "
+                  f"{lstm.BWD_RESIDENT_LAUNCHES - before} calls")
             atol, rtol = BWD_TOLERANCE[name]
             for o, r, what in zip(dout, dref, ("dgates", "dh0", "dc0")):
                 check(bool(torch.isfinite(o.float()).all()), f"K3 {name} {case}: {what} not finite")
@@ -794,9 +812,13 @@ def phase_train_kernels(torch, np):
               f"forward + backward under autograd {lib[2]!r} ms (median, CUDA events)")
         attrs = {key: step_kernel_attributes(fn, dtype, label) for key, fn, label in (
             ("fwd", lstm.fwd_kernel_attributes, "lstm_fwd_residuals (K2)"),
-            ("bwd", lstm.bwd_kernel_attributes, "lstm_bwd (K3)"))}
+            ("bwd", lambda dt: lstm.bwd_kernel_attributes(dt, lstm.card_bwd_plan(
+                dt, 2, H, TRAIN_B, torch.device("cuda", 0))), "lstm_bwd (K3)"))}
         check(attrs["fwd"]["local_bytes"] == 0, f"K2 {name}: the step kernel spills "
                                                 f"{attrs['fwd']['local_bytes']} bytes a thread")
+        check(attrs["bwd"]["route"] == ("resident" if dtype == torch.bfloat16 else "step")
+              and (attrs["bwd"]["route"] == "step" or attrs["bwd"]["local_bytes"] == 0),
+              f"K3 {name}: {attrs['bwd']}")
         result[("fwd", name)].update(kernel_attributes=attrs["fwd"])
         result[("bwd", name)].update(with_forward_ms=pair_ms, with_forward_library_ms=lib[2],
                                      kernel_attributes=attrs["bwd"])
@@ -885,9 +907,15 @@ def phase_training(torch, np, gpu_name, card, rnn="lstm", epochs=EPOCHS):
         check(state.step == steps, f"{state.step} optimizer steps, expected {steps}")
         check(launches == {f"{rnn}_fwd": layers * val_forwards,
                            f"{rnn}_fwd_residuals": layers * steps, f"{rnn}_bwd": layers * steps}
-              and sum(counts.values()) == sum(launches.values()) + counts[f"{rnn}_steps"],
+              and launch_sum(counts) == sum(launches.values()) + counts[f"{rnn}_steps"],
               f"launches {counts} for {steps} steps and {val_forwards} validation "
               f"forwards of {layers} {rnn} layers")
+        if rnn == "lstm":
+            # bf16 at B=64: every K3 call on the resident route (one launch)
+            check(counts["lstm_bwd_resident"] == counts["lstm_bwd"],
+                  f"K3's resident route took {counts['lstm_bwd_resident']} of "
+                  f"{counts['lstm_bwd']} calls")
+            launches["lstm_bwd_resident"] = counts["lstm_bwd_resident"]
         records = [json.loads(line) for line in open(os.path.join(tmp, "logs", "metrics.jsonl"))]
         losses = [r["loss"] for r in records if "loss" in r]
         check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
@@ -2486,7 +2514,7 @@ def phase_augmented_training(torch, np, gpu_name, card):
                 f"{route} route: a layer runs two directions")
             check(launches == {"gru_fwd": layers * val_forwards,
                                "gru_fwd_residuals": layers * steps, "gru_bwd": layers * steps}
-                  and sum(counts.values()) == sum(launches.values()) + counts["gru_steps"],
+                  and launch_sum(counts) == sum(launches.values()) + counts["gru_steps"],
                   f"{route} route: launches {counts} for {steps} steps and {val_forwards} "
                   f"validation forwards of {layers} one-direction GRU layers")
             records = [json.loads(line) for line in open(os.path.join(log_dir, "metrics.jsonl"))]
@@ -2572,17 +2600,18 @@ TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_
                 "MASTER_PORT")
 DDP_LOSS_RTOL = 1e-5          # phase 9's loss tolerance (card against CPU)
 DDP_STATS_TOL = (1e-5, 1e-4)  # (atol, rtol) tests/test_torch_train.py's running stats
-# (a): the bf16 step's gradients are not repeatable on the card
-# (F.ctc_loss's CUDA backward accumulates with atomics, and the bf16
-# backward rounds what it is handed), so the DDP run's gradients and losses
-# are held to the plain runs' own spread: every DDP run within GRAD_SPREAD
-# (gradients) or LOSS_SPREAD (the epoch's losses) x the largest distance
-# between two plain runs of its nearest plain run (bit for bit where the
-# plain runs repeat bit for bit). The distances between gradient vectors of
-# millions of entries concentrate; those between two later losses do not,
-# so the losses take more plain runs and a wider factor, lest the check
-# fail by chance
-DDP_GRAD_RUNS, GRAD_SPREAD = 3, 2.0
+# (a): the bf16 step's gradients are not repeatable on the card:
+# F.ctc_loss's CUDA backward accumulates with atomics, and the bf16
+# backward rounds what it is handed, so an ulp there can move the
+# gradients by about 1e-3 (relative L2), in some runs and not in others.
+# The grad step's runs are therefore compared with CTC's gradient held
+# fixed (DDP_GRAD_RUNS runs each way, each DDP run's CTC gradient replayed
+# in a plain run), and the epoch's losses are held to the plain runs' own
+# spread: every DDP run within LOSS_SPREAD x the largest distance between
+# two plain runs of its nearest plain run; those distances do not
+# concentrate, so the losses take more plain runs and a wide factor, lest
+# the check fail by chance
+DDP_GRAD_RUNS = 3
 DDP_PLAIN_EPOCHS, LOSS_SPREAD = 5, 3.0
 
 
@@ -2699,7 +2728,7 @@ def phase_ddp_one_rank(torch, np, gpu_name, card, tmp):
     check(state.step == steps and launches == {
         "lstm_fwd": layers * val_forwards, "lstm_fwd_residuals": layers * steps,
         "lstm_bwd": layers * steps}
-        and sum(counts.values()) == sum(launches.values()) + counts["lstm_steps"],
+        and launch_sum(counts) == sum(launches.values()) + counts["lstm_steps"],
         f"DDP run: {state.step} steps, launches {counts}")
 
     def rel(a, b):
@@ -2717,7 +2746,7 @@ def phase_ddp_one_rank(torch, np, gpu_name, card, tmp):
     check(loss_nearest <= LOSS_SPREAD * loss_spread,
           f"DDP losses {ld} {loss_nearest} from the nearest plain run's; plain runs "
           f"{plain_losses} up to {loss_spread} apart")
-    grads = ddp_gradient_spread(torch, cfg, list(DEFAULT_LABELS))
+    grads = ddp_grad_step_replay(torch, cfg, list(DEFAULT_LABELS))
 
     trainer = Trainer(cfg, list(DEFAULT_LABELS))
     batch = next(iter(workflows._pipelines(cfg, list(DEFAULT_LABELS))[1]))
@@ -2744,54 +2773,93 @@ def phase_ddp_one_rank(torch, np, gpu_name, card, tmp):
     return launches
 
 
-def ddp_gradient_spread(torch, cfg, labels):
+def ddp_grad_step_replay(torch, cfg, labels):
     """grad_step on the first training batch from the seeded weights,
-    DDP_GRAD_RUNS times in one process and as many as one NCCL rank; every
-    DDP run's gradients within GRAD_SPREAD x the largest distance between two
-    plain runs of the nearest plain run's (relative L2 over all parameters),
-    and every loss bit for bit equal. Returns what it saw."""
+    DDP_GRAD_RUNS times in one process and as many as one NCCL rank, each
+    run's gradient of F.ctc_loss (with respect to the log-probabilities)
+    caught; then, for each DDP run, a plain grad_step with that CTC
+    gradient in place of its own. Every loss bit for bit equal; each DDP
+    run's gradients and every K3 call's dgates, dh0 and dc0 (and its dy)
+    bit for bit those of its replay: with CTC's atomics taken out, neither
+    the DDP wrapper beside its NCCL kernels nor K3 changes a bit. Returns
+    what it saw, with how many distinct CTC gradients the runs drew."""
     from dsjax_torch import workflows
+    from dsjax_torch.ops import lstm
     from dsjax_torch.parallel import distributed
+    from dsjax_torch.train import loop
     from dsjax_torch.train.loop import Trainer
 
     batch = next(iter(workflows._pipelines(cfg, labels)[0]))
+    ctc_loss, scan_bwd = loop.ctc_loss, lstm.lstm_scan_bwd
 
-    def run(ddp):
+    def run(ddp, forced=None):
+        """(flat gradients, loss, CTC's gradient, each K3 call's (dy, dgates,
+        dh0, dc0))."""
+        caught, k3 = [], []
+
+        def ctc(log_probs, *args, **kwargs):
+            def hook(g):
+                caught.append(g.detach().clone())
+                return forced
+
+            log_probs.register_hook(hook)
+            return ctc_loss(log_probs, *args, **kwargs)
+
+        def bwd(*args, **kwargs):
+            out = scan_bwd(*args, **kwargs)
+            k3.append((args[5].clone(), *(t.clone() for t in out)))
+            return out
+
         env = dict(WORLD_SIZE=1, RANK=0, LOCAL_RANK=0, LOCAL_WORLD_SIZE=1,
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=free_port()) if ddp else {}
-        with torchrun_environment(**env):
-            joined = distributed.initialize("cuda") if ddp else False
-            try:
-                trainer = Trainer(cfg, labels)
-                grads, loss = trainer.grad_step(trainer.init_state(), batch)
-                check(ddp == (trainer._ddp is not None), f"DDP wrapper {trainer._ddp}")
-                flat = torch.cat([g.float().flatten() for g in grads.values()])
-                torch.cuda.synchronize()
-            finally:
-                if joined:
-                    distributed.destroy()
-        return flat, float(loss)
+        loop.ctc_loss, lstm.lstm_scan_bwd = ctc, bwd
+        try:
+            with torchrun_environment(**env):
+                joined = distributed.initialize("cuda") if ddp else False
+                try:
+                    trainer = Trainer(cfg, labels)
+                    grads, loss = trainer.grad_step(trainer.init_state(), batch)
+                    check(ddp == (trainer._ddp is not None), f"DDP wrapper {trainer._ddp}")
+                    flat = torch.cat([g.float().flatten() for g in grads.values()])
+                    torch.cuda.synchronize()
+                finally:
+                    if joined:
+                        distributed.destroy()
+        finally:
+            loop.ctc_loss, lstm.lstm_scan_bwd = ctc_loss, scan_bwd
+        check(len(caught) == 1 and len(k3) == cfg.model.hidden_layers,
+              f"{len(caught)} CTC gradients and {len(k3)} K3 calls caught")
+        return flat, float(loss), caught[0], k3
 
-    plain = [run(False) for _ in range(DDP_GRAD_RUNS)]
-    ddp = [run(True) for _ in range(DDP_GRAD_RUNS)]
-
-    def dist(a, b):
-        return float((a[0] - b[0]).norm() / b[0].norm())
-
-    def spread(runs):
-        return max(dist(a, b) for i, a in enumerate(runs) for b in runs[i + 1:])
-
-    within = spread(plain)
-    nearest = [min(dist(d, p) for p in plain) for d in ddp]
-    losses = {r[1] for r in plain + ddp}
+    plain = [run(False)[:3] for _ in range(DDP_GRAD_RUNS)]
+    ctcs = [p[2] for p in plain]
+    losses = {p[1] for p in plain}
+    apart = []
+    for _ in range(DDP_GRAD_RUNS):
+        ddp = run(True)
+        replay = run(False, forced=ddp[2])
+        losses |= {ddp[1], replay[1]}
+        ctcs.append(ddp[2])
+        k3_same = [all(torch.equal(a, b) for a, b in zip(d, r))
+                   for d, r in zip(ddp[3], replay[3])]
+        check(all(k3_same), f"K3 calls (dy, dgates, dh0, dc0) of a DDP run against its "
+                            f"replay, bit for bit by layer call: {k3_same}")
+        check(torch.equal(ddp[0], replay[0]),
+              f"a DDP run's gradients {float((ddp[0] - replay[0]).norm() / replay[0].norm())} "
+              f"(relative L2) from its replay's")
+        apart.append(min(float((ddp[0] - p[0]).norm() / p[0].norm()) for p in plain))
+        del ddp, replay
     check(len(losses) == 1, f"grad_step losses {sorted(losses)}")
-    check(max(nearest) <= GRAD_SPREAD * within,
-          f"DDP gradients {nearest} from the nearest plain run's; plain runs up to "
-          f"{within} apart")
+    distinct = len({i for i, c in enumerate(ctcs)
+                    if not any(torch.equal(c, ctcs[j]) for j in range(i))})
+    spread = max(float((a[0] - b[0]).norm() / b[0].norm())
+                 for i, a in enumerate(plain) for b in plain[i + 1:])
     return (f"gradients of the first batch, {DDP_GRAD_RUNS} plain and {DDP_GRAD_RUNS} DDP "
-            f"runs: plain runs up to {within!r} apart, DDP runs {spread(ddp)!r} "
-            f"(relative L2), each DDP run {nearest} from its nearest plain run (<= "
-            f"{GRAD_SPREAD} x {within!r}); loss {losses.pop()!r} in all")
+            f"runs: {distinct} distinct CTC gradients of {len(ctcs)}; plain runs up to "
+            f"{spread!r} apart (relative L2), each DDP run {apart} from its nearest plain "
+            f"run; each DDP run's gradients and its {cfg.model.hidden_layers} K3 calls' dy, "
+            f"dgates, dh0 and dc0 bit for bit those of a plain run handed its CTC gradient; "
+            f"loss {losses.pop()!r} in all")
 
 
 def phase_ddp_torchrun(np, gpu_name, card, tmp):
@@ -3338,7 +3406,7 @@ def phase_resume(torch, np, gpu_name, card):
             step, counts, losses, seconds = resume_run(torch, base, ckpt, name)
             launches = {k: counts[k] for k in want}
             check(step == steps and launches == want
-                  and sum(counts.values()) == sum(launches.values()) + counts["lstm_steps"],
+                  and launch_sum(counts) == sum(launches.values()) + counts["lstm_steps"],
                   f"resume of {name}: {step} steps, launches {counts}, expected {want}")
             check(len(losses) == left and all(np.isfinite(losses)),
                   f"resume of {name}: losses {losses}")
@@ -3472,9 +3540,12 @@ def phase_quick_start(torch, np, gpu_name, card):
             "lstm_bwd": layers * steps}
     launches = {k: train_counts[k] for k in want}
     check(launches == want
-          and sum(train_counts.values()) == sum(want.values()) + train_counts["lstm_steps"],
+          and launch_sum(train_counts) == sum(want.values()) + train_counts["lstm_steps"],
           f"one AN4 epoch launched {train_counts}, expected {want} ({steps} steps, "
           f"{val_batches} validation batch of {layers} layers)")
+    check(train_counts["lstm_bwd_resident"] == train_counts["lstm_bwd"],
+          f"AN4 in bf16 at B=8: K3's resident route took {train_counts['lstm_bwd_resident']} "
+          f"of {train_counts['lstm_bwd']} calls")
     losses = [r["loss"] for r in records if "loss" in r]
     val = [r for r in records if "wer" in r and "mean_loss" in r]
     check(len(losses) == steps and all(np.isfinite(losses)), f"AN4 losses {losses}")
@@ -3485,7 +3556,7 @@ def phase_quick_start(torch, np, gpu_name, card):
     hyps = [line for line in lines if line.startswith("Hyp:")]
     summary = [line.strip() for line in lines if line.startswith("Test Summary")]
     check(eval_counts["lstm_fwd"] == layers * eval_batches
-          and sum(eval_counts.values()) == eval_counts["lstm_fwd"] + eval_counts["lstm_steps"],
+          and launch_sum(eval_counts) == eval_counts["lstm_fwd"] + eval_counts["lstm_steps"],
           f"AN4 evaluation launched {eval_counts}, expected {layers * eval_batches} lstm_fwd")
     check(len(hyps) == n_test and len(summary) == 1 and np.isfinite(wer) and np.isfinite(cer),
           f"AN4 evaluation: {len(hyps)} hypotheses of {n_test}, summary {summary}, "
@@ -3827,6 +3898,8 @@ def run(torch, np):
              "dsjax/ops/lstm_pallas.py:225")):
         rows.append(row(name, source, replaces, train_launches[name],
                         train_kernels[(key, "float32")],
+                        **({"resident_launches_in_training": train_launches["lstm_bwd_resident"]}
+                           if key == "bwd" else {}),
                         launches_in_ddp_training=ddp_launches[name],
                         launches_in_resume=resume_launches[name],
                         launches_in_quick_start=quick_start["train"][name],

@@ -55,28 +55,25 @@
 // second idle in the product), so ptxas serialized every wgmma. tools/torch_kernel_probe.py times
 // the choices that remain, each undone in a variant of this source.
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
 #include "grid_sync.cuh"
+#include "hopper_async.cuh"
 
 namespace {
 
 using namespace dsjax_torch;
+using namespace dsjax_torch::hopper;
 
 constexpr int kCols = 32;                      // output columns a CTA: wgmma's N
 constexpr int kMaxB = 128;                     // two m64 tiles, a warpgroup each
-constexpr int kAtomK = 64;                     // bf16 of K in one 128-byte row
-constexpr int kRowBytes = 128;
-constexpr int kGroupBytes = 8 * kRowBytes;     // an 8-row swizzle group: wgmma's SBO
 constexpr int kWBlock = kCols * kRowBytes;     // W's block of one K atom
 constexpr int kUnit = 4;                       // atoms a step of the product loop
 constexpr int kMaxAtoms = 20;                  // H <= 1056 (4H / 32 CTAs on 132 SMs), in 4s
 constexpr int kMinStages = 2;                  // a streamed ring: one atom in use, one landing
-constexpr int kAlign = 1024;                   // a swizzle group starts on 1024 bytes
 constexpr int kSmemLimit = 232448;             // a CTA's shared memory on sm_90 (chain_plan's)
 
 // chain_plan's plan, in its order: CTAs, columns a CTA, rows of the
@@ -122,81 +119,6 @@ struct Args {
   int n_t, n_b, n_h;
   Plan plan;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte chunk q (0-7) of row r in a block of 128-byte
-// rows under the 128-byte swizzle (the block starts on kAlign); the tensor
-// copies write h this way, the one-time copy of W by hand
-__device__ __forceinline__ int swizzled(int r, int q) {
-  return r * kRowBytes + ((q ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// arms the barrier for one tensor copy of `bytes`
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// waits for the phase of the given parity to complete; traps after
-// grid::kSpinLimitCycles, so that a lost copy fails the call instead of
-// hanging it
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long start = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > grid::kSpinLimitCycles) __trap();
-  }
-}
-
-// one tensor copy: the box at (x, y) of the map into dst, counted on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma's descriptor of a K-major operand in that layout: start address,
-// leading offset 1 (unused by swizzled K-major), stride offset one 8-row
-// group, 128-byte swizzle
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
-         (static_cast<uint64_t>(kGroupBytes >> 4) << 32) | (uint64_t{1} << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
 
 // keeps the compiler from moving accesses of the accumulators across the
 // asynchronous product; only where no wgmma is in flight (touching them
@@ -397,33 +319,11 @@ __global__ void __launch_bounds__(2 * 128, 1) mm_chain_kernel(const __grid_const
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // The map of h_buf as a (2B, H) bf16 matrix whose boxes are 64 columns of
 // B rows, written to shared memory in the 128-byte swizzle; columns past H
 // (a last partial atom) come as zeros.
 cudaError_t h_tensor_map(CUtensorMap* map, void* h_buf, int n_b, int n_h) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n_h), static_cast<cuuint64_t>(2 * n_b)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n_h) * 2};
-  const cuuint32_t box[2] = {kAtomK, static_cast<cuuint32_t>(n_b)};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, h_buf, dims, strides, box,
-                            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return bf16_tensor_map(map, h_buf, n_h, 2 * n_b, n_b);
 }
 
 }  // namespace

@@ -114,9 +114,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dsjax_torch_lstm_fwd_attributes.restype = i
     lib.dsjax_torch_lstm_scan_attributes.argtypes = [i, i, p]
     lib.dsjax_torch_lstm_scan_attributes.restype = i
-    lib.dsjax_torch_lstm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsjax_torch_lstm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p,
+                                         p]
     lib.dsjax_torch_lstm_bwd.restype = i
-    lib.dsjax_torch_lstm_bwd_attributes.argtypes = [i, p]
+    lib.dsjax_torch_lstm_bwd_clusters.argtypes = [p, p]
+    lib.dsjax_torch_lstm_bwd_clusters.restype = i
+    lib.dsjax_torch_lstm_bwd_attributes.argtypes = [i, i, i, i, p]
     lib.dsjax_torch_lstm_bwd_attributes.restype = i
     lib.dsjax_torch_gru_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.dsjax_torch_gru_fwd.restype = i

@@ -33,7 +33,10 @@ Three kernels, as in dsjax:
       c (D, T, B, H), both at natural time t (csrc/lstm_fwd.cu, on the step
       product of csrc/scan_mma.cuh that K3 runs too);
   K3  ``lstm_scan_bwd``       the reverse scan: dgates (= dxp), dh0, dc0
-      (csrc/lstm_bwd.cu).
+      (csrc/lstm_bwd.cu): in bf16 one cooperative launch a layer call with
+      W_hh^T resident and the step's dgates split over a thread block
+      cluster, laid out by ``bwd_plan``; else (f32, larger H or B) one
+      launch a scan step.
 ``lstm_scan`` is the op: a call that autograd will differentiate (grad mode
 on and an input requiring grad) goes through ``LSTMScan``, which runs K2 then
 K3 and reduces dW and db outside the kernel, as dsjax's custom VJP does
@@ -45,8 +48,9 @@ run the plain versions ``lstm_scan_reference`` and
 
 from __future__ import annotations
 
+import ctypes
 import threading
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,11 +62,14 @@ Tensor = torch.Tensor
 # wrapper calls on CUDA tensors so far, one per call of a C entry point,
 # which covers every direction of a layer: LAUNCHES for K1 (one kernel
 # launch a call with n_t > 0, none at n_t = 0; STEPS counts the time steps
-# those calls scanned), RESIDUAL_LAUNCHES for K2, BWD_LAUNCHES for K3
+# those calls scanned), RESIDUAL_LAUNCHES for K2, BWD_LAUNCHES for K3, and
+# of those BWD_RESIDENT_LAUNCHES the calls that took K3's resident route
+# (``bwd_plan``: one kernel launch a call)
 LAUNCHES = 0
 STEPS = 0
 RESIDUAL_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_RESIDENT_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 # the kernels copy 16 bytes at a time, so H must be a multiple of 8; up to
@@ -180,6 +187,129 @@ def scan_plan(n_dir: int, n_h: int, gates: int, dtype: torch.dtype, n_b: int,
         raise ValueError(f"no plan: {n_dir} x H={n_h} with {gates} gates at B={n_b} in "
                          f"{dtype} does not fit {SMEM_LIMIT} bytes of shared memory a CTA")
     return found
+
+
+# The resident route's layout is laid out here alone; csrc/lstm_bwd.cu
+# builds a kernel for each (cluster size, units a CTA) of BWD_SHAPES and
+# checks a plan only for what its memory and co-residency need
+# (resident::fits). The pairs in the order of preference (16 units, 20
+# where an H100 holds too few clusters of 16-unit CTAs), dgates in K atoms
+# of 64 bf16 (one 128-byte row), B in one or two 64-row tiles (the kernel's
+# kMaxTiles), rows of partial sums padded by 8 floats (its kPad), a
+# 1024-byte alignment pad, an 8-byte mbarrier a buffer
+BWD_UNITS = 16
+BWD_SHAPES = ((8, 16), (8, 20), (4, 16), (4, 20), (2, 16), (1, 16))
+_BWD_MAX_TILES = 2
+_ATOM_K = 64
+_BWD_PAD = 8
+_ALIGN = 1024
+
+
+class BwdPlan(NamedTuple):
+    """K3's route and layout (csrc/lstm_bwd.cu ``resident::Plan``, in this
+    order): the route (1 the resident kernel, one cooperative launch a call;
+    0 the per-step kernel, T + 1 launches), hidden units a CTA, 64-row tiles
+    of the batch, the cluster size, CTAs in all and a direction, K atoms of
+    64 of the 4H columns and the most a CTA owns, dgates buffers of one atom
+    a CTA, and the dynamic shared memory a CTA. The per-step route keeps
+    only its units, tiles and CTAs (cluster 1, the rest 0)."""
+
+    route: int
+    units: int
+    tiles: int
+    cluster: int
+    ctas: int
+    ctas_per_dir: int
+    atoms: int
+    atoms_per_cta: int
+    stages: int
+    smem_bytes: int
+
+
+def bwd_layout(n_dir: int, n_h: int, n_b: int, sm_count: int, cluster: int,
+               units: int = BWD_UNITS) -> Optional[BwdPlan]:
+    """The resident route's layout with clusters of ``cluster`` CTAs of
+    ``units`` units, or None where it does not fit: ceil(H / units) CTAs a
+    direction rounded up to whole clusters, at most ``sm_count`` in all;
+    each CTA of a cluster one slice of the ceil(4H / 64) K atoms, none
+    empty; W_hh^T's rows of the cluster's N = C x units over the slice (N x
+    128 bytes an atom) and the dgates buffers (64 rows x 128 bytes a tile,
+    every atom of the slice where they fit, 2 at least) within the shared
+    memory a CTA may take, the buffers large enough for the CTA's partial
+    sums (64 rows a tile of N + 8 floats). Pure."""
+    tiles = -(-n_b // 64)
+    ctas_dir = -(-(-(-n_h // units)) // cluster) * cluster
+    atoms = -(-4 * n_h // _ATOM_K)
+    atoms_cta = -(-atoms // cluster)
+    n = cluster * units
+    w_bytes = atoms_cta * n * 128
+    stage = 64 * tiles * 128
+    stages = min(atoms_cta, (SMEM_LIMIT - _ALIGN - w_bytes) // (stage + 8))
+    if not (1 <= tiles <= _BWD_MAX_TILES and n_dir * ctas_dir <= sm_count
+            and (cluster - 1) * atoms_cta < atoms and stages >= min(atoms_cta, 2)
+            and stages * stage >= 64 * tiles * (n + _BWD_PAD) * 4):
+        return None
+    return BwdPlan(1, units, tiles, cluster, n_dir * ctas_dir, ctas_dir, atoms, atoms_cta,
+                   stages, _ALIGN + w_bytes + stages * (stage + 8))
+
+
+def bwd_plan(dtype: torch.dtype, n_dir: int, n_h: int, n_b: int, sm_count: int,
+             active_clusters: Optional[Mapping[Tuple[int, int], int]] = None) -> BwdPlan:
+    """K3's route for D directions of H units at batch B in ``dtype`` on a
+    card of ``sm_count`` SMs: in bf16 the resident route, with the first
+    (cluster size, units) of ``BWD_SHAPES`` whose ``bwd_layout`` fits and
+    whose clusters are all co-resident, ``active_clusters[(C, units)]``
+    being how many clusters the card holds at once under that layout
+    (cudaOccupancyMaxActiveClusters; sm_count // C where not given); else
+    (f32, no layout fits, or none co-resident) the per-step kernel. The
+    choice depends on the dtype and shapes alone. Pure: the CPU tests reach
+    it."""
+    if dtype not in DTYPES:
+        raise TypeError(f"dtype {dtype} is not one of {DTYPES}")
+    if dtype == torch.bfloat16:
+        for cluster, units in BWD_SHAPES:
+            plan = bwd_layout(n_dir, n_h, n_b, sm_count, cluster, units)
+            if plan is None:
+                continue
+            active = (sm_count // cluster if active_clusters is None
+                      else active_clusters.get((cluster, units), 0))
+            if active * cluster >= plan.ctas:
+                return plan
+    ctas_dir = -(-n_h // BWD_UNITS)
+    return BwdPlan(0, BWD_UNITS, -(-n_b // 64), 1, n_dir * ctas_dir, ctas_dir, 0, 0, 0, 0)
+
+
+def card_bwd_plan(dtype: torch.dtype, n_dir: int, n_h: int, n_b: int,
+                  device: torch.device) -> BwdPlan:
+    """``bwd_plan`` on the card of ``device`` (needs it in bf16): its SM
+    count and the clusters of each layout it holds at once."""
+    sms = sm_count(device)
+    active = (_active_clusters(device, n_dir, n_h, n_b, sms)
+              if dtype == torch.bfloat16 else None)
+    return bwd_plan(dtype, n_dir, n_h, n_b, sms, active)
+
+
+_active_cache: dict = {}
+
+
+def _active_clusters(device: torch.device, n_dir: int, n_h: int, n_b: int, sms: int) -> dict:
+    """For each (cluster size, units) whose ``bwd_layout`` fits, the
+    clusters of the resident kernel under that layout that the card holds
+    at once (cached per device and shape)."""
+    key = (device.index, n_dir, n_h, n_b)
+    if key not in _active_cache:
+        lib = _build.load_library()
+        found = {}
+        for shape in BWD_SHAPES:
+            plan = bwd_layout(n_dir, n_h, n_b, sms, *shape)
+            if plan is None:
+                continue
+            out = (ctypes.c_int * 1)()
+            _build.check(lib, lib.dsjax_torch_lstm_bwd_clusters(plan_array(plan), out),
+                         f"lstm_bwd clusters ({plan})")
+            found[shape] = out[0]
+        _active_cache[key] = found
+    return _active_cache[key]
 
 
 def _scan_one(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h: Tensor,
@@ -450,8 +580,10 @@ def lstm_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: 
     in one dtype, each starting on a boundary of two elements. The two
     operands of its step product, W_hh^T and dgates, must start on 16-byte
     boundaries: they are tensors this wrapper allocates, which the
-    allocator aligns further."""
-    global BWD_LAUNCHES
+    allocator aligns further. The route is ``bwd_plan``'s; the resident
+    route raises where the card cannot hold its grid at once (another
+    process holding SMs)."""
+    global BWD_LAUNCHES, BWD_RESIDENT_LAUNCHES
     dtype = g_seq.dtype
     dy, dh_t, dc_t = (a.to(dtype).contiguous() for a in (dy, dh_t, dc_t))
     check_scan_bwd(g_seq, mask, w_hh, c0, c_seq, (dy, dh_t, dc_t), reverse)
@@ -465,17 +597,23 @@ def lstm_scan_bwd(g_seq: Tensor, mask: Tensor, w_hh: Tensor, c0: Tensor, c_seq: 
     dc = dc_t.to(torch.float32, copy=True)
     dh0 = torch.empty_like(c0)
     dc0 = torch.empty_like(c0)
+    n_h = g4 // 4
+    plan = card_bwd_plan(dtype, n_dir, n_h, n_b, g_seq.device)
+    # arrivals at each direction's barrier between steps (the resident route)
+    counters = torch.zeros(n_dir, dtype=torch.int32, device=g_seq.device) if plan.route else None
     lib = _build.load_library()
     with torch.cuda.device(g_seq.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dsjax_torch_lstm_bwd(
             g_seq.data_ptr(), mask.data_ptr(), w_t.data_ptr(), c0.data_ptr(),
             c_seq.data_ptr(), dy.data_ptr(), dg.data_ptr(), dh_rest.data_ptr(),
-            dc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), n_dir, n_t, n_b, g4 // 4,
-            _reverse_bits(reverse), int(dtype == torch.bfloat16), stream)
-    _build.check(lib, err, "lstm_bwd launch")
+            dc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), n_dir, n_t, n_b, n_h,
+            _reverse_bits(reverse), int(dtype == torch.bfloat16), plan_array(plan),
+            None if counters is None else counters.data_ptr(), stream)
+    _build.check(lib, err, f"lstm_bwd launch ({plan})")
     with _launch_lock:
         BWD_LAUNCHES += 1
+        BWD_RESIDENT_LAUNCHES += plan.route
     return dg, dh0, dc0
 
 
@@ -507,11 +645,23 @@ def persistent_attributes(entry: str, dtype: torch.dtype, plan: ScanPlan) -> dic
     return attrs
 
 
-def bwd_kernel_attributes(dtype: torch.dtype) -> dict:
-    """K3's step kernel for ``dtype`` as built (needs the card): registers a
-    thread, static and dynamic shared memory a CTA, local memory (spills) a
-    thread, and the hidden units a CTA owns."""
-    return _build.kernel_attributes("dsjax_torch_lstm_bwd_attributes", dtype == torch.bfloat16)
+def bwd_kernel_attributes(dtype: torch.dtype, plan: Optional[BwdPlan] = None) -> dict:
+    """K3's kernel for ``dtype`` on ``plan``'s route as built (needs the
+    card; without a plan the per-step kernel): the route ("resident" or
+    "step"), registers a thread, static and dynamic shared memory a CTA (the
+    plan's on the resident route), local memory (spills) a thread, the
+    hidden units a CTA, and the plan's CTAs and cluster size."""
+    resident = plan is not None and plan.route == 1
+    attrs = _build.kernel_attributes(
+        "dsjax_torch_lstm_bwd_attributes", dtype == torch.bfloat16,
+        plan.cluster if resident else 0, plan.units if resident else 0,
+        int(resident and plan.stages < plan.atoms_per_cta))
+    attrs["route"] = "resident" if resident else "step"
+    if plan is not None:
+        attrs.update(ctas=plan.ctas, cluster=plan.cluster)
+        if resident:
+            attrs["dynamic_smem_bytes"] = plan.smem_bytes
+    return attrs
 
 
 def _carried_h_prev(y: Tensor, mask: Tensor, h0: Tensor, reverse: Sequence[bool]) -> Tensor:

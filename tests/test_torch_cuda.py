@@ -8,7 +8,9 @@ Each LSTM kernel (K1 the forward, K2 the residual-saving forward, K3 the
 reverse scan) is held against its plain PyTorch version on the same CUDA
 tensors (f32: atol 2e-5, rtol 1e-4 forward, sum order only; bf16: atol
 3e-2, the carry rounds to bf16 every step; the reverse scan's looser bounds
-are stated at BWD_TOL), the differentiated op against autograd through the
+are stated at BWD_TOL; K3 in bf16 on its resident route, one cooperative
+launch in thread block clusters, up to the flagship's full shape, in f32 on
+the per-step kernel), the differentiated op against autograd through the
 plain loop, and the model's CUDA forward and gradients against its CPU ones
 with TF32 off. K6 (the exact top-k) and K7 (the fused beam scan) are held
 against their plain versions exactly, K7's float totals and carry to atol
@@ -50,6 +52,13 @@ SHAPES = [(12, 8, 128, (False, True)), (7, 3, 64, (False,)), (33, 20, 256, (True
 # a unit edge inside a CTA's 16 units (H=40); the flagship's width
 BWD_SHAPES = [(9, 80, 128, (False, True)), (10, 1, 64, (True,)), (11, 5, 40, (False, True)),
               (64, 64, 1024, (False, True))]
+# K3's resident route at the flagship's full shape, at one direction with
+# two 64-row tiles of the batch (the second ragged at B=80), and at a unit
+# edge (H=1032: the last CTA's units cut short); with SHAPES and
+# BWD_SHAPES they reach a kernel of each N = cluster x units (16: one K
+# atom, H=16; 128 without a ring: one direction at B=64)
+K3_SHAPES = [(512, 64, 1024, (False, True)), (24, 80, 1024, (True,)), (24, 128, 1024, (False,)),
+             (16, 64, 1032, (False, True)), (12, 8, 16, (False, True)), (24, 64, 1024, (True,))]
 
 
 @pytest.fixture
@@ -138,9 +147,11 @@ def test_residual_forward_matches_plain_version(full_fp32, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES + BWD_SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + BWD_SHAPES + K3_SHAPES)
 def test_reverse_scan_matches_plain_version(full_fp32, dtype, shape):
-    """K3 on the residuals of the plain forward, with nonzero dh_T, dc_T."""
+    """K3 on the residuals of the plain forward, with nonzero dh_T, dc_T,
+    prefix and suffix masks: bf16 (B <= 128 here) on the resident route,
+    f32 on the per-step kernel, as the resident launch counter shows."""
     T, B, H, reverse = shape
     for suffix in (False, True):
         xp, mask, w, b, h0, c0 = problem(shape, dtype, suffix)
@@ -149,10 +160,12 @@ def test_reverse_scan_matches_plain_version(full_fp32, dtype, shape):
         rng = np.random.default_rng(T + 1)
         cot = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
                for s in (c_seq.shape, h0.shape, c0.shape)]
-        before = lstm.BWD_LAUNCHES
+        before = (lstm.BWD_LAUNCHES, lstm.BWD_RESIDENT_LAUNCHES)
         out = lstm.lstm_scan_bwd(g_seq, mask, w, c0, c_seq, *cot, reverse)
         torch.cuda.synchronize()
-        assert lstm.BWD_LAUNCHES == before + 1
+        resident = int(dtype == torch.bfloat16)
+        assert (lstm.BWD_LAUNCHES, lstm.BWD_RESIDENT_LAUNCHES) == \
+            (before[0] + 1, before[1] + resident)
         ref = lstm.lstm_scan_backward_reference(g_seq, mask, w, c0, c_seq, *cot, reverse)
         for o, r in zip(out, ref):
             assert o.dtype == dtype and o.shape == r.shape
@@ -176,13 +189,24 @@ def test_residual_forward_kernel_fits_one_cta_an_sm(full_fp32, rnn, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
-def test_reverse_scan_kernel_fits_one_cta_an_sm(full_fp32, dtype):
-    """K3's step kernel as built: 16 units a CTA, its shared memory within
-    the 227 KB a CTA may take, registers within 255 a thread."""
-    attrs = lstm.bwd_kernel_attributes(dtype)
-    assert attrs["units"] == 16
+@pytest.mark.parametrize("n_b", [64, 128])
+def test_reverse_scan_kernel_fits_one_cta_an_sm(full_fp32, dtype, n_b):
+    """K3's kernel as built for the flagship's width on the card's plan:
+    bf16 the resident kernel (16 or 20 units a CTA, one CTA an SM, every
+    cluster co-resident, no local memory), f32 the per-step kernel (16
+    units); the shared memory within the 227 KB a CTA may take, registers
+    within 255 a thread."""
+    plan = lstm.card_bwd_plan(dtype, 2, 1024, n_b, torch.device("cuda", 0))
+    attrs = lstm.bwd_kernel_attributes(dtype, plan)
     assert attrs["static_smem_bytes"] + attrs["dynamic_smem_bytes"] <= 232448
     assert 0 < attrs["registers"] <= 255
+    if dtype == torch.bfloat16:
+        assert attrs["route"] == "resident" and attrs["units"] in (16, 20)
+        assert attrs["local_bytes"] == 0 and attrs["ctas"] <= torch.cuda.get_device_properties(
+            0).multi_processor_count
+        assert (attrs["cluster"], attrs["units"]) in lstm.BWD_SHAPES
+    else:
+        assert attrs["route"] == "step" and attrs["units"] == 16
 
 
 def test_differentiated_scan_runs_k2_k3_and_matches_autograd(full_fp32):

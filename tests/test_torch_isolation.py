@@ -60,6 +60,7 @@ def _imports(path):
      os.path.join(ROOT, "tools", "torch_lstm_microbench.py"),
      os.path.join(ROOT, "tools", "torch_kernel_probe.py"),
      os.path.join(ROOT, "tools", "torch_data_parallel.py"),
+     os.path.join(ROOT, "tools", "torch_ddp_overlap.py"),
      os.path.join(ROOT, "tests", "synthetic_manifest.py"),
      os.path.join(ROOT, "tests", "synthetic_lm.py"),
      os.path.join(ROOT, "tests", "synthetic_corpora.py"),

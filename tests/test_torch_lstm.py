@@ -274,3 +274,132 @@ def test_scan_plan_at_the_flagship_width():
 def test_scan_plan_raises_where_no_plan_fits(n_dir, n_h, n_b, sms, match):
     with pytest.raises(ValueError, match=match):
         lstm.scan_plan(n_dir, n_h, 4, torch.float32, n_b, sms)
+
+
+# ---------------------------------------------------------------------------
+# K3's route and layout (csrc/lstm_bwd.cu on the card), pure Python
+# ---------------------------------------------------------------------------
+
+# clusters of each (cluster size, units a CTA) that an H100 of 132 SMs holds
+# at once under the flagship's layouts (cudaOccupancyMaxActiveClusters: one
+# CTA an SM takes over 114 KB of shared memory)
+H100_CLUSTERS = {(8, 16): 15, (8, 20): 15, (4, 16): 30, (4, 20): 30, (2, 16): 66, (1, 16): 132}
+
+
+def check_bwd_layout(plan, n_dir, n_h, n_b, sms):
+    """The resident route's layout: every unit owned by one CTA, whole
+    clusters in each direction (less than a cluster of them owning no unit),
+    at most one CTA an SM; the K atoms of 4H split over a cluster with none
+    empty; the shared memory (the alignment pad, W_hh^T's rows of the
+    cluster's units over a CTA's atoms, the dgates buffers with an mbarrier
+    each) within what a CTA may take and the buffers large enough for the
+    CTA's partial sums."""
+    assert plan.route == 1 and (plan.cluster, plan.units) in lstm.BWD_SHAPES
+    assert plan.tiles == -(-n_b // 64) <= 2
+    owners = np.arange(n_h) // plan.units
+    assert np.array_equal(np.unique(owners), np.arange(-(-n_h // plan.units)))
+    assert plan.ctas_per_dir % plan.cluster == 0
+    assert (plan.ctas_per_dir - plan.cluster) * plan.units < n_h
+    assert plan.ctas == n_dir * plan.ctas_per_dir <= sms
+    assert plan.atoms == -(-4 * n_h // 64)
+    slices = [min(plan.atoms_per_cta, plan.atoms - r * plan.atoms_per_cta)
+              for r in range(plan.cluster)]
+    assert min(slices) >= 1 and sum(slices) == plan.atoms
+    assert 2 <= plan.stages <= plan.atoms_per_cta or plan.stages == plan.atoms_per_cta
+    n, stage = plan.cluster * plan.units, 64 * plan.tiles * 128
+    assert n <= 256 and n % 8 == 0 and plan.units % 2 == 0
+    w_bytes = plan.atoms_per_cta * n * 128
+    assert plan.smem_bytes == 1024 + w_bytes + plan.stages * (stage + 8) <= lstm.SMEM_LIMIT
+    assert plan.stages * stage >= 64 * plan.tiles * (n + 8) * 4
+
+
+@pytest.mark.parametrize("active", [None, H100_CLUSTERS], ids=["nominal", "h100"])
+@pytest.mark.parametrize("n_b", [1, 64, 80, 128, 256])
+@pytest.mark.parametrize("n_h", [40, 1024, 1032])
+@pytest.mark.parametrize("n_dir", [1, 2])
+def test_bwd_plan_routes_bf16_by_shape(n_dir, n_h, n_b, active):
+    """bf16 on 132 SMs takes the resident route with one or two 64-row
+    tiles of the batch, and the per-step kernel at B=256 (four tiles)."""
+    plan = lstm.bwd_plan(torch.bfloat16, n_dir, n_h, n_b, 132, active)
+    if n_b > 128:
+        assert plan.route == 0 and plan.cluster == 1
+        assert (plan.units, plan.ctas) == (16, n_dir * -(-n_h // 16))
+    else:
+        check_bwd_layout(plan, n_dir, n_h, n_b, 132)
+        clusters = 132 // plan.cluster if active is None else active[(plan.cluster, plan.units)]
+        assert clusters * plan.cluster >= plan.ctas
+
+
+@pytest.mark.parametrize("n_dir,n_h,n_b,want", [
+    # (route, units, tiles, cluster, ctas, atoms a CTA, buffers, shared memory)
+    (2, 1024, 64, (1, 20, 1, 8, 112, 8, 8, 230464)),     # the flagship: every atom resident
+    (2, 1024, 80, (1, 20, 2, 4, 104, 16, 4, 230432)),    # two tiles, the second ragged: a ring
+    (2, 1024, 128, (1, 20, 2, 4, 104, 16, 4, 230432)),
+    (1, 1024, 64, (1, 16, 1, 8, 64, 8, 8, 197696)),      # 8 clusters of 16-unit CTAs
+    (2, 1032, 64, (1, 20, 1, 4, 104, 17, 6, 224304)),    # a unit edge: the last CTA 12 units
+    (1, 1032, 64, (1, 16, 1, 8, 72, 9, 9, 222280)),      # the last CTA of a cluster 2 atoms
+    (2, 40, 1, (1, 16, 1, 2, 8, 2, 2, 25616)),           # 3 atoms: clusters of 2 at most
+    (2, 1024, 256, (0, 16, 4, 1, 128, 0, 0, 0))])
+def test_bwd_plan_at_the_flagship_and_its_edges(n_dir, n_h, n_b, want):
+    """The layouts an H100 gets: at H=1024 in two directions 16-unit CTAs
+    would need 16 clusters of 8 where it holds 15, so the CTAs take 20
+    units (14 clusters)."""
+    p = lstm.bwd_plan(torch.bfloat16, n_dir, n_h, n_b, 132, H100_CLUSTERS)
+    assert (p.route, p.units, p.tiles, p.cluster, p.ctas, p.atoms_per_cta, p.stages,
+            p.smem_bytes) == want
+
+
+@pytest.mark.parametrize("n_b", [8, 64])
+def test_bwd_plan_keeps_f32_on_the_per_step_kernel(n_b):
+    """f32's 256 KB of W_hh^T a CTA at H=1024 would not fit: the per-step
+    kernel, whatever the shape."""
+    plan = lstm.bwd_plan(torch.float32, 2, 1024, n_b, 132, H100_CLUSTERS)
+    assert plan == lstm.BwdPlan(0, 16, 1, 1, 128, 64, 0, 0, 0, 0)
+    assert lstm.bwd_plan(torch.float32, 1, 40, 1, 132).route == 0
+    with pytest.raises(TypeError):
+        lstm.bwd_plan(torch.float16, 2, 1024, 64, 132)
+
+
+# the resident kernels csrc/lstm_bwd.cu builds (resident::kernel_for):
+# each (cluster size, units) of BWD_SHAPES with and without a ring of
+# dgates buffers, but (8, 20) without one only
+BUILT_BWD_KERNELS = {(c, u, ring) for c, u in lstm.BWD_SHAPES for ring in (False, True)} - {
+    (8, 20, True)}
+
+
+@pytest.mark.parametrize("n_b", [1, 64, 65, 128])
+@pytest.mark.parametrize("n_dir", [1, 2])
+def test_bwd_layouts_take_only_built_kernels(n_dir, n_b):
+    """Every layout of BWD_SHAPES that fits, at every H up to where none
+    does, takes a kernel csrc/lstm_bwd.cu builds: (8, 20)'s never needs a
+    ring."""
+    taken = set()
+    for n_h in range(8, 4104, 8):
+        for shape in lstm.BWD_SHAPES:
+            p = lstm.bwd_layout(n_dir, n_h, n_b, 132, *shape)
+            if p is not None:
+                taken.add((p.cluster, p.units, p.stages < p.atoms_per_cta))
+    assert taken <= BUILT_BWD_KERNELS
+    assert (8, 20, False) in taken
+
+
+@pytest.mark.parametrize("active,want", [
+    (H100_CLUSTERS, (8, 20)), ({**H100_CLUSTERS, (8, 16): 16}, (8, 16)),
+    ({**H100_CLUSTERS, (8, 20): 13}, (4, 20)),
+    ({**H100_CLUSTERS, (8, 20): 13, (4, 16): 32}, (4, 16)),
+    ({(8, 16): 0, (8, 20): 0, (4, 16): 31, (4, 20): 25, (2, 16): 64}, (2, 16)),
+    ({(2, 16): 63, (1, 16): 128}, (1, 16)), ({(8, 20): 14}, (8, 20)),
+    ({(2, 16): 63, (1, 16): 127}, None), ({}, None), (None, (8, 16))])
+def test_bwd_plan_takes_the_largest_co_resident_cluster(active, want):
+    """The (cluster size, units) is the first of BWD_SHAPES whose clusters
+    the card holds at once (the counts passed in, as
+    cudaOccupancyMaxActiveClusters gives them); where none is, the per-step
+    kernel (None here)."""
+    plan = lstm.bwd_plan(torch.bfloat16, 2, 1024, 64, 132, active)
+    assert ((plan.cluster, plan.units) if plan.route else None) == want
+    earlier = lstm.BWD_SHAPES[:lstm.BWD_SHAPES.index(want)] if want else lstm.BWD_SHAPES
+    for shape in earlier:
+        layout = lstm.bwd_layout(2, 1024, 64, 132, *shape)
+        assert layout is None or (active or {}).get(shape, 0) * shape[0] < layout.ctas
+    if plan.route:
+        check_bwd_layout(plan, 2, 1024, 64, 132)
