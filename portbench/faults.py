@@ -9,6 +9,9 @@ each at a small size on the CPU.
   training   ``unchanged``: the optimizer step leaves the state as it was;
              ``half``: the loss takes half of the batch's rows, their mean
              scaled to the batch (the other half left out);
+  data parallel training, besides: ``exchange``: no DDP, each rank steps on
+             its own rows' gradient (the exchange between cards left out);
+             ``local_moments``: BatchNorm takes each rank's own moments;
   evaluation ``half``: the decoder answers for half of the batch's rows
              and leaves the rest empty; ``token``: each transcript's first
              character is replaced where the decoder produces it.
@@ -25,11 +28,13 @@ in its place (``beam_control``), which the beam numbers catch.
 from __future__ import annotations
 
 import contextlib
+import math
 from unittest import mock
 
 import torch
 
 TRAIN_FAULTS = ("unchanged", "half")
+DDP_FAULTS = TRAIN_FAULTS + ("exchange", "local_moments")
 EVAL_FAULTS = ("half", "token")
 
 
@@ -54,6 +59,22 @@ def train_fault(name: str):
             return nll * keep
 
         with mock.patch.object(loop, "ctc_loss", half):
+            yield
+    elif name == "exchange":
+        def module(self, state):
+            return state.model
+
+        with mock.patch.object(loop.Trainer, "_module", module):
+            yield
+    elif name == "local_moments":
+        from dsjax_torch.model import ds2
+
+        def local(xf, axes, group=None):
+            n = math.prod(xf.shape[a] for a in axes)
+            mean = xf.mean(dim=axes)
+            return mean, (xf * xf).mean(dim=axes) - mean * mean, n / max(n - 1, 1)
+
+        with mock.patch.object(ds2, "global_moments", local):
             yield
     else:
         raise KeyError(name)

@@ -21,6 +21,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from portbench import kernels
+
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("user_annotation", "cpu_op")
 MIN_GAP_US = 20.0          # shorter idle gaps are summed under one name
@@ -70,13 +72,8 @@ def peak_memory(device: torch.device) -> int:
 
 def counters() -> Dict[str, int]:
     """The program's kernel launch counters (one per call of a C entry
-    point): K1/K4 the persistent forwards, K2/K4r with residuals, K3/K5
-    the reverse scans, K7 the fused beam scan and its backtrack."""
-    from dsjax_torch.ops import beam, gru, lstm
-
-    return {"K1": lstm.LAUNCHES, "K2": lstm.RESIDUAL_LAUNCHES, "K3": lstm.BWD_LAUNCHES,
-            "K4": gru.LAUNCHES, "K4r": gru.RESIDUAL_LAUNCHES, "K5": gru.BWD_LAUNCHES,
-            "K7": beam.LAUNCHES, "backtrack": beam.BACKTRACK_LAUNCHES}
+    point), each kernel's as its file names it (``kernels/<K>.py``)."""
+    return kernels.counters()
 
 
 def delta(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
@@ -84,17 +81,13 @@ def delta(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
 
 
 def kernel_group(name: str) -> str:
-    """A kernel's group (``tools/torch_profile_train.py``'s, with the
-    evaluation's kernels)."""
+    """A kernel's group: the kernel whose file matches its name
+    (``kernels.kernel_of``), else ``tools/torch_profile_train.py``'s
+    groups."""
+    kernel = kernels.kernel_of(name)
+    if kernel is not None:
+        return kernel
     low = name.lower()
-    for pattern, group in (("lstm_bwd_step_kernel", "K3"), ("gru_bwd_step_kernel", "K5"),
-                           ("lstm_residual_step_kernel", "K2"),
-                           ("gru_residual_step_kernel", "K4r"), ("beam_kernel", "K7"),
-                           ("backtrack_kernel", "backtrack")):
-        if pattern in low:
-            return group
-    if "persistent_scan" in low:
-        return "K4" if "grucell" in low else "K1"
     if "nccl" in low:
         return "nccl"
     if "ctc" in low:
@@ -124,9 +117,9 @@ def trace_span(fn: Callable[[], None], device: torch.device) -> Dict:
     """Run ``fn`` under ``torch.profiler`` and reduce its trace: the span's
     host-clock seconds, the device's busy seconds (the union of its kernel
     and copy intervals inside the span), each device operation's count and
-    seconds, and the idle gaps by the innermost host event open at each
-    gap's middle. The trace file is written to the temporary directory and
-    deleted."""
+    seconds, each kernel group's exposed seconds (``_exposed``), and the
+    idle gaps by the innermost host event open at each gap's middle. The
+    trace file is written to the temporary directory and deleted."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize(device)
@@ -149,6 +142,7 @@ def trace_span(fn: Callable[[], None], device: torch.device) -> Dict:
     hi = lo + float(spans[0]["dur"]) if spans else float("inf")
     ops: Dict[str, List[float]] = {}
     intervals = []
+    grouped = []
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
             continue
@@ -159,6 +153,7 @@ def trace_span(fn: Callable[[], None], device: torch.device) -> Dict:
         row[0] += 1
         row[1] += d * 1e-6
         intervals.append((max(s, lo), min(s + d, hi)))
+        grouped.append((intervals[-1], kernel_group(e["name"])))
     busy = _union(intervals)
     host = [e for e in events if e.get("ph") == "X" and e.get("cat") in HOST_CATS
             and e.get("name") != "portbench.span"]
@@ -178,7 +173,25 @@ def trace_span(fn: Callable[[], None], device: torch.device) -> Dict:
                     if len(open_) else "no host event")
         gaps[name] = gaps.get(name, 0.0) + (g1 - g0) * 1e-6
     return {"seconds": seconds, "busy_s": sum(e - s for s, e in busy) * 1e-6,
-            "ops": ops, "gaps": gaps}
+            "ops": ops, "gaps": gaps, "exposed": _exposed(grouped)}
+
+
+def _exposed(grouped: List[Tuple[Tuple[float, float], str]]) -> Dict[str, float]:
+    """Each kernel group's seconds with its operations, and no other
+    group's, running on the device (a sweep over the intervals' edges)."""
+    edges = sorted((t, step, g) for (s, e), g in grouped for t, step in ((s, 1), (e, -1)))
+    active: Dict[str, int] = {}
+    out: Dict[str, float] = {}
+    prev = None
+    for t, step, g in edges:
+        if prev is not None and len(active) == 1:
+            (only,) = active
+            out[only] = out.get(only, 0.0) + (t - prev) * 1e-6
+        active[g] = active.get(g, 0) + step
+        if not active[g]:
+            del active[g]
+        prev = t
+    return out
 
 
 def breakdown(span: Dict) -> Dict:

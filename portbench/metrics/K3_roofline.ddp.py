@@ -1,0 +1,8 @@
+"""K3's share of its roofline on rank 0's card over the profiled
+data-parallel span, beside DDP's NCCL kernels (``readers.roofline``)."""
+
+from portbench.readers import roofline
+
+
+def read(layer):
+    return roofline(layer, "K3")

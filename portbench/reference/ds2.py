@@ -10,10 +10,11 @@ It follows deepspeech.pytorch's ``model.py`` and its loader's spectrogram
     ddof=1 standard deviation of its own frames;
   * two Conv2d + BatchNorm + Hardtanh(0, 20) blocks, each output masked past
     the utterance's length (``MaskConv``);
-  * recurrent layers, ``torch.nn.LSTM`` or ``torch.nn.GRU`` over packed
-    sequences (each utterance's own length; the reverse direction starts
-    at its end), two directions summed, a sequence-wise BatchNorm before
-    every layer but the first (``BatchRNN``);
+  * recurrent layers, the cell's ``torch.nn`` module (``cells/<rnn_type>.py``:
+    ``torch.nn.LSTM``, ``torch.nn.GRU``) over packed sequences (each
+    utterance's own length; the reverse direction starts at its end), two
+    directions summed, a sequence-wise BatchNorm before every layer but the
+    first (``BatchRNN``);
   * for one direction, the Lookahead convolution (context taps over future
     steps, zero past the end) and a Hardtanh(0, 20);
   * sequence-wise BatchNorm, a bias-free Linear head; in evaluation a
@@ -39,6 +40,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
+
+from portbench.reference import cells
 
 Tensor = torch.Tensor
 Quant = Optional[Callable[[Tensor], Tensor]]
@@ -143,20 +147,6 @@ def conv_stack(x: Tensor, lengths: Tensor, w: Dict[str, Tensor], train: bool,
     return x.permute(3, 0, 1, 2).reshape(t, b, c * f), out_len
 
 
-def _cell(kind: str, x_t: Tensor, h: Tensor, c: Optional[Tensor], w_hh: Tensor,
-          b_hh: Tensor, quant: Quant):
-    hp = torch.bmm(_q(h, quant), w_hh.transpose(1, 2)) + b_hh[:, None, :]
-    if kind == "lstm":
-        i, f, g, o = (x_t + hp).chunk(4, dim=-1)
-        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        return torch.sigmoid(o) * torch.tanh(c_new), c_new
-    xr, xz, xn = x_t.chunk(3, dim=-1)
-    hr, hz, hn = hp.chunk(3, dim=-1)
-    r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
-    n = torch.tanh(xn + r * hn)
-    return (1 - z) * n + z * h, None
-
-
 def _layer_weights(w: Dict[str, Tensor], layer: int, bidirectional: bool):
     p = f"rnns.{layer}.rnn."
     sfx = ("", "_reverse") if bidirectional else ("",)
@@ -166,11 +156,12 @@ def _layer_weights(w: Dict[str, Tensor], layer: int, bidirectional: bool):
 
 def _packed(x: Tensor, lengths: Tensor, w: Dict[str, Tensor], layer: int, kind: str,
             bidirectional: bool) -> Tensor:
-    """``torch.nn.LSTM``/``GRU`` over the packed sequences, with this
-    layer's weights, as deepspeech.pytorch's ``BatchRNN`` runs it."""
+    """The cell's ``torch.nn`` module (``cells/<kind>.py``) over the packed
+    sequences, with this layer's weights, as deepspeech.pytorch's
+    ``BatchRNN`` runs it."""
     weights = _layer_weights(w, layer, bidirectional)
     n_h = weights["weight_hh_l0"].shape[1]
-    cls = torch.nn.LSTM if kind == "lstm" else torch.nn.GRU
+    cls = cells.find(kind).MODULE
     module = cls(x.shape[-1], n_h, bidirectional=bidirectional, device=x.device)
     packed = torch.nn.utils.rnn.pack_padded_sequence(x, lengths.cpu(), enforce_sorted=False)
     out, _ = torch.func.functional_call(module, weights, (packed,))
@@ -208,29 +199,34 @@ def recurrent(x: Tensor, lengths: Tensor, w: Dict[str, Tensor], layer: int, kind
         masks = torch.stack([mask, mask.flip(0)])
     else:
         masks = mask[None]
-    h = x.new_zeros((n_d, n_b, n_h))
-    c = x.new_zeros((n_d, n_b, n_h)) if kind == "lstm" else None
+    cell = cells.find(kind)
+    carries = tuple(x.new_zeros((n_d, n_b, n_h)) for _ in range(cell.CARRIES))
     ys = []
     for t in range(n_t):
         m = masks[:, t, :, None]
-        h_new, c_new = _cell(kind, xp[:, t], h, c, w_hh, b_hh, quant)
-        ys.append(quant(h_new * m))
-        h = quant(m * h_new + (1 - m) * h)
-        if c is not None:
-            c = quant(m * c_new + (1 - m) * c)
+        hp = torch.bmm(quant(carries[0]), w_hh.transpose(1, 2)) + b_hh[:, None, :]
+        new = cell.update(xp[:, t], hp, carries)
+        ys.append(quant(new[0] * m))
+        carries = tuple(quant(m * n + (1 - m) * o) for n, o in zip(new, carries))
     y = torch.stack(ys, dim=1)                                             # (D, T, B, H)
     return y[0] if n_d == 1 else y[0] + y[1].flip(0)
 
 
 def forward(w: Dict[str, Tensor], arch: Dict, feats: Tensor, lengths: Tensor,
-            train: bool, quant: Quant = None) -> Tuple[Tensor, Tensor]:
+            train: bool, quant: Quant = None, checkpoint: bool = False
+            ) -> Tuple[Tensor, Tensor]:
     """(B, 161, T) features -> ((B, T', C) logits in training, softmax
-    probabilities in evaluation; (B,) T')."""
+    probabilities in evaluation; (B,) T'). With ``checkpoint`` each
+    recurrent layer keeps only its input for the backward and runs again
+    there (``torch.utils.checkpoint``): the same numbers in a fraction of
+    the memory, for batches whose step loop would not fit."""
     x, out_len = conv_stack(feats, lengths, w, train, quant)
     for i in range(arch["hidden_layers"]):
         if i > 0:
             x = _q(batch_norm(x, w, f"rnns.{i}.batch_norm.module", (0, 1), train), quant)
-        x = recurrent(x, out_len, w, i, arch["rnn_type"], arch["bidirectional"], quant)
+        args = (x, out_len, w, i, arch["rnn_type"], arch["bidirectional"], quant)
+        x = (torch.utils.checkpoint.checkpoint(recurrent, *args, use_reentrant=False)
+             if checkpoint else recurrent(*args))
     if not arch["bidirectional"]:
         ctx = arch["lookahead_context"]
         xt = F.pad(x.permute(1, 2, 0), (0, ctx - 1))                       # (B, H, T + ctx - 1)

@@ -38,10 +38,12 @@ class Readings(NamedTuple):
     grads: Dict[str, Tensor]        # the clipped gradients of step 1
 
 
-def loss_of(params: Dict[str, Tensor], arch: Dict, batch: RefBatch, quant=None) -> Tensor:
+def loss_of(params: Dict[str, Tensor], arch: Dict, batch: RefBatch, quant=None,
+            checkpoint: bool = False) -> Tensor:
     with torch.no_grad():
         feats, n_frames = ds2.spectrogram(batch.audio, batch.n_samples)
-    logits, out_len = ds2.forward(params, arch, feats, n_frames, train=True, quant=quant)
+    logits, out_len = ds2.forward(params, arch, feats, n_frames, train=True, quant=quant,
+                                  checkpoint=checkpoint)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = F.ctc_loss(logp.transpose(0, 1), batch.targets, out_len, batch.target_lengths,
                      blank=0, reduction="none", zero_infinity=True)
@@ -49,9 +51,12 @@ def loss_of(params: Dict[str, Tensor], arch: Dict, batch: RefBatch, quant=None) 
 
 
 def train_steps(w0: Dict[str, Tensor], arch: Dict, batches: Sequence[RefBatch], optim: Dict,
-                quant=None) -> Readings:
+                quant=None, divisor: float = 1.0, checkpoint: bool = False) -> Readings:
     """One step on each batch from weights ``w0``, which stay unchanged.
-    ``optim``: lr, weight_decay, betas, eps, clip."""
+    ``optim``: lr, weight_decay, betas, eps, clip. The loss is the rows'
+    sum over ``divisor``: data parallelism over D ranks trains on the
+    global batch's sum over D, as dsjax's ``loss / dp`` and DDP's average
+    of the ranks' gradients do. ``checkpoint``: ``ds2.forward``'s."""
     names = [k for k in w0 if not k.endswith(STATS)]
     params = {k: w0[k].detach().clone().requires_grad_(True) for k in names}
     stats = {k: v for k, v in w0.items() if k.endswith(STATS)}
@@ -62,7 +67,7 @@ def train_steps(w0: Dict[str, Tensor], arch: Dict, batches: Sequence[RefBatch], 
     losses, grad_norms, first = [], {}, {}
     for step, batch in enumerate(batches, start=1):
         with ds2.strict_f32():
-            loss = loss_of({**params, **stats}, arch, batch, quant)
+            loss = loss_of({**params, **stats}, arch, batch, quant, checkpoint) / divisor
             grads = torch.autograd.grad(loss, [params[k] for k in names])
         losses.append(float(loss.detach()))
         with torch.no_grad():

@@ -12,11 +12,20 @@ plain reference. With ``--trace 0`` the line's metrics are the cell's
 end-to-end metrics; with ``--trace 1`` its per-layer metrics, each read by
 ``portbench/metrics/<metric>.py`` from what the driver gathered.
 
+A cell whose traffic mix asks for ``ranks`` runs as one process a card:
+this process builds the port's kernel library once, starts ``chips``
+processes of itself in torchrun's environment (``ranks.py``), each on
+``cuda:<rank>``, and waits for them. Rank 0 prints the line and the checks,
+which this process passes on; a rank that fails, or ranks that pass the
+mix's ``ranks.timeout_s``, end every rank, and then no line is printed and
+the exit code is not 0. The set-up time counts from this process's start.
+
 The last line of standard output is one JSON object; the numbers compared
 and their limits close standard error. Without the CUDA cards the cell
 asks for, or with JAX or the JAX package loaded once the window has closed,
 it prints no result and exits with a code other than 0. Build and kernel
-caches stay inside the checkout (``build/``).
+caches stay inside the checkout (``build/``: the port's library, Triton's
+and PyTorch's runtime-compiled kernels).
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "dsjax")
+STARTED_ENV = "PORTBENCH_STARTED"     # the launching process's start, for its ranks
+TAIL = 4000                           # characters of another rank's standard error
 
 
 def load_module(path: Path, name: str):
@@ -94,8 +105,11 @@ def main(argv=None) -> int:
     except KeyError as e:
         print(f"run.py: {e}", file=sys.stderr)
         return 2
-    # kernel caches inside the checkout, at fixed paths
+    # kernel caches inside the checkout, at fixed paths, made before any rank
+    # would race another to make them
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    os.environ.setdefault("PYTORCH_KERNEL_CACHE_PATH", str(ROOT / "build" / "torch_kernels"))
+    os.makedirs(os.environ["PYTORCH_KERNEL_CACHE_PATH"], exist_ok=True)
     sys.path.insert(0, str(ROOT))
     if sys.path[1:2] == [str(ROOT / "portbench")]:
         del sys.path[1]
@@ -106,23 +120,65 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} visible",
               file=sys.stderr)
         return 3
-    from portbench import harness
+    from portbench import harness, ranks
 
+    rank = ranks.rank()
+    if traffic.get("ranks") and rank is None:
+        return launch_ranks(w["chips"], traffic["ranks"]["timeout_s"],
+                            sys.argv[1:] if argv is None else argv)
     cell = harness.Cell(name=w["name"], config=config, traffic=traffic, seed=args.seed,
                         seconds=args.seconds, trace=bool(args.trace), chips=w["chips"],
-                        device=torch.device("cuda", 0), started=STARTED)
+                        device=torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))),
+                        started=float(os.environ.get(STARTED_ENV, STARTED)))
     driver = load_module(driver_path, f"portbench_driver_{traffic['driver']}")
     outcome = driver.run(cell)
+    if rank:
+        return refuse_forbidden()
     return report(bench, w, cell, outcome, torch)
+
+
+def launch_ranks(world: int, timeout_s: float, argv) -> int:
+    """Build the port's library, run this command as ``world`` ranks, and
+    pass on rank 0's output: its standard output whole, the other ranks'
+    standard error's ends before rank 0's, which ends with the checks."""
+    from dsjax_torch.ops import _build
+    from portbench import ranks
+
+    _build.build()      # once, so that no two ranks build
+    ended = ranks.launch([sys.executable, str(Path(__file__).resolve()), *argv], world,
+                         timeout_s, env=dict(os.environ, **{STARTED_ENV: repr(STARTED)}))
+    for r in range(1, world):
+        if ended.stderr[r].strip():
+            print(f"rank {r}, exit {ended.returncodes[r]}, the end of its standard error:\n"
+                  f"{ended.stderr[r][-TAIL:]}", file=sys.stderr)
+    if not ended.ok:
+        print(f"rank 0, exit {ended.returncodes[0]}:\n{ended.stderr[0][-TAIL:]}",
+              file=sys.stderr)
+        print(f"run.py: {ended.reason}; every rank was ended, no result", file=sys.stderr)
+        return 5
+    code = refuse_forbidden()
+    if code:
+        return code
+    sys.stderr.write(ended.stderr[0])
+    sys.stdout.write(ended.stdout[0])
+    return 0
+
+
+def refuse_forbidden() -> int:
+    """4, naming them, when JAX or the JAX package is loaded; else 0."""
+    found = forbidden_modules()
+    if found:
+        print(f"run.py: JAX or the JAX package is loaded: {', '.join(found)}", file=sys.stderr)
+        return 4
+    return 0
 
 
 def report(bench: dict, w: dict, cell, outcome, torch) -> int:
     from portbench import check
 
-    found = forbidden_modules()
-    if found:
-        print(f"run.py: JAX or the JAX package is loaded: {', '.join(found)}", file=sys.stderr)
-        return 4
+    code = refuse_forbidden()
+    if code:
+        return code
     mine = {m["name"]: m for m in bench["end_to_end"]
             if w["name"] in m.get("workloads", [w["name"]])}
     end_to_end = dict(outcome.end_to_end, setup_s=outcome.setup_s)

@@ -1,6 +1,7 @@
 """Cells cut to a size a CPU test holds: the cell's own files with the
 model narrowed to 2 layers of 64 and a few short utterances. The limits
-stay the cell's."""
+stay the cell's. A cell of several ranks runs here as one process, or as
+gloo ranks on the CPU (``tests/test_portbench_ranks.py``)."""
 
 import json
 import time
@@ -22,8 +23,10 @@ def small_cell(workload: str, seed: int = 5, **traffic) -> harness.Cell:
                   port=[p.replace("1024", "64").replace("hidden_layers=5", "hidden_layers=2")
                         for p in config["port"]])
     tr = json.loads((ROOT / "portbench" / "traffic" / f"{w['traffic']}.json").read_text())
-    if tr["driver"] == "train":
-        tr.update(utterances={"count": 16, "frames": 128}, batch=4, targets={"chars": [10, 20]})
+    if tr["driver"] in ("train", "ddp_train"):
+        # four global batches at every world size up to the cell's chips
+        tr.update(utterances={"count": 16 * w["chips"], "frames": 128}, batch=4,
+                  targets={"chars": [10, 20]})
     else:
         tr.update(utterances={"count": 8, "seconds": [0.5, 1.5], "sort": "duration"},
                   checked_batches=2,

@@ -61,20 +61,20 @@ SERVE_K4 = SERVE_K1 - 128                                    # and K4's (one row
 ])
 def test_scan_bounds_match_the_kernel_table(kernel, args, ms, by):
     args = args[:5] + ((_train_valid(kernel),) if args[5] is None else (args[5],))
-    seconds, what = counts.scan_bound(kernel, *args)
+    seconds, what = counts.bound(kernel, *args)
     assert round(seconds * 1e3, 3) == ms
     assert what == by
 
 
 def test_k7_bound_is_its_bytes():
-    seconds, what = counts.beam_bound(16, 500, 128, 29, 16 * 500)
+    seconds, what = counts.bound("K7", 16, 500, 128, 29, 16 * 500)
     assert what == "bytes"
     assert round(seconds * 1e3, 3) == 0.005
 
 
 def test_the_training_cell_bounds_by_operations():
     # every step valid: the bf16 product outweighs the bytes
-    seconds, what = counts.scan_bound("K2", 2, 512, 64, 1024, "bfloat16", 512 * 64)
+    seconds, what = counts.bound("K2", 2, 512, 64, 1024, "bfloat16", 512 * 64)
     assert what == "operations"
     assert seconds == pytest.approx(2 * 4 * 1024 ** 2 * 512 * 64 * 2 / 989e12)
 

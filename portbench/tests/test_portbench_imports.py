@@ -14,10 +14,14 @@ HARNESS = """
 import sys
 sys.path.insert(0, {root!r})
 import portbench.run as run, portbench.harness, portbench.readings, portbench.faults
-import portbench.drivers.train, portbench.drivers.eval
+import portbench.drivers.train, portbench.drivers.eval, portbench.drivers.ddp_train
+import portbench.ranks, portbench.kernels
+portbench.kernels.found()
+portbench.kernels.counters()
 # what the drivers import of the port when they run
 import dsjax_torch.train.loop, dsjax_torch.inference, dsjax_torch.data.loader
 import dsjax_torch.decode.beam_device, dsjax_torch.model.convert, dsjax_torch.train.metrics
+import dsjax_torch.parallel.distributed
 for f in sorted((run.ROOT / "portbench" / "metrics").glob("*.py")):
     run.load_module(f, "m_" + f.stem.replace(".", "_"))
 print(",".join(sorted({{m.split(".")[0] for m in sys.modules}})))
@@ -28,6 +32,8 @@ import sys
 sys.path.insert(0, {root!r})
 import portbench.reference.ds2, portbench.reference.train, portbench.reference.beam
 import portbench.weights, portbench.traffic, portbench.counts, portbench.check
+import portbench.reference.cells as cells, portbench.kernels
+cells.find("lstm"), cells.find("gru"), portbench.kernels.found()
 print(",".join(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 

@@ -28,7 +28,9 @@ READS = {
     "eval.score_ms": ("batches", ("eval.score",)),
     "eval.prefetch_wait_ms": ("batches", ("data.wait",)),
     "train.host_ms": ("steps", ("train.put_batch", "train.step")),
+    "ddp.host_ms": ("steps", ("train.put_batch", "train.step")),
 }
+PREFIX = {"train": "train.", "ddp_train": "ddp.", "eval": "eval."}
 NEW = (*READS, "eval.untraced_idle_ms")
 
 
@@ -85,7 +87,7 @@ def test_new_metrics_are_listed_for_the_cells_that_run_their_spans():
     for name, workloads in listed.items():
         for w in workloads:
             kind = small_cell(w).traffic["driver"]
-            assert name.startswith("train." if kind == "train" else "eval."), (name, w)
+            assert name.startswith(PREFIX[kind]), (name, w)
 
 
 def test_readers_give_the_spans_ms_per_unit(traced):

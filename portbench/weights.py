@@ -22,6 +22,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from portbench import counts
+from portbench.reference import cells
 
 Tensor = torch.Tensor
 
@@ -30,7 +31,7 @@ def leaves(arch: Dict) -> List[Tuple[str, Tuple[int, ...], str, float]]:
     """(name, shape, kind, scale) of every tensor of the state_dict; kind is
     ``normal`` (scale x N), ``uniform`` (U(-scale, scale)), ``bn_weight``,
     ``bn_var`` or ``zero``."""
-    h, g = arch["hidden_size"], counts.GATES[arch["rnn_type"]]
+    h, g = arch["hidden_size"], cells.find(arch["rnn_type"]).GATES
     out: List[Tuple[str, Tuple[int, ...], str, float]] = []
 
     def bn(prefix: str, n: int) -> None:
