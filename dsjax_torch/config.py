@@ -7,7 +7,9 @@ name and default equal to dsjax.config's, and ``compose`` equal to dsjax's
 on the same command lines (including the group swaps ``optim=sgd`` and
 ``model=unidirectional``). The additions are ``ServerConfig.device`` and
 ``TrainerConfig.device``, the torch device the server or the trainer runs
-the model on. Fields that select or tune JAX itself (``platform``,
+the model on, and two group members dsjax lacks: ``model=conformer``
+(``ConformerConfig``) and ``data.spect=logmel`` (``LogMelConfig``, a
+``SpectConfig`` with NeMo's log-mel fields); the defaults stay dsjax's. Fields that select or tune JAX itself (``platform``,
 ``matmul_precision``, ``donate_state``) are kept so the same command lines
 parse; the server, evaluation and transcription read none of them, and the
 trainer refuses a value other than the default. ``num_cpu_devices`` of the
@@ -68,6 +70,19 @@ class SpectConfig:
 
 
 @dataclass
+class LogMelConfig(SpectConfig):
+    """NeMo's log-mel front end (``AudioToMelSpectrogramPreprocessor``):
+    ``data.spect=logmel``. The window of ``window_size`` seconds sits in the
+    middle of ``n_fft`` points; pre-emphasis, the power spectrum, ``features``
+    Slaney mel bands, a log, per-feature normalisation
+    (``audio/features.py:logmel_np``)."""
+    window_size: float = 0.025
+    window: SpectrogramWindow = SpectrogramWindow.hann
+    n_fft: int = 512
+    features: int = 80
+
+
+@dataclass
 class AugmentationConfig:
     speed_volume_perturb: bool = False  # random tempo/gain perturbation
     spec_augment: bool = False          # SpecAugment on spectrograms
@@ -109,6 +124,23 @@ class BiDirectionalConfig:
 @dataclass
 class UniDirectionalConfig(BiDirectionalConfig):
     lookahead_context: int = 20
+
+
+@dataclass
+class ConformerConfig:
+    """Conformer-CTC (Gulati et al. 2020, arXiv:2005.08100), ``model=conformer``:
+    the defaults are NeMo's Large row (``conformer_ctc_char.yaml``), built as
+    that file builds it: striding subsampling by 4 with d_model channels,
+    x-scaling, relative-position attention with per-layer biases."""
+    d_model: int = 512
+    n_heads: int = 8
+    n_layers: int = 18
+    ff_expansion_factor: int = 4
+    conv_kernel_size: int = 31
+    # NeMo's dropout, dropout_pre_encoder and dropout_att, equal in its Large
+    # row: the subsampling's output, the FFNs, the attention probabilities
+    # and every residual branch
+    dropout: float = 0.1
 
 
 @dataclass
@@ -260,12 +292,14 @@ class ServerConfig(InferenceConfig):
 # polymorphic groups: "optim=sgd" swaps the group's dataclass
 GROUPS: Dict[str, Dict[str, Type]] = {
     "optim": {"adam": AdamConfig, "sgd": SGDConfig},
-    "model": {"bidirectional": BiDirectionalConfig, "unidirectional": UniDirectionalConfig},
+    "model": {"bidirectional": BiDirectionalConfig, "unidirectional": UniDirectionalConfig,
+              "conformer": ConformerConfig},
+    "spect": {"linear": SpectConfig, "logmel": LogMelConfig},
 }
 # every schema by name: the ``_type_`` tags of to_dict, meta.json and overlays
 _ALL_SCHEMAS: Dict[str, Type] = {cls.__name__: cls for cls in (
-    SpectConfig, AugmentationConfig, DataConfig, BiDirectionalConfig, UniDirectionalConfig,
-    OptimConfig, SGDConfig, AdamConfig, CheckpointConfig, TrainerConfig, TrainConfig,
+    SpectConfig, LogMelConfig, AugmentationConfig, DataConfig, BiDirectionalConfig,
+    UniDirectionalConfig, ConformerConfig, OptimConfig, SGDConfig, AdamConfig, CheckpointConfig, TrainerConfig, TrainConfig,
     LMConfig, ModelLoadConfig, InferenceConfig, TranscribeConfig, EvalConfig, ServerConfig)}
 # overlays by name: the port's copies of dsjax's dataset overlays, then ./configs
 CONFIG_DIRS = [os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"), "configs"]

@@ -105,12 +105,16 @@ def collate_audio(samples: Sequence[Tuple[np.ndarray, int, List[int]]],
                   hop: int, bucket_frames: int = 1, bucket_labels: int = 1,
                   pad_to_batch: Optional[int] = None) -> Batch:
     """Device-feature twin of :func:`collate`: pads reflect-padded raw audio
-    to a common bucketed frame count; the STFT happens on the device."""
+    to a common bucketed frame count; the STFT happens on the device. Each
+    row holds (frames - 1) * hop + n_fft samples, as
+    ``pad_audio_for_device`` lays it out from the config's n_fft (2 * hop for
+    the linear spectrogram), and the batch takes the same layout."""
     samples = sorted(samples, key=lambda s: s[1], reverse=True)
     b = len(samples)
     max_t = round_up(max(s[1] for s in samples), bucket_frames)
     max_l = round_up(max((len(s[2]) for s in samples), default=1) or 1, bucket_labels)
-    total = (max_t + 1) * hop
+    n_fft = max((len(s[0]) - (s[1] - 1) * hop for s in samples), default=2 * hop)
+    total = (max_t - 1) * hop + n_fft
     b_pad = pad_to_batch if pad_to_batch is not None else b
     audio = np.zeros((b_pad, total), samples[0][0].dtype if b else np.float32)
     input_lengths = np.ones((b_pad,), np.int32)

@@ -32,17 +32,17 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dsjax_torch.audio.features import FeatureExtractor, spectrogram_torch
+from dsjax_torch.audio.features import FeatureExtractor, features_torch
 from dsjax_torch.audio.io import load_audio
-from dsjax_torch.config import DecoderType, LMConfig, SpectConfig, SpectrogramWindow
+from dsjax_torch.config import DecoderType, LMConfig, SpectConfig
 from dsjax_torch.decode.beam import BeamCTCDecoder
 from dsjax_torch.decode.beam_device import DeviceBeamDecoder
 from dsjax_torch.decode.lm import BINARY_MAGIC
 from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.labels import DEFAULT_LABELS
-from dsjax_torch.model.convert import (CONVERT_TOOL, from_reference_state_dict,
-                                       infer_architecture, load_checkpoint, plain_hparams)
-from dsjax_torch.model.ds2 import DeepSpeech2
+from dsjax_torch.model.build import build_model
+from dsjax_torch.model.convert import (CONVERT_TOOL, from_reference_state_dict, load_checkpoint,
+                                       model_from_hparams, plain_hparams, spect_cfg_from)
 from dsjax_torch.trace import span
 
 
@@ -103,7 +103,7 @@ class ModelBundle:
     on one card would have no co-residency guarantee). ``device`` is the
     first device, where a batch that does not shard runs and where
     ``forward`` returns its results."""
-    model: DeepSpeech2
+    model: torch.nn.Module
     labels: List[str]
     spect_cfg: SpectConfig
     devices: Any = "cuda"
@@ -112,7 +112,7 @@ class ModelBundle:
         self.devices = local_devices(self.devices)
         if not self.devices:
             raise ValueError("a ModelBundle needs at least one device")
-        self.replicas: Dict[torch.device, DeepSpeech2] = {
+        self.replicas: Dict[torch.device, torch.nn.Module] = {
             dev: copy.deepcopy(self.model).to(dev).eval()
             for dev in dict.fromkeys(self.devices[1:]) if dev != self.device}
         self.replicas[self.device] = self.model.to(self.device).eval()
@@ -170,8 +170,8 @@ class ModelBundle:
                 if carry is not None:
                     raise ValueError("the raw-audio forward starts a new utterance: "
                                      "pass features to carry state")
-                x = spectrogram_torch(_to_device(spect, dev), lens, self.spect_cfg,
-                                      normalize=True)
+                x = features_torch(_to_device(spect, dev), lens, self.spect_cfg,
+                                   normalize=True)
             else:
                 x = _to_device(spect, dev).to(torch.float32)
             return self.replicas[dev](x, lens, carry)
@@ -182,8 +182,9 @@ def load_model(model_path: str, precision: int = 32, device: Any = "cuda",
     """Load a checkpoint written by ``save_checkpoint`` or a reference
     Lightning ``.ckpt``: a reference-layout state_dict with labels and
     spect_cfg among its hyper-parameters (plain data, or omegaconf objects
-    read through ``load_checkpoint``'s stubs). The weights' shapes decide the
-    architecture (rnn_type, widths, direction, Lookahead context). The
+    read through ``load_checkpoint``'s stubs). The weights' shapes decide a
+    DeepSpeech2's architecture (rnn_type, widths, direction, Lookahead
+    context); a Conformer's is its recorded model_cfg. The
     replicas go on ``local_devices(device, num_cpu_devices)``. A dsjax
     checkpoint directory (it holds ``meta.json``) raises: convert it
     first."""
@@ -197,20 +198,13 @@ def load_model(model_path: str, precision: int = 32, device: Any = "cuda",
     ckpt = load_checkpoint(model_path)
     state = ckpt.get("state_dict", ckpt)
     hparams = plain_hparams(ckpt.get("hyper_parameters")) or {}
-    model_cfg, num_classes = infer_architecture(state)
+    model_cfg, num_classes = model_from_hparams(state, hparams)
     labels = hparams.get("labels")
     if not (isinstance(labels, list) and labels and all(isinstance(c, str) for c in labels)):
         labels = list(DEFAULT_LABELS)
-    spect = SpectConfig()
-    sp = hparams.get("spect_cfg")
-    if isinstance(sp, dict):
-        spect = SpectConfig(
-            sample_rate=int(sp.get("sample_rate", spect.sample_rate)),
-            window_size=float(sp.get("window_size", spect.window_size)),
-            window_stride=float(sp.get("window_stride", spect.window_stride)),
-            window=SpectrogramWindow(sp.get("window", spect.window.value)))
+    spect = spect_cfg_from(hparams.get("spect_cfg"))
     dtype = torch.bfloat16 if precision == 16 else torch.float32
-    model = DeepSpeech2(num_classes, spect, model_cfg, dtype=dtype)
+    model = build_model(num_classes, spect, model_cfg, dtype=dtype)
     model.load_state_dict(from_reference_state_dict(state))
     return ModelBundle(model, labels, spect, devices)
 

@@ -16,10 +16,18 @@ stacks the D directions of a layer (2, or 1 for the unidirectional model):
 
 G is 4 for LSTM, 3 for GRU and 1 for the vanilla RNN. BatchNorm entries are
 weight, bias, running_mean and running_var.
+
+The Conformer (``model/conformer.py``) keeps NeMo's names and shapes in the
+port itself (``encoder.pre_encode.*``, ``encoder.layers.{i}.*``,
+``decoder.decoder_layers.0.*``), so its file layout is its state_dict as it
+stands. Its widths cannot all be read from the shapes (the head count), so
+``save_checkpoint`` records the model and front-end configs and
+``model_from_hparams`` reads them back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import pickle
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -27,8 +35,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dsjax_torch.config import (BiDirectionalConfig, RNNType, SpectConfig,
-                                UniDirectionalConfig)
+from dsjax_torch.config import (BiDirectionalConfig, ConformerConfig, LogMelConfig, RNNType,
+                                SpectConfig, SpectrogramWindow, UniDirectionalConfig)
 
 Tensor = torch.Tensor
 
@@ -45,6 +53,11 @@ CONVERT_TOOL = "tools/dsjax_checkpoint_to_torch.py"
 
 def _t(a: Any) -> Tensor:
     return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+
+def is_conformer_state(state: Mapping[str, Any]) -> bool:
+    """Whether a state_dict (either layout) is a Conformer's."""
+    return any(k.startswith("encoder.pre_encode.") for k in state)
 
 
 def infer_architecture(state: Mapping[str, Any]) -> Tuple[BiDirectionalConfig, int]:
@@ -69,7 +82,10 @@ def infer_architecture(state: Mapping[str, Any]) -> Tuple[BiDirectionalConfig, i
 
 
 def from_reference_state_dict(state: Mapping[str, Any]) -> Dict[str, Tensor]:
-    """Reference state_dict (numpy arrays or tensors) -> the port's state_dict."""
+    """Reference state_dict (numpy arrays or tensors) -> the port's state_dict
+    (a Conformer's as it stands, in float32)."""
+    if is_conformer_state(state):
+        return {k: _t(v) for k, v in state.items()}
     model_cfg, _ = infer_architecture(state)
     suffixes = _SUFFIXES[:1] if isinstance(model_cfg, UniDirectionalConfig) else _SUFFIXES
     out: Dict[str, Tensor] = {}
@@ -95,6 +111,8 @@ def from_reference_state_dict(state: Mapping[str, Any]) -> Dict[str, Tensor]:
 
 def to_reference_state_dict(state: Mapping[str, Tensor]) -> Dict[str, Tensor]:
     """The port's state_dict -> the reference layout (inverse of the above)."""
+    if is_conformer_state(state):
+        return {k: v.detach().cpu().contiguous() for k, v in state.items()}
     out: Dict[str, Tensor] = {}
     for conv, ref_conv, bn, ref_bn in _CONVS:
         out[f"{ref_conv}.weight"] = state[f"conv.{conv}.weight"]
@@ -192,13 +210,54 @@ def model_cfg_dict(model_cfg: BiDirectionalConfig) -> Dict[str, Any]:
     """The hyper-parameters ``save_checkpoint`` records beside the weights:
     rnn_type, widths, direction and (unidirectional) the Lookahead context.
     A record for the reader, as in the reference's ``.ckpt`` files: loading
-    reads the architecture from the weights (``infer_architecture``)."""
+    reads the architecture from the weights (``infer_architecture``). A
+    Conformer's is its whole config under ``"model": "conformer"``, which
+    loading reads."""
+    if isinstance(model_cfg, ConformerConfig):
+        return {"model": "conformer", **dataclasses.asdict(model_cfg)}
     out = {"rnn_type": model_cfg.rnn_type.value, "hidden_size": model_cfg.hidden_size,
            "hidden_layers": model_cfg.hidden_layers,
            "bidirectional": not isinstance(model_cfg, UniDirectionalConfig)}
     if isinstance(model_cfg, UniDirectionalConfig):
         out["lookahead_context"] = model_cfg.lookahead_context
     return out
+
+
+def spect_cfg_dict(spect_cfg: SpectConfig) -> Dict[str, Any]:
+    """The front end's config as plain data: the reference's four fields,
+    and for the log-mel front end ``"kind": "logmel"`` and its own two."""
+    out = {"sample_rate": spect_cfg.sample_rate, "window_size": spect_cfg.window_size,
+           "window_stride": spect_cfg.window_stride, "window": spect_cfg.window.value}
+    if isinstance(spect_cfg, LogMelConfig):
+        out.update(kind="logmel", n_fft=spect_cfg.n_fft, features=spect_cfg.features)
+    return out
+
+
+def spect_cfg_from(sp: Any) -> SpectConfig:
+    """``spect_cfg_dict``'s inverse; missing fields take the defaults (a
+    reference ``.ckpt`` holds the four linear fields)."""
+    if not isinstance(sp, dict):
+        return SpectConfig()
+    cls = LogMelConfig if sp.get("kind") == "logmel" else SpectConfig
+    base = cls()
+    kwargs = {f.name: type(getattr(base, f.name))(sp[f.name])
+              for f in dataclasses.fields(cls) if f.name in sp and f.name != "window"}
+    return cls(window=SpectrogramWindow(sp.get("window", base.window.value)), **kwargs)
+
+
+def model_from_hparams(state: Mapping[str, Any], hparams: Mapping[str, Any]
+                       ) -> Tuple[Any, int]:
+    """(model_cfg, num_classes) of a checkpoint: a Conformer's from its
+    recorded config, a DeepSpeech2's from the weights' shapes."""
+    if not is_conformer_state(state):
+        return infer_architecture(state)
+    rec = hparams.get("model_cfg")
+    if not (isinstance(rec, dict) and rec.get("model") == "conformer"):
+        raise ValueError("a Conformer's weights without its model_cfg: the head count cannot "
+                         "be read from the shapes; write the file with save_checkpoint")
+    fields = {f.name for f in dataclasses.fields(ConformerConfig)}
+    cfg = ConformerConfig(**{k: v for k, v in rec.items() if k in fields})
+    return cfg, state["decoder.decoder_layers.0.weight"].shape[0]
 
 
 def save_checkpoint(path: str, state_dict: Mapping[str, Tensor],
@@ -214,10 +273,7 @@ def save_checkpoint(path: str, state_dict: Mapping[str, Tensor],
         "state_dict": to_reference_state_dict(state_dict),
         "hyper_parameters": {
             "labels": list(labels),
-            "spect_cfg": {"sample_rate": spect_cfg.sample_rate,
-                          "window_size": spect_cfg.window_size,
-                          "window_stride": spect_cfg.window_stride,
-                          "window": spect_cfg.window.value},
+            "spect_cfg": spect_cfg_dict(spect_cfg),
             "model_cfg": model_cfg_dict(model_cfg),
         },
     }, path)

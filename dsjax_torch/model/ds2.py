@@ -351,6 +351,12 @@ class DeepSpeech2(nn.Module):
             self.lookahead.weight.uniform_(-limit, limit, generator=generator)
         self.fc.weight.normal_(0.0, self.model_cfg.hidden_size ** -0.5, generator=generator)
 
+    @staticmethod
+    def output_lengths(lengths: Tensor) -> Tensor:
+        """The frame counts ``forward`` returns for ``lengths`` input frames,
+        on the device ``lengths`` is on: the conv stack's rule."""
+        return get_seq_lens(lengths)
+
     def forward(self, x: Tensor, lengths: Tensor,
                 carry: Optional[Sequence[Carry]] = None
                 ) -> Tuple[Tensor, Tensor, List[Carry]]:

@@ -54,6 +54,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from dsjax_torch.config import ConformerConfig
 from dsjax_torch.parallel.mesh import Groups, sharding_rules
 
 Tensor = torch.Tensor
@@ -95,6 +96,16 @@ def _own(t: Tensor, dim: int, groups: Groups) -> Tensor:
     """This rank's block of a whole ``t`` along ``dim``, a tensor of its own."""
     block = t.shape[dim] // groups.model_size
     return t.narrow(dim, groups.model_index * block, block).clone()
+
+
+def refuse_unsharded(model_cfg, mesh_model: int) -> None:
+    """Raise for ``trainer.mesh_model`` > 1 with a model that has no
+    sharding rules (``model=conformer``)."""
+    if mesh_model > 1 and isinstance(model_cfg, ConformerConfig):
+        raise NotImplementedError(
+            f"trainer.mesh_model={mesh_model} shards DeepSpeech2's recurrent and head weights; "
+            f"model=conformer has no tensor-parallel layout: set trainer.mesh_model=1 and "
+            f"train it data-parallel under torchrun")
 
 
 def shard_model(model: nn.Module, groups: Groups) -> None:

@@ -15,7 +15,8 @@ fused into it with ``lm.lm_path`` and ``lm.device_beam=true``), and a
 /stream session carries the beam state from chunk to chunk, so its
 transcript equals a one-shot beam decode of the chunks so far. The host
 beam with an LM (``lm.device_beam=false``) cannot stream: /stream collapses
-greedily for it.
+greedily for it. A Conformer (``model=conformer``) carries no state, so
+/stream refuses it with status 400.
 
     python -m dsjax_torch.server model.model_path=model.pt port=8888 [device=cpu]
         [num_cpu_devices=N]      # N CPU replicas, dsjax's fake CPU devices
@@ -40,7 +41,7 @@ import torch
 from dsjax_torch.audio import native
 from dsjax_torch.audio.features import FeatureExtractor, spectrogram_np
 from dsjax_torch.audio.io import load_audio, resample
-from dsjax_torch.config import ServerConfig, compose_cli
+from dsjax_torch.config import ConformerConfig, ServerConfig, compose_cli
 from dsjax_torch.inference import ModelBundle, decode_results, load_decoder, load_model
 
 ALLOWED_EXTENSIONS = {"wav", "flac"}
@@ -177,11 +178,23 @@ class BatchWorker(threading.Thread):
                 req.error = str(e)
                 req.event.set()
 
+    def stream_refusal(self) -> Optional[str]:
+        """Why /stream cannot serve this model, or None."""
+        if isinstance(getattr(self.bundle.model, "model_cfg", None), ConformerConfig):
+            return ("/stream carries a recurrent model's state from chunk to chunk, and this "
+                    "server's model (model=conformer) has none: post the whole file to "
+                    "/transcribe")
+        return None
+
     def stream_chunk(self, session_id: str, audio: np.ndarray, final: bool) -> dict:
         """Feed one audio chunk into a session; returns the transcript so
         far. The model (RNN carry) and the decoder (greedy collapse, or the
         beam search's carried state) are incremental, so a session's
-        per-chunk work stays O(chunk)."""
+        per-chunk work stays O(chunk). Raises ValueError for a model that
+        cannot stream (``stream_refusal``)."""
+        refusal = self.stream_refusal()
+        if refusal:
+            raise ValueError(refusal)
         blank = self.decoder.blank_index
         with self._sessions_lock:
             sess = self._sessions.setdefault(session_id, _StreamSession(blank))
@@ -276,6 +289,10 @@ def make_handler(worker: BatchWorker, cfg: ServerConfig):
             ctype = self.headers.get("Content-Type", "")
             sr = worker.bundle.spect_cfg.sample_rate
             if url.path == "/stream":
+                refusal = worker.stream_refusal()
+                if refusal:
+                    self._send(400, {"error": refusal})
+                    return
                 q = parse_qs(url.query)
                 session = (q.get("session") or ["default"])[0]
                 final = (q.get("final") or ["0"])[0] in ("1", "true")

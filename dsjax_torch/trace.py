@@ -17,7 +17,12 @@ Names read ``<layer>.<what>``: ``data.stage``, ``data.wait``,
 ``train.put_batch``, ``train.step``, ``train.forward``, ``train.loss``,
 ``train.backward``, ``train.update``, ``infer.forward``, ``beam.decode``
 (``beam.search``, ``beam.fetch``, ``beam.strings``), ``greedy.strings``,
-``eval.score``, ``ddp.agree``, ``ddp.reduce``; ``Trainer.fit`` adds
+``eval.score``, ``ddp.agree``, ``ddp.reduce``, and the Conformer's
+modules (``model/conformer.py``), one span a module call:
+``conformer.subsample``, ``conformer.ffn`` (either half-step FFN),
+``conformer.attention`` (the positional projection, the scores, the
+rel-shift, the softmax, the product with v and the output projection) and
+``conformer.conv``; ``Trainer.fit`` adds
 ``train_step <n>`` around each step of its profile window. A span marks a
 call at a layer boundary, never an iteration of a loop over time steps,
 launches or utterances.

@@ -46,7 +46,7 @@ from dsjax_torch.config import SGDConfig, TrainConfig, to_dict
 from dsjax_torch.model.convert import (CONVERT_TOOL, from_dsjax_params, from_dsjax_variables,
                                        from_reference_state_dict, load_checkpoint,
                                        save_checkpoint)
-from dsjax_torch.model.ds2 import DeepSpeech2
+from dsjax_torch.model.build import build_model
 from dsjax_torch.parallel import distributed, tensor
 from dsjax_torch.train.state import TrainState, make_optimizer
 
@@ -245,7 +245,8 @@ def restore_file(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, An
     if want != got:
         raise ValueError(f"checkpoint {path} does not match the configured model (set "
                          f"model.hidden_size/hidden_layers/rnn_type and model=bidirectional "
-                         f"or unidirectional to the checkpoint's): {got} vs {want}")
+                         f"or unidirectional, or model=conformer and its widths, to the "
+                         f"checkpoint's): {got} vs {want}")
     weights = tensor.own_blocks(state.model, weights)
     if "optimizer" not in ckpt:
         state.model.load_state_dict(weights)
@@ -310,7 +311,7 @@ def from_dsjax_state(path: str, cfg: TrainConfig, labels: Sequence[str],
     if set(moments) != keys:
         raise ValueError(f"optim is {type(cfg.optim).__name__}, whose dsjax state is "
                          f"{sorted(keys)}, but the moments hold {sorted(moments)}")
-    model = DeepSpeech2(len(labels), cfg.data.spect, cfg.model,
+    model = build_model(len(labels), cfg.data.spect, cfg.model,
                         dtype=torch.bfloat16 if cfg.trainer.precision == 16 else torch.float32)
     model.load_state_dict(from_dsjax_variables({"params": params, "batch_stats": batch_stats}))
     optimizer = make_optimizer(model.parameters(), cfg.optim)

@@ -59,14 +59,14 @@ import numpy as np
 import torch
 
 from dsjax_torch.audio.augment import spec_augment_device, step_generator
-from dsjax_torch.audio.features import spectrogram_torch
+from dsjax_torch.audio.features import features_torch
 from dsjax_torch.config import TrainConfig, TrainerConfig
 from dsjax_torch.data.dataset import Batch
 from dsjax_torch.data.loader import DevicePrefetcher, Staged, stage
 from dsjax_torch.decode.greedy import GreedyDecoder
 from dsjax_torch.inference import resolve_device
 from dsjax_torch.model.ctc import ctc_loss
-from dsjax_torch.model.ds2 import DeepSpeech2
+from dsjax_torch.model.build import build_model
 from dsjax_torch.parallel import distributed, tensor
 from dsjax_torch.parallel.mesh import check_mesh, make_groups
 from dsjax_torch.parallel.multihost import agree_count, agree_shapes, sum_ints
@@ -98,6 +98,7 @@ def refuse_unported(cfg: TrainConfig) -> None:
         raise RuntimeError("torchrun's environment is set but this process has not joined "
                            "its group: call dsjax_torch.parallel.distributed.initialize() "
                            "first (workflows.train does)")
+    tensor.refuse_unsharded(cfg.model, tr.mesh_model)
     check_mesh(tr.mesh_data, tr.mesh_model, tr.mesh_dcn, distributed.world_size())
     if distributed.active():
         local = int(os.environ["LOCAL_WORLD_SIZE"])
@@ -163,7 +164,7 @@ class Trainer:
         """A fresh model with weights drawn from ``seed`` (cfg.seed by
         default) and a fresh optimizer."""
         gen = torch.Generator().manual_seed(self.cfg.seed if seed is None else seed)
-        model = DeepSpeech2(len(self.labels), self.cfg.data.spect, self.cfg.model,
+        model = build_model(len(self.labels), self.cfg.data.spect, self.cfg.model,
                             dtype=self.dtype, generator=gen)
         # at mesh_model > 1 each rank keeps its block of the sharded weights
         # (taken before the copy to the card, so only the blocks reach it),
@@ -215,10 +216,11 @@ class Trainer:
         return self._ddp
 
     def _features(self, x: Tensor, input_lengths: Tensor) -> Tensor:
-        """(B, L_pad) raw audio -> (B, F, T) features on the device; host
-        features pass through (dsjax's Trainer._features)."""
+        """(B, L_pad) raw audio -> (B, F, T) features on the device (the
+        config's front end, ``features_torch``); host features pass through
+        (dsjax's Trainer._features)."""
         if x.dim() == 2:
-            return spectrogram_torch(x, input_lengths, self.cfg.data.spect, normalize=True)
+            return features_torch(x, input_lengths, self.cfg.data.spect, normalize=True)
         return x
 
     def _device_augment(self, feats: Tensor, input_lengths: Tensor, step: int) -> Tensor:
@@ -242,7 +244,7 @@ class Trainer:
         micro-batch before the last of an optimizer step); the returned
         loss is the data group's sum over dp, dsjax's ``loss / dp``."""
         staged = staged if staged is not None else self.put_batch(batch)
-        x, input_lengths, targets, target_lengths, valid = staged.wait(self.device)
+        x, input_lengths, targets, _, valid = staged.wait(self.device)
         module = self._module(state)
         state.model.train()
         with (contextlib.nullcontext() if sync or module is state.model else module.no_sync()):
@@ -250,11 +252,17 @@ class Trainer:
                 feats = self._features(x, input_lengths)
                 if x.dim() == 2:  # raw-audio mode: augment on the device, keyed by the step
                     feats = self._device_augment(feats, input_lengths, state.step)
-                out, out_lens, _ = module(feats, input_lengths)
+                out, _, _ = module(feats, input_lengths)
             with span("train.loss"):
                 logp = torch.log_softmax(out.float(), dim=-1)
-                nll = ctc_loss(logp, out_lens, targets, target_lengths, reduction="none",
-                               zero_infinity=True)
+                # the lengths from the host batch, by the model's own rule: torch's
+                # CTC reads them on the host, and reading the device's would hold
+                # the host here until the forward ends, with none of the backward
+                # issued
+                nll = ctc_loss(logp, state.model.output_lengths(
+                    torch.from_numpy(batch.input_lengths)), targets,
+                    torch.from_numpy(batch.target_lengths), reduction="none",
+                    zero_infinity=True)
                 # batch-pad rows (Batch.valid=False) carry zero loss and gradient
                 loss = torch.sum(nll * valid)
             with span("train.backward"):

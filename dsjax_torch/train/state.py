@@ -82,6 +82,8 @@ def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
     clipped = norm >= max_norm
     div = torch.where(clipped, norm, torch.ones_like(norm))
     mul = torch.where(clipped, torch.full_like(norm, max_norm), torch.ones_like(norm))
-    for g in grads:
-        g.div_(div).mul_(mul)
+    # one launch a list, not two a gradient, each as exact as the tensor's own
+    # div_ and mul_: a model of hundreds of tensors would spend its host time here
+    torch._foreach_div_(grads, div)
+    torch._foreach_mul_(grads, mul)
     return norm

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from dsjax_torch.audio.features import stft_params
-from dsjax_torch.config import EvalConfig, TrainConfig, TranscribeConfig
+from dsjax_torch.config import EvalConfig, LogMelConfig, TrainConfig, TranscribeConfig
 from dsjax_torch.data.dataset import SpectrogramDataset
 from dsjax_torch.data.loader import DataPipeline, DevicePrefetcher, stage
 from dsjax_torch.data.sampler import (BucketBatchSampler, DistributedBucketSampler,
@@ -156,7 +156,9 @@ def evaluate(cfg: EvalConfig) -> Tuple[float, float]:
     dev_feats = cfg.device_features
     if dev_feats:
         n_fft, hop, _ = stft_params(bundle.spect_cfg)
-        if n_fft != 2 * hop:  # device framing assumes 50% window overlap
+        # the linear spectrogram's device framing assumes 50% window overlap;
+        # the log-mel front end frames any layout
+        if n_fft != 2 * hop and not isinstance(bundle.spect_cfg, LogMelConfig):
             print("device_features disabled: window overlap != 50%")
             dev_feats = False
     ds = SpectrogramDataset(bundle.spect_cfg, cfg.test_path, bundle.labels,

@@ -390,3 +390,22 @@ def test_fit_profile_writes_a_trace_of_the_window(tmp_path, profile, start, num,
     traces = os.listdir(profiles)
     assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
     assert annotated_steps(profiles / traces[0]) == want
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_clip_scales_each_gradient_as_its_own_div_and_mul(scale):
+    """The clip divides and multiplies the gradients as one list each: the
+    result is the per-tensor ``div_`` and ``mul_``'s bit for bit, under the
+    limit (both factors 1) and over it."""
+    from dsjax_torch.train.state import clip_by_global_norm
+
+    g = torch.Generator().manual_seed(3)
+    grads = [scale * torch.randn(s, generator=g) for s in [(7, 5), (13,), (2, 3, 4)]]
+    want = [t.clone() for t in grads]
+    norm = clip_by_global_norm(grads, 400.0)
+    clipped = bool(norm >= 400.0)
+    assert clipped == (scale > 1)
+    div = norm if clipped else torch.ones_like(norm)
+    mul = torch.full_like(norm, 400.0) if clipped else torch.ones_like(norm)
+    for w, t in zip(want, grads):
+        assert torch.equal(w.div_(div).mul_(mul), t)
