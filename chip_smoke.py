@@ -524,6 +524,7 @@ def reset_counts():
 
     for scan in (lstm, gru):
         scan.LAUNCHES = scan.STEPS = scan.RESIDUAL_LAUNCHES = scan.BWD_LAUNCHES = 0
+        scan.WIDE_PASS_LAUNCHES = 0
     lstm.BWD_RESIDENT_LAUNCHES = 0
     topk.LAUNCHES = beam.LAUNCHES = beam.BACKTRACK_LAUNCHES = mm_chain.LAUNCHES = 0
 
@@ -532,17 +533,24 @@ def read_counts():
     from dsjax_torch.ops import beam, gru, lstm, mm_chain, topk
 
     return {"lstm_fwd": lstm.LAUNCHES, "lstm_steps": lstm.STEPS,
+            "lstm_fwd_wide": lstm.WIDE_PASS_LAUNCHES,
             "lstm_fwd_residuals": lstm.RESIDUAL_LAUNCHES, "lstm_bwd": lstm.BWD_LAUNCHES,
             "lstm_bwd_resident": lstm.BWD_RESIDENT_LAUNCHES, "gru_fwd": gru.LAUNCHES,
-            "gru_steps": gru.STEPS, "gru_fwd_residuals": gru.RESIDUAL_LAUNCHES,
+            "gru_steps": gru.STEPS, "gru_fwd_wide": gru.WIDE_PASS_LAUNCHES,
+            "gru_fwd_residuals": gru.RESIDUAL_LAUNCHES,
             "gru_bwd": gru.BWD_LAUNCHES, "topk": topk.LAUNCHES, "beam_scan": beam.LAUNCHES,
             "beam_backtrack": beam.BACKTRACK_LAUNCHES, "mm_chain": mm_chain.LAUNCHES}
 
 
+# counts of calls that read_counts counts again under their kernel: K3 on
+# its resident route (in lstm_bwd), K1 and K4 in wide f32 passes (in
+# lstm_fwd and gru_fwd)
+RECOUNTED = ("lstm_bwd_resident", "lstm_fwd_wide", "gru_fwd_wide")
+
+
 def launch_sum(counts):
-    """Every kernel launch of ``read_counts`` once: the calls of K3 on its
-    resident route are counted in lstm_bwd too."""
-    return sum(v for k, v in counts.items() if k != "lstm_bwd_resident")
+    """Every kernel launch of ``read_counts`` once."""
+    return sum(v for k, v in counts.items() if k not in RECOUNTED)
 
 
 def phase_serving(torch, np, state, model_cfg, gpu_name):
@@ -1326,6 +1334,10 @@ def phase_evaluation(torch, np, state, model_cfg, gpu_name, full_fp32, defaults_
         c = r["counts"]
         check(c["lstm_fwd"] == layers * batches,
               f"evaluate ({name}): {c['lstm_fwd']} lstm_fwd launches for {batches} batches")
+        # f32 batches of EVAL_BATCH > 8 rows: every K1 call in wide passes
+        check(c["lstm_fwd_wide"] == c["lstm_fwd"],
+              f"evaluate ({name}): {c['lstm_fwd_wide']} of {c['lstm_fwd']} lstm_fwd launches "
+              f"in wide passes")
         check(np.isfinite(r["wer"]) and np.isfinite(r["cer"]), f"evaluate ({name}): {r}")
     steps = runs["greedy"]["counts"]["lstm_steps"] // layers      # output frames, all batches
     # K6 a frame and a ranking a batch on the scan route, K7 a batch on the
@@ -2113,6 +2125,10 @@ def phase_lm_evaluation(torch, np, path, manifest, arpa, model_cfg, gpu_name):
         c = runs[name]["counts"]
         check(c["lstm_fwd"] == layers * batches,
               f"evaluate ({name}): {c['lstm_fwd']} lstm_fwd launches for {batches} batches")
+        # f32 batches of EVAL_BATCH > 8 rows: every K1 call in wide passes
+        check(c["lstm_fwd_wide"] == c["lstm_fwd"],
+              f"evaluate ({name}): {c['lstm_fwd_wide']} of {c['lstm_fwd']} lstm_fwd launches "
+              f"in wide passes")
         check((c["topk"], c["beam_scan"], c["beam_backtrack"]) == (n_topk, n_beam, n_back),
               f"evaluate ({name}): topk {c['topk']}, beam_scan {c['beam_scan']} and "
               f"beam_backtrack {c['beam_backtrack']} launches, expected {n_topk}, {n_beam} and "

@@ -316,9 +316,11 @@ extern "C" int dsjax_torch_gru_fwd_attributes(int is_bf16, int* out) {
 }
 
 // K4's persistent kernel for the working type, with register rows
-// (register_rows > 0, float32 only) or without (persist::attributes).
-extern "C" int dsjax_torch_gru_scan_attributes(int is_bf16, int register_rows, int* out) {
+// (register_rows > 0, float32 only) or without, at `rows` batch rows a pass
+// (persist::attributes).
+extern "C" int dsjax_torch_gru_scan_attributes(int is_bf16, int register_rows, int rows,
+                                                  int* out) {
   if (is_bf16 && register_rows > 0) return cudaErrorInvalidValue;
-  return is_bf16 ? persist::attributes<__nv_bfloat16, GruCell>(false, out)
-                 : persist::attributes<float, GruCell>(register_rows > 0, out);
+  return is_bf16 ? persist::attributes<__nv_bfloat16, GruCell>(false, rows, out)
+                 : persist::attributes<float, GruCell>(register_rows > 0, rows, out);
 }

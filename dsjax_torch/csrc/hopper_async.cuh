@@ -110,12 +110,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The map of a row-major (rows, cols) bf16 matrix at `base` whose boxes are
-// box_cols (one K atom, 64) columns of box_rows rows, written to shared
-// memory in the 128-byte swizzle; columns past `cols` come as zeros. The
-// encoder is fetched from the driver (no link against libcuda).
-inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t cols,
-                                   uint64_t rows, uint32_t box_rows) {
+// cuTensorMapEncodeTiled, fetched once at run time (no link against libcuda).
+inline cudaError_t tensor_map_encoder(EncodeTiled* out) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -126,6 +122,18 @@ inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t 
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// The map of a row-major (rows, cols) bf16 matrix at `base` whose boxes are
+// box_cols (one K atom, 64) columns of box_rows rows, written to shared
+// memory in the 128-byte swizzle; columns past `cols` come as zeros.
+inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t cols,
+                                   uint64_t rows, uint32_t box_rows) {
+  EncodeTiled encode = nullptr;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * 2};
   const cuuint32_t box[2] = {kAtomK, box_rows};
@@ -133,6 +141,27 @@ inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t 
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a row-major (planes, rows, cols) f32 tensor at `base` whose
+// boxes are box_cols columns of box_rows rows of one plane, written to
+// shared memory densely, unswizzled; rows past `rows` and columns past
+// `cols` come as zeros.
+inline cudaError_t f32_tensor_map_3d(CUtensorMap* map, const void* base, uint64_t cols,
+                                     uint64_t rows, uint64_t planes, uint32_t box_cols,
+                                     uint32_t box_rows) {
+  EncodeTiled encode = nullptr;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {cols, rows, planes};
+  const cuuint64_t strides[2] = {cols * 4, rows * cols * 4};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

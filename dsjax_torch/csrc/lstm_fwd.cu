@@ -329,11 +329,13 @@ extern "C" int dsjax_torch_lstm_fwd_attributes(int is_bf16, int* out) {
 }
 
 // K1's persistent kernel for the working type, with register rows
-// (register_rows > 0, float32 only) or without (persist::attributes).
-extern "C" int dsjax_torch_lstm_scan_attributes(int is_bf16, int register_rows, int* out) {
+// (register_rows > 0, float32 only) or without, at `rows` batch rows a pass
+// (persist::attributes).
+extern "C" int dsjax_torch_lstm_scan_attributes(int is_bf16, int register_rows, int rows,
+                                                  int* out) {
   if (is_bf16 && register_rows > 0) return cudaErrorInvalidValue;
-  return is_bf16 ? persist::attributes<__nv_bfloat16, LstmCell>(false, out)
-                 : persist::attributes<float, LstmCell>(register_rows > 0, out);
+  return is_bf16 ? persist::attributes<__nv_bfloat16, LstmCell>(false, rows, out)
+                 : persist::attributes<float, LstmCell>(register_rows > 0, rows, out);
 }
 
 extern "C" const char* dsjax_torch_error_string(int err) {

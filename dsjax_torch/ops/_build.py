@@ -112,7 +112,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dsjax_torch_lstm_fwd.restype = i
     lib.dsjax_torch_lstm_fwd_attributes.argtypes = [i, p]
     lib.dsjax_torch_lstm_fwd_attributes.restype = i
-    lib.dsjax_torch_lstm_scan_attributes.argtypes = [i, i, p]
+    lib.dsjax_torch_lstm_scan_attributes.argtypes = [i, i, i, p]
     lib.dsjax_torch_lstm_scan_attributes.restype = i
     lib.dsjax_torch_lstm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p,
                                          p]
@@ -125,7 +125,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dsjax_torch_gru_fwd.restype = i
     lib.dsjax_torch_gru_fwd_attributes.argtypes = [i, p]
     lib.dsjax_torch_gru_fwd_attributes.restype = i
-    lib.dsjax_torch_gru_scan_attributes.argtypes = [i, i, p]
+    lib.dsjax_torch_gru_scan_attributes.argtypes = [i, i, i, p]
     lib.dsjax_torch_gru_scan_attributes.restype = i
     lib.dsjax_torch_gru_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsjax_torch_gru_bwd.restype = i

@@ -56,17 +56,19 @@ from dsjax_torch.ops import _build
 from dsjax_torch.ops._card import plan_array, sm_count
 from dsjax_torch.ops.lstm import (ScanPlan, _carried_h_prev, _flip, _reverse_bits,
                                   check_aligned, check_pairs, check_reverse_scan, check_scan,
-                                  persistent_attributes, scan_plan)
+                                  persistent_attributes, scan_plan, wide_pass)
 
 Tensor = torch.Tensor
 
 # wrapper calls on CUDA tensors so far, one per call of a C entry point,
 # which covers every direction of a layer: LAUNCHES for K4 (one kernel
 # launch a call with n_t > 0, none at n_t = 0; STEPS counts the time steps
-# those calls scanned), RESIDUAL_LAUNCHES for K4 with residuals,
-# BWD_LAUNCHES for K5
+# those calls scanned; of those, WIDE_PASS_LAUNCHES the f32 calls whose
+# plan takes more than 8 batch rows a pass), RESIDUAL_LAUNCHES for K4 with
+# residuals, BWD_LAUNCHES for K5
 LAUNCHES = 0
 STEPS = 0
+WIDE_PASS_LAUNCHES = 0
 RESIDUAL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
@@ -166,7 +168,7 @@ def gru_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tenso
     device), and K4 on a CUDA tensor xp on a 16-byte boundary. K4 is one
     cooperative launch of ``scan_plan``'s grid; where the card cannot hold
     that grid at once (another process holding SMs) it raises."""
-    global LAUNCHES, STEPS, RESIDUAL_LAUNCHES
+    global LAUNCHES, STEPS, RESIDUAL_LAUNCHES, WIDE_PASS_LAUNCHES
     if save_residuals:
         check_pairs({"xp": xp, "b_hh": b_hh})
     if xp.device.type == "cpu":
@@ -206,6 +208,7 @@ def gru_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tenso
         else:
             LAUNCHES += 1
             STEPS += n_t
+            WIDE_PASS_LAUNCHES += wide_pass(plan, xp.dtype)
     out = (y, h[n_t % 2])
     return out + (g_seq,) if save_residuals else out
 

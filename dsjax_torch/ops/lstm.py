@@ -62,11 +62,13 @@ Tensor = torch.Tensor
 # wrapper calls on CUDA tensors so far, one per call of a C entry point,
 # which covers every direction of a layer: LAUNCHES for K1 (one kernel
 # launch a call with n_t > 0, none at n_t = 0; STEPS counts the time steps
-# those calls scanned), RESIDUAL_LAUNCHES for K2, BWD_LAUNCHES for K3, and
-# of those BWD_RESIDENT_LAUNCHES the calls that took K3's resident route
-# (``bwd_plan``: one kernel launch a call)
+# those calls scanned; of those, WIDE_PASS_LAUNCHES the f32 calls whose
+# plan takes more than 8 batch rows a pass), RESIDUAL_LAUNCHES for K2,
+# BWD_LAUNCHES for K3, and of those BWD_RESIDENT_LAUNCHES the calls that
+# took K3's resident route (``bwd_plan``: one kernel launch a call)
 LAUNCHES = 0
 STEPS = 0
+WIDE_PASS_LAUNCHES = 0
 RESIDUAL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_RESIDENT_LAUNCHES = 0
@@ -79,11 +81,22 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 # what scan_persist.cuh takes: column tiles of 8 units (one a warp), ring
 # stages, chunk widths in bytes; register rows (f32): the last gate's rows of
-# a CTA of 16 units, read in 1024-byte chunks, at most 4 of them (H <= 1024)
+# a CTA of 16 units, at most 4096 bytes of each (H <= 1024), read in
+# 1024-byte chunks up to 12 rows a pass and in 512-byte chunks at 16 and 20;
+# batch rows a pass: bf16 16 (one m16 tile), f32 8 or a wide pass of 12, 16
+# or 20 (the kernel's builds)
 _WARPS = 8
 _MAX_STAGES = 5
 _CHUNK_BYTES = (2048, 1024, 512, 256, 128, 64, 32)
-_REG_UNITS, _REG_CHUNK, _REG_CHUNKS = 16, 1024, 4
+_REG_UNITS, _REG_BYTES = 16, 4096
+_BF16_ROWS = 16
+_F32_ROWS = (8, 12, 16, 20)
+_BAR_BYTES = 48   # a wide pass's mbarriers, one a ring stage
+_TMA_ALIGN = 128  # where a wide pass's ring starts
+
+
+def _reg_chunk(rows: int) -> int:
+    return 1024 if rows <= 12 else 512
 
 
 class ScanPlan(NamedTuple):
@@ -91,7 +104,8 @@ class ScanPlan(NamedTuple):
     ``persist::Plan``, in this order): hidden units a CTA, CTAs a direction,
     the W_hh rows a CTA keeps in shared memory, those it streams from L2
     each step and those it keeps in registers, ring stages, the ring's chunk
-    of a row in bytes, and the shared memory a CTA."""
+    of a row in bytes, the shared memory a CTA, and the batch rows a pass
+    (the step product's rows at once)."""
 
     units: int
     ctas: int
@@ -101,23 +115,32 @@ class ScanPlan(NamedTuple):
     stages: int
     chunk_bytes: int
     smem_bytes: int
+    pass_rows: int
 
 
 def _plan_smem(gates: int, esize: int, n_h: int, n_b: int, units: int, resident: int,
-               streamed: int, stages: int, chunk: int) -> int:
+               streamed: int, stages: int, chunk: int, rows: int) -> int:
     """Shared memory a CTA, as ``persist::layout`` sums it: resident rows,
     the ring (each stage a chunk of the pass's h rows and of the streamed
-    rows), the K splits' partial sums, xp's columns, the mask, b_hh's
-    columns, and the h (and c) of the CTA's own units for every batch row.
-    The register rows take none."""
-    rows = 16 if esize == 2 else 8
+    rows, each row padded by 16 bytes), the K splits' partial sums, xp's
+    columns, the mask, b_hh's columns, and the h (and c) of the CTA's own
+    units for every batch row. A wide f32 pass (more than 8 rows) starts
+    its ring's stages on 128 bytes, leaves its rows unpadded (tensor copies
+    write them), keeps its partial sums over the ring and adds the ring's
+    mbarriers. The register rows take none."""
     cols, tiles = gates * units, units // 8
     r16 = lambda x: -(-x // 16) * 16
     n_state = 2 if gates == 4 else 1
-    return (resident * (n_h * esize + 16) + stages * (rows + streamed) * (chunk + 16)
-            + (_WARPS // tiles) * rows * cols * 4
+    wide = esize == 4 and rows > 8
+    r128 = lambda x: -(-x // _TMA_ALIGN) * _TMA_ALIGN
+    ring = stages * (r128((rows + streamed) * chunk) if wide else (rows + streamed) * (chunk + 16))
+    part = (_WARPS // tiles) * rows * cols * 4
+    resident_bytes = resident * (n_h * esize + 16)
+    if wide:
+        resident_bytes = r128(resident_bytes)
+    return (resident_bytes + (max(ring, part) if wide else ring + part)
             + r16(rows * cols * esize) + r16(rows * 4) + r16(cols * 4)
-            + n_state * n_b * units * 4)
+            + n_state * n_b * units * 4 + (_BAR_BYTES if wide else 0))
 
 
 def scan_plan(n_dir: int, n_h: int, gates: int, dtype: torch.dtype, n_b: int,
@@ -127,13 +150,17 @@ def scan_plan(n_dir: int, n_h: int, gates: int, dtype: torch.dtype, n_b: int,
     units a CTA the least multiple of 8 with D * ceil(H / units) <= SMs;
     every W_hh row resident where all fit a CTA, with the ring's chunk and
     stages that keep the most bytes of h in flight (then the fewest
-    chunks). Else, in f32 at 16 units a CTA and H <= 1024, the last gate's
-    16 rows in registers and the others resident as above in 1024-byte
-    chunks, or as many as fit beside a 2-stage ring; else as many rows as
-    fit beside a 2-stage ring of 512-byte chunks (narrower where that does
-    not fit). What is not kept is streamed. Raises ValueError where no plan
-    fits (more than 8 column tiles of 8 units a CTA, or the shared memory).
-    Pure: the CPU tests reach it."""
+    chunks; a wide f32 pass the fewest chunks first). Else, in f32 at 16
+    units a CTA and H <= 1024, the last gate's 16 rows in registers and the
+    others resident as above (in 1024-byte chunks up to 12 rows a pass,
+    512-byte ones at 16 and 20), or as many as fit beside a 2-stage ring;
+    else as many rows as fit beside a 2-stage ring of 512-byte chunks
+    (narrower where that does not fit). What is not kept is streamed. Rows a pass: 16 in bf16; in f32 8 up to B = 8, and
+    past it, of the row counts the kernel is built for, the plan that
+    streams the fewest W_hh rows, then takes the fewest passes, then the
+    fewest rows a pass. Raises ValueError where no plan fits (more than 8
+    column tiles of 8 units a CTA, or the shared memory). Pure: the CPU
+    tests reach it."""
     if dtype not in DTYPES:
         raise TypeError(f"dtype {dtype} is not one of {DTYPES}")
     if n_h <= 0 or n_h % 8:
@@ -145,18 +172,38 @@ def scan_plan(n_dir: int, n_h: int, gates: int, dtype: torch.dtype, n_b: int,
         raise ValueError(f"no plan: {units} units a CTA ({n_dir} directions of {n_h} on "
                          f"{sm_count} SMs) pass {_WARPS} column tiles of 8")
     esize = 2 if dtype == torch.bfloat16 else 4
+    if esize == 2:
+        found = [_plan_at(n_h, gates, esize, n_b, units, _BF16_ROWS)]
+    elif n_b <= _F32_ROWS[0]:
+        found = [_plan_at(n_h, gates, esize, n_b, units, _F32_ROWS[0])]
+    else:
+        found = [_plan_at(n_h, gates, esize, n_b, units, rows) for rows in _F32_ROWS]
+    found = [p for p in found if p is not None]
+    if not found:
+        raise ValueError(f"no plan: {n_dir} x H={n_h} with {gates} gates at B={n_b} in "
+                         f"{dtype} does not fit {SMEM_LIMIT} bytes of shared memory a CTA")
+    return min(found, key=lambda p: (p.streamed_rows, -(-n_b // p.pass_rows), p.pass_rows))
+
+
+def _plan_at(n_h: int, gates: int, esize: int, n_b: int, units: int,
+             rows: int) -> Optional[ScanPlan]:
+    """``scan_plan``'s layout at ``rows`` batch rows a pass, or None where
+    none fits."""
     cols, row_bytes = gates * units, n_h * esize
     row32 = -(-row_bytes // 32) * 32
+    wide = esize == 4 and rows > 8
 
     def plan(r, reg, st, ch):
         streamed = cols - reg - r
         return ScanPlan(units, -(-n_h // units), r, streamed, reg, st, ch,
-                        _plan_smem(gates, esize, n_h, n_b, units, r, streamed, st, ch))
+                        _plan_smem(gates, esize, n_h, n_b, units, r, streamed, st, ch, rows),
+                        rows)
 
     def resident_all(reg, chunks):
         # every row not in registers resident: the chunk and stages that
         # keep the most bytes of h in flight, then the fewest chunks (a
-        # single chunk takes one stage)
+        # single chunk takes one stage); a wide pass takes the fewest
+        # chunks first (each chunk costs the CTA a barrier and a wait)
         fits = []
         for chunk in chunks:
             chunk = min(chunk, row32)
@@ -164,28 +211,31 @@ def scan_plan(n_dir: int, n_h: int, gates: int, dtype: torch.dtype, n_b: int,
             for stages in range(1 if n_chunks == 1 else 2, _MAX_STAGES + 1):
                 ahead = min(max(1, stages - 1), n_chunks)
                 if plan(cols - reg, reg, stages, chunk).smem_bytes <= SMEM_LIMIT:
-                    fits.append((-ahead * chunk, n_chunks, stages, chunk))
+                    key = (-ahead * chunk, n_chunks)
+                    fits.append((key[::-1] if wide else key) + (stages, chunk))
         return plan(cols - reg, reg, *min(fits)[2:]) if fits else None
 
     def resident_most(reg, chunk):
-        # as many rows resident as fit beside a 2-stage ring, or None
+        # as many rows resident as fit beside a 2-stage ring, or None; a
+        # row moved from the ring saves its 2 chunks there (the partial
+        # sums over the ring can take some of that back)
         streamed_all = plan(0, reg, 2, chunk).smem_bytes
-        per_row = n_h * esize + 16 - 2 * (chunk + 16)   # a row moved from the ring
+        per_row = n_h * esize + 16 - 2 * (chunk + 16)
         if streamed_all > SMEM_LIMIT or per_row <= 0:
             return None
-        return plan(min(cols - reg, (SMEM_LIMIT - streamed_all) // per_row), reg, 2, chunk)
+        r = min(cols - reg, (SMEM_LIMIT - streamed_all) // per_row)
+        while plan(r, reg, 2, chunk).smem_bytes > SMEM_LIMIT:
+            r -= 1
+        return plan(r, reg, 2, chunk)
 
-    found = resident_all(0, _CHUNK_BYTES)
+    found = resident_all(0, _CHUNK_BYTES[1:] if wide else _CHUNK_BYTES)   # a box: 1024 bytes
+    reg_chunk = _reg_chunk(rows)
     if found is None and (esize == 4 and units == _REG_UNITS
-                          and _REG_CHUNK <= row32 and row_bytes <= _REG_CHUNKS * _REG_CHUNK):
-        found = (resident_all(_REG_UNITS, (_REG_CHUNK,))
-                 or resident_most(_REG_UNITS, _REG_CHUNK))
+                          and reg_chunk <= row32 and row_bytes <= _REG_BYTES):
+        found = resident_all(_REG_UNITS, (reg_chunk,)) or resident_most(_REG_UNITS, reg_chunk)
     for chunk in _CHUNK_BYTES[_CHUNK_BYTES.index(512):]:
         if found is None:
             found = resident_most(0, min(chunk, row32))
-    if found is None:
-        raise ValueError(f"no plan: {n_dir} x H={n_h} with {gates} gates at B={n_b} in "
-                         f"{dtype} does not fit {SMEM_LIMIT} bytes of shared memory a CTA")
     return found
 
 
@@ -472,7 +522,7 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
     every device), and K1 on a CUDA tensor xp on a 16-byte boundary. K1 is
     one cooperative launch of ``scan_plan``'s grid; where the card cannot
     hold that grid at once (another process holding SMs) it raises."""
-    global LAUNCHES, STEPS, RESIDUAL_LAUNCHES
+    global LAUNCHES, STEPS, RESIDUAL_LAUNCHES, WIDE_PASS_LAUNCHES
     if save_residuals:
         check_pairs({"xp": xp, "b_hh": b_hh})
     if xp.device.type == "cpu":
@@ -519,8 +569,14 @@ def lstm_scan_fwd(xp: Tensor, mask: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tens
         else:
             LAUNCHES += 1
             STEPS += n_t
+            WIDE_PASS_LAUNCHES += wide_pass(plan, xp.dtype)
     out = (y, h[n_t % 2], c[n_t % 2])
     return out + (g_seq, c_seq) if save_residuals else out
+
+
+def wide_pass(plan: ScanPlan, dtype: torch.dtype) -> bool:
+    """Whether an f32 plan takes more than 8 batch rows a pass."""
+    return dtype == torch.float32 and plan.pass_rows > _F32_ROWS[0]
 
 
 def check_aligned(name: str, t: Tensor) -> None:
@@ -636,9 +692,11 @@ def persistent_attributes(entry: str, dtype: torch.dtype, plan: ScanPlan) -> dic
     plan's shared memory, units and CTAs a direction, its W_hh rows a CTA
     by where they stay, and the share of them kept on the SM (in shared
     memory or registers) for the whole call."""
-    attrs = _build.kernel_attributes(entry, dtype == torch.bfloat16, plan.register_rows)
+    attrs = _build.kernel_attributes(entry, dtype == torch.bfloat16, plan.register_rows,
+                                     plan.pass_rows)
     rows = plan.resident_rows + plan.streamed_rows + plan.register_rows
     attrs.update(dynamic_smem_bytes=plan.smem_bytes, units=plan.units, ctas=plan.ctas,
+                 pass_rows=plan.pass_rows,
                  resident_rows=plan.resident_rows, streamed_rows=plan.streamed_rows,
                  register_rows=plan.register_rows,
                  resident_share=(plan.resident_rows + plan.register_rows) / rows)

@@ -828,19 +828,21 @@ def test_mm_chain_kernel_fits_its_plan(full_fp32, b):
 # ---------------------------------------------------------------------------
 
 # (T, B, H, reverse, suffix mask and a zero-length row): the flagship's width
-# (the f32 LSTM's last gate in registers), its evaluation batch (B = 20:
-# three passes over the registers), a unit edge inside the last CTA (H=1032:
-# 65 CTAs of 16 units, the last with 8, f32 LSTM rows streamed; H=1000: the
-# last of 63 CTAs with 8 units and a short last chunk, with register rows),
-# B = 1, 20 and 64 (more passes over the resident rows; at H=1024 the f32
-# LSTM streams 2 rows beside its registers), T = 0 and 1, one direction
-# under a suffix mask
+# (the f32 LSTM's last gate in registers), its evaluation batch (B = 20: one
+# f32 pass of 20 rows over the registers), a unit edge inside the last CTA
+# (H=1032: 65 CTAs of 16 units, the last with 8, f32 LSTM rows streamed;
+# H=1000: the last of 63 CTAs with 8 units and a short last chunk, with
+# register rows, in a pass of 12 rows), B = 1, 20 and 64 (more passes over
+# the resident rows; at H=1024 f32 in four of 16), T = 0 and 1, one
+# direction under a suffix mask, and B = 160 (the f32 LSTM streams 3 rows
+# beside its registers, in passes of 16)
 PERSISTENT_SHAPES = [
     (40, 8, 1024, (False, True), False), (6, 20, 1024, (False, True), False),
     (9, 5, 1032, (False, True), False), (11, 9, 1000, (False, True), False),
     (10, 1, 128, (True,), False), (12, 20, 256, (False, True), False),
     (7, 64, 1024, (False, True), False), (0, 4, 64, (False, True), False),
-    (1, 3, 64, (False, True), False), (33, 6, 1024, (False,), True)]
+    (1, 3, 64, (False, True), False), (33, 6, 1024, (False,), True),
+    (5, 160, 1024, (False, True), False)]
 
 
 def scan_case(rnn, shape, dtype):
@@ -895,6 +897,55 @@ def test_persistent_scan_kernel_fits_its_plan(full_fp32, rnn, n_dir, dtype):
     assert attrs["register_rows"] == (16 if in_registers else 0)
     assert attrs["streamed_rows"] == 0 and attrs["resident_share"] == 1.0
     assert attrs["resident_rows"] + attrs["register_rows"] == gates * attrs["units"]
+
+
+# f32 at the batch edges of the plan's rows a pass (H=1024): one pass of 8
+# rows up to B = 8, B = 9 one of 12, 17 and 20 one of 20, 24 two of 12, 40
+# two of 20
+WIDE_BATCHES = [1, 8, 9, 17, 20, 24, 40]
+
+
+@pytest.mark.parametrize("n_b", WIDE_BATCHES)
+@pytest.mark.parametrize("reverse", [(False, True), (True,)], ids=["2 dir", "1 dir"])
+@pytest.mark.parametrize("rnn", ["lstm", "gru"])
+def test_persistent_scan_takes_the_batch_in_wide_f32_passes(full_fp32, rnn, reverse, n_b):
+    """K1 and K4 in f32 with ragged lengths, both directions (the LSTM's
+    last gate in registers) and one: every output against the plain loop,
+    and WIDE_PASS_LAUNCHES counting the calls whose plan takes more than 8
+    rows a pass (those past B = 8)."""
+    T, H = 23, 1024
+    mod, args = scan_case(rnn, (T, n_b, H, reverse, False), torch.float32)
+    scan = mod.lstm_scan if rnn == "lstm" else mod.gru_scan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = lstm.scan_plan(len(reverse), H, 4 if rnn == "lstm" else 3, torch.float32, n_b, sms)
+    assert (plan.pass_rows > 8) == (n_b > 8)
+    before = (mod.LAUNCHES, mod.WIDE_PASS_LAUNCHES)
+    out = scan(*args, reverse)
+    torch.cuda.synchronize()
+    assert (mod.LAUNCHES, mod.WIDE_PASS_LAUNCHES) == (before[0] + 1, before[1] + (n_b > 8))
+    ref = (mod.lstm_scan_reference if rnn == "lstm" else mod.gru_scan_reference)(*args, reverse)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("n_b", [9, 13, 20, 160])
+@pytest.mark.parametrize("n_dir", [2, 1])
+@pytest.mark.parametrize("rnn", ["lstm", "gru"])
+def test_persistent_scan_wide_passes_fit_their_plans(full_fp32, rnn, n_dir, n_b):
+    """The f32 kernels of 12, 16 and 20 rows a pass, with register rows
+    (the LSTM, two directions) and without: one CTA an SM within 227 KB,
+    no local memory."""
+    from dsjax_torch.ops import gru
+
+    mod, gates = (lstm, 4) if rnn == "lstm" else (gru, 3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = lstm.scan_plan(n_dir, 1024, gates, torch.float32, n_b, sms)
+    assert plan.pass_rows > 8
+    attrs = mod.scan_kernel_attributes(torch.float32, plan)
+    assert attrs["local_bytes"] == 0 and 0 < attrs["registers"] <= 255
+    assert attrs["static_smem_bytes"] + attrs["dynamic_smem_bytes"] <= 232448
+    assert attrs["pass_rows"] == plan.pass_rows
+    assert attrs["register_rows"] == (16 if rnn == "lstm" and n_dir == 2 else 0)
 
 
 def test_persistent_scan_beside_a_second_stream(full_fp32):

@@ -296,21 +296,32 @@ def test_full_width_models_match_the_golden_fixture(name):
     (2, 1024, torch.float32, 8, 132), (1, 1024, torch.float32, 1, 132),
     (1, 1024, torch.bfloat16, 8, 132), (2, 1024, torch.float32, 64, 132),
     (2, 1032, torch.bfloat16, 20, 132), (2, 4096, torch.float32, 64, 132),
-    (1, 4096, torch.bfloat16, 8, 132), (2, 2048, torch.float32, 8, 100)])
+    (1, 4096, torch.bfloat16, 8, 132), (2, 2048, torch.float32, 8, 100),
+    # f32 past 8 rows: wider passes
+    (2, 1024, torch.float32, 9, 132), (2, 1024, torch.float32, 16, 132),
+    (2, 1024, torch.float32, 20, 132), (2, 1024, torch.float32, 24, 132),
+    (2, 1024, torch.float32, 40, 132), (1, 1024, torch.float32, 20, 132),
+    (2, 1032, torch.float32, 17, 132)])
 def test_scan_plan_covers_every_unit_and_fits_a_cta(n_dir, n_h, dtype, n_b, sms):
     from tests.test_torch_lstm import check_plan
 
-    check_plan(lstm.scan_plan(n_dir, n_h, 3, dtype, n_b, sms), n_dir, n_h, 3, dtype, sms)
+    check_plan(lstm.scan_plan(n_dir, n_h, 3, dtype, n_b, sms), n_dir, n_h, 3, dtype, sms, n_b)
 
 
 def test_scan_plan_at_the_flagship_width():
     """H=1024 on 132 SMs: the BiGRU keeps all 48 rows of a CTA resident in
-    f32 and bf16; the streaming model's one direction takes 8 units a CTA."""
+    f32 and bf16, and in f32 takes an evaluation batch of 20 rows in one
+    pass (8 rows a pass up to B = 8); the streaming model's one direction
+    takes 8 units a CTA."""
     for dtype in (torch.float32, torch.bfloat16):
         plan = lstm.scan_plan(2, 1024, 3, dtype, 8, 132)
         assert (plan.units, plan.ctas, plan.streamed_rows) == (16, 64, 0)
     one = lstm.scan_plan(1, 1024, 3, torch.float32, 1, 132)
     assert (one.units, one.ctas, one.streamed_rows) == (8, 128, 0)
+    assert lstm.scan_plan(2, 1024, 3, torch.float32, 8, 132).pass_rows == 8
+    for n_dir in (2, 1):
+        wide = lstm.scan_plan(n_dir, 1024, 3, torch.float32, 20, 132)
+        assert (wide.pass_rows, wide.streamed_rows, wide.register_rows) == (20, 0, 0)
 
 
 @pytest.mark.parametrize("n_dir,n_h,n_b,sms,match", [

@@ -223,14 +223,28 @@ PLAN_CASES = [
     (1, 4096, torch.float32, 64, 132), (2, 8, torch.bfloat16, 1, 132),
     (2, 1024, torch.float32, 8, 114), (1, 2048, torch.bfloat16, 20, 78),
     (2, 1000, torch.float32, 9, 132)]
+# f32 past 8 rows, where the plan takes wider passes: the batch edges of its
+# row counts, the evaluation batch, two passes of 12 and of 20, validation,
+# with two directions (register rows) and one, at a unit edge and with the
+# wider register chunk at H < 1024
+WIDE_PLAN_CASES = [
+    (2, 1024, torch.float32, 9, 132), (2, 1024, torch.float32, 16, 132),
+    (2, 1024, torch.float32, 20, 132), (2, 1024, torch.float32, 24, 132),
+    (2, 1024, torch.float32, 40, 132), (2, 1024, torch.float32, 64, 132),
+    (1, 1024, torch.float32, 20, 132), (1, 1024, torch.float32, 40, 132),
+    (2, 1032, torch.float32, 20, 132), (2, 1000, torch.float32, 20, 132),
+    (2, 1024, torch.float32, 160, 132), (2, 4096, torch.float32, 20, 132)]
 
 
-def check_plan(plan, n_dir, n_h, gates, dtype, sms):
+def check_plan(plan, n_dir, n_h, gates, dtype, sms, n_b=None):
     """Every unit owned by exactly one CTA, at most one CTA an SM, the
     shared memory within what a CTA may take, every gate row resident,
-    streamed or in registers (only the last gate's 16 rows, in f32, read in
-    at most four 1024-byte chunks), and a ring of one stage only for a
-    single chunk."""
+    streamed or in registers (only the last gate's 16 rows, in f32, at most
+    4096 bytes of each, read in 1024-byte chunks up to 12 rows a pass and
+    in 512-byte ones at 16 and 20), a ring of one stage only for a single
+    chunk, and rows a pass that the kernel is built for: 16 in bf16, 8 in
+    f32 up to B = 8, else 8, 12, 16 or 20 (past 8, chunks of at most 1024
+    bytes)."""
     owners = np.arange(n_h) // plan.units
     assert np.array_equal(np.unique(owners), np.arange(plan.ctas))
     assert plan.units % 8 == 0 and n_dir * plan.ctas <= sms
@@ -238,32 +252,76 @@ def check_plan(plan, n_dir, n_h, gates, dtype, sms):
     assert plan.resident_rows + plan.streamed_rows + plan.register_rows == gates * plan.units
     assert min(plan.resident_rows, plan.streamed_rows) >= 0
     assert plan.register_rows in (0, plan.units)
+    if dtype == torch.bfloat16:
+        assert plan.pass_rows == 16
+    else:
+        assert plan.pass_rows in (8, 12, 16, 20)
+        assert n_b is None or n_b > 8 or plan.pass_rows == 8
+        assert plan.pass_rows == 8 or plan.chunk_bytes <= 1024   # a tensor copy's box
     if plan.register_rows:
-        assert dtype == torch.float32 and plan.units == 16 and plan.chunk_bytes == 1024
+        assert dtype == torch.float32 and plan.units == 16
+        assert plan.chunk_bytes == (1024 if plan.pass_rows <= 12 else 512)
         assert n_h * 4 <= 4 * 1024
     n_chunks = -(-n_h * (2 if dtype == torch.bfloat16 else 4) // plan.chunk_bytes)
     assert 1 <= plan.stages <= 5 and plan.chunk_bytes % 32 == 0
     assert plan.stages >= 2 or n_chunks == 1
 
 
-@pytest.mark.parametrize("n_dir,n_h,dtype,n_b,sms", PLAN_CASES)
+@pytest.mark.parametrize("n_dir,n_h,dtype,n_b,sms", PLAN_CASES + WIDE_PLAN_CASES)
 def test_scan_plan_covers_every_unit_and_fits_a_cta(n_dir, n_h, dtype, n_b, sms):
-    check_plan(lstm.scan_plan(n_dir, n_h, 4, dtype, n_b, sms), n_dir, n_h, 4, dtype, sms)
+    check_plan(lstm.scan_plan(n_dir, n_h, 4, dtype, n_b, sms), n_dir, n_h, 4, dtype, sms, n_b)
+
+
+# the plans that scan_plan gave before it chose the rows a pass, field for
+# field (the rows a pass last): f32 up to B = 8 and bf16 at any B keep them
+# (gates, directions, H, dtype, B, SMs) -> plan
+KEPT_PLANS = {
+    (4, 2, 1024, torch.float32, 8, 132): (16, 64, 48, 0, 16, 2, 1024, 225568, 8),
+    (4, 2, 1024, torch.float32, 1, 132): (16, 64, 48, 0, 16, 2, 1024, 224672, 8),
+    (4, 1, 1024, torch.float32, 8, 132): (8, 128, 32, 0, 0, 3, 2048, 191008, 8),
+    (4, 2, 1032, torch.float32, 5, 132): (16, 65, 47, 17, 0, 2, 512, 232336, 8),
+    (3, 2, 1024, torch.float32, 8, 132): (16, 64, 48, 0, 0, 3, 1024, 230752, 8),
+    (3, 1, 1024, torch.float32, 1, 132): (8, 128, 24, 0, 0, 3, 2048, 155296, 8),
+    (4, 2, 1024, torch.bfloat16, 20, 132): (16, 64, 64, 0, 0, 1, 2048, 186432, 16),
+    (3, 2, 1024, torch.bfloat16, 64, 132): (16, 64, 48, 0, 0, 1, 2048, 150272, 16)}
+
+
+@pytest.mark.parametrize("case", list(KEPT_PLANS), ids=lambda c: "-".join(map(str, c)))
+def test_scan_plan_up_to_8_rows_and_in_bf16_is_kept(case):
+    gates, n_dir, n_h, dtype, n_b, sms = case
+    assert tuple(lstm.scan_plan(n_dir, n_h, gates, dtype, n_b, sms)) == KEPT_PLANS[case]
+
+
+@pytest.mark.parametrize("n_b,rows", [(1, 8), (8, 8), (9, 12), (12, 12), (13, 16), (17, 20),
+                                      (20, 20), (24, 12), (40, 20), (64, 16)])
+def test_scan_plan_takes_the_fewest_passes_in_f32(n_b, rows):
+    """Past 8 rows an f32 plan takes the fewest passes over the batch, then
+    the fewest rows a pass (B = 24 two of 12, not two of 20), keeping every
+    W_hh row on the SM (B = 64: four passes of 16, where 8 rows a pass
+    streamed one row)."""
+    plan = lstm.scan_plan(2, 1024, 4, torch.float32, n_b, 132)
+    assert plan.pass_rows == rows
+    assert (plan.resident_rows, plan.streamed_rows, plan.register_rows) == (48, 0, 16)
 
 
 def test_scan_plan_at_the_flagship_width():
     """H=1024 on 132 SMs: two directions take 16 units a CTA, 64 CTAs each;
     a CTA's 64 f32 rows do not fit its shared memory, so the last gate's 16
-    stay in registers and the serving and evaluation batches stream none
-    (validation's B=64 streams 2); bf16 keeps them all resident; one
-    direction takes 8 units a CTA."""
+    stay in registers and the serving, evaluation and validation batches
+    stream none (B=160 streams one); the evaluation batch of 20 rows is one
+    pass; bf16 keeps them all resident; one direction takes 8 units a
+    CTA."""
     f32 = lstm.scan_plan(2, 1024, 4, torch.float32, 8, 132)
     bf16 = lstm.scan_plan(2, 1024, 4, torch.bfloat16, 8, 132)
     one = lstm.scan_plan(1, 1024, 4, torch.float32, 8, 132)
     assert (f32.units, f32.ctas, bf16.units, bf16.ctas) == (16, 64, 16, 64)
     assert (f32.resident_rows, f32.streamed_rows, f32.register_rows) == (48, 0, 16)
-    assert lstm.scan_plan(2, 1024, 4, torch.float32, 20, 132).streamed_rows == 0
-    assert lstm.scan_plan(2, 1024, 4, torch.float32, 64, 132).streamed_rows > 0
+    evaluation = lstm.scan_plan(2, 1024, 4, torch.float32, 20, 132)
+    assert evaluation.streamed_rows == 0 and evaluation.pass_rows == 20   # one pass
+    assert evaluation.chunk_bytes == 512
+    assert f32.pass_rows == 8 and bf16.pass_rows == 16
+    assert lstm.scan_plan(2, 1024, 4, torch.float32, 64, 132).streamed_rows == 0
+    assert lstm.scan_plan(2, 1024, 4, torch.float32, 160, 132).streamed_rows > 0
     assert (bf16.streamed_rows, bf16.register_rows) == (0, 0)
     assert (one.units, one.ctas, one.register_rows) == (8, 128, 0)
 

@@ -3,7 +3,7 @@
 checkout of the port (its parent commit, say), on one CUDA card.
 
     git archive <parent> | tar -x -C proof/parent     # a directory .gitignore lists
-    python tools/torch_scan_turns.py --parent proof/parent [--out FILE]
+    python tools/torch_scan_turns.py --parent proof/parent [--runs LABELS] [--out FILE]
 
 In the order parent, this checkout, this checkout, parent, runs each
 checkout's copy of
@@ -18,7 +18,9 @@ checkout's copy of
   tools/torch_profile_eval.py    one f32 evaluation batch of the flagship (20
                                  utterances of 2-12 s, beam W=10);
 each in a process of its own from that checkout's root, so each builds and
-times its own kernels. This checkout's torch_serving_scans.py,
+times its own kernels; --runs takes a comma-separated subset of these
+labels ("serving scans", "microbench", "train step lstm bf16", "train step
+gru bf16", "eval batch f32"). This checkout's torch_serving_scans.py,
 torch_profile_train.py and torch_profile_eval.py are copied into the other
 first: both sides run the same measuring code. Prints one line a figure and
 turn with the card's name and power limit, and with --out writes every tool's
@@ -69,8 +71,11 @@ def figures(label: str, data: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="root of the other checkout")
+    ap.add_argument("--runs", default=",".join(r[0] for r in RUNS),
+                    help="the labels of the tools to run, comma-separated")
     ap.add_argument("--out", default="", help="write every tool's JSON here, by turn")
     args = ap.parse_args()
+    runs = [r for r in RUNS if r[0] in args.runs.split(",")]
     parent = os.path.abspath(args.parent)
     for name in COPIED:
         shutil.copy(os.path.join(ROOT, "tools", name), os.path.join(parent, "tools", name))
@@ -82,7 +87,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for i, (side, tree) in enumerate(turns):
             turn = {"side": side, "tree": tree}
-            for label, tool, extra in RUNS:
+            for label, tool, extra in runs:
                 out = os.path.join(tmp, f"{i}_{tool}_{'_'.join(extra)}.json")
                 proc = subprocess.run([sys.executable, os.path.join(tree, "tools", tool), *extra,
                                        "--out", out], cwd=tree, capture_output=True, text=True)

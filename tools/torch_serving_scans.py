@@ -6,7 +6,8 @@
 At the serving shapes of chip_smoke.py's phases 3 and 14 (T=501, B=8,
 H=1024, ragged lengths of 10 s utterances, nonzero carry, W_hh at 0.03):
 ``lstm_scan`` and ``gru_scan`` outside autograd, f32 and bf16, both
-directions in one call and one direction; then both directions at about
+directions in one call and one direction; both directions at B=1 (one
+utterance of T steps); then both directions at about
 the scan shape of one flagship evaluation batch as tools/torch_profile_eval.py
 forms it (20 utterances of 2-12 s padded to 1152 frames, 576 scan steps):
 T=577, B=20, 100-577 valid steps a row. Each figure
@@ -53,6 +54,7 @@ def run(torch, np):
     rng = np.random.default_rng(0)
     # (label, T, B, lengths, whether to time one direction too)
     shapes = (("", T, B, np.array(LENGTHS), True),
+              (" B=1", T, 1, np.array([T]), False),
               (f" eval T={EVAL_T} B={EVAL_B}", EVAL_T, EVAL_B,
                rng.integers(100, EVAL_T + 1, EVAL_B), False))
     out = {}
